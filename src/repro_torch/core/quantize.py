@@ -1,0 +1,152 @@
+"""Number formats for TableNet LUT inputs (counterpart of
+``repro/core/quantize.py``).
+
+* :class:`FixedPointFormat` — n-bit fixed point, signed (two's complement)
+  or unsigned, with ``frac_bits`` fractional bits.  Bitplane ``j`` of the
+  stored code contributes ``bit * 2**(j - frac_bits)``; the MSB of a signed
+  code contributes ``-2**(n-1-frac_bits)``.
+* :class:`Float16Format` — IEEE binary16.  The 11-bit mantissa (10 stored
+  bits plus the implicit one) is cut into ``mantissa_radix``-bit planes;
+  plane ``j`` of ``x`` contributes ``slice_j * (2**r)**j * sigma(e)`` with
+  ``sigma(e) = 2**(max(e,1) - 25)``, exact for normals and subnormals.
+
+Both decompositions are bit-exact against the reference on the same
+inputs.  The ternary formats and the stochastic-rounding LUT belong to the
+TL1 slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedPointFormat:
+    """``total_bits``-wide fixed point with ``frac_bits`` fractional bits."""
+
+    total_bits: int
+    frac_bits: int
+    signed: bool = False
+
+    def __post_init__(self):
+        if not (1 <= self.total_bits <= 24):
+            raise ValueError(f"total_bits must be in [1, 24], got {self.total_bits}")
+
+    @property
+    def scale(self) -> float:
+        return 2.0 ** (-self.frac_bits)
+
+    @property
+    def code_min(self) -> int:
+        return -(2 ** (self.total_bits - 1)) if self.signed else 0
+
+    @property
+    def code_max(self) -> int:
+        return 2 ** (self.total_bits - 1) - 1 if self.signed else 2**self.total_bits - 1
+
+    @property
+    def min_value(self) -> float:
+        return self.code_min * self.scale
+
+    @property
+    def max_value(self) -> float:
+        return self.code_max * self.scale
+
+    @property
+    def num_planes(self) -> int:
+        return self.total_bits
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """float -> integer code (round-to-nearest-even, saturating)."""
+        c = torch.round(x / self.scale)
+        return torch.clamp(c, self.code_min, self.code_max).to(torch.int32)
+
+    def to_unsigned_bits(self, codes: torch.Tensor) -> torch.Tensor:
+        """Two's-complement bit pattern of the code as a non-negative int."""
+        codes = codes.to(torch.int32)
+        if self.signed:
+            return torch.where(codes < 0, codes + 2**self.total_bits, codes)
+        return codes
+
+    def bitplanes(self, codes: torch.Tensor) -> torch.Tensor:
+        """Bits with a new leading axis of size ``num_planes``."""
+        u = self.to_unsigned_bits(codes)
+        planes = torch.arange(self.num_planes, dtype=torch.int32, device=u.device)
+        return (u[None, ...] >> planes.reshape((-1,) + (1,) * u.ndim)) & 1
+
+    def plane_scales(self) -> np.ndarray:
+        """Per-plane multiplier; MSB is negative for signed formats."""
+        s = (2.0 ** np.arange(self.num_planes)) * self.scale
+        if self.signed:
+            s[-1] = -s[-1]
+        return s.astype(np.float64)
+
+
+_F16_EXP_BITS = 5
+_F16_MAN_BITS = 10
+_F16_BIAS = 15
+
+
+@dataclasses.dataclass(frozen=True)
+class Float16Format:
+    """binary16 LUT input format (see the reference for the paper's
+    ``signed`` and ``mantissa_radix`` extensions)."""
+
+    signed: bool = False
+    mantissa_radix: int = 1
+
+    def __post_init__(self):
+        if not (1 <= self.mantissa_radix <= _F16_MAN_BITS + 1):
+            raise ValueError(
+                f"mantissa_radix must be in [1, {_F16_MAN_BITS + 1}], "
+                f"got {self.mantissa_radix}"
+            )
+
+    @property
+    def exp_bits(self) -> int:
+        return _F16_EXP_BITS
+
+    @property
+    def num_planes(self) -> int:
+        return -(-(_F16_MAN_BITS + 1) // self.mantissa_radix)
+
+    @property
+    def fields_per_element(self) -> int:
+        return self.mantissa_radix + _F16_EXP_BITS + (1 if self.signed else 0)
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """float -> binary16 (unsigned mode clamps negatives to 0)."""
+        if self.signed:
+            return x.to(torch.float16)
+        # "+ 0.0" turns clamp's -0.0 into +0.0, as the reference's maximum
+        return (torch.clamp(x, min=0.0) + 0.0).to(torch.float16)
+
+    @staticmethod
+    def _bits(h: torch.Tensor) -> torch.Tensor:
+        # int16 views are signed: widen, then mask back to the 16-bit pattern
+        return h.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+    def decompose(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(exponent, mantissa_planes)``: the 5-bit exponent field as int32
+        with ``h``'s shape, and a leading axis of ``num_planes`` radix-bit
+        slices of the 11-bit mantissa (implicit bit = 1 iff normal)."""
+        r = self.mantissa_radix
+        bits = self._bits(h)
+        exp = (bits >> _F16_MAN_BITS) & (2**_F16_EXP_BITS - 1)
+        man = bits & (2**_F16_MAN_BITS - 1)
+        man = man | ((exp > 0).to(torch.int32) << _F16_MAN_BITS)
+        shifts = r * torch.arange(self.num_planes, dtype=torch.int32, device=h.device)
+        slices = (man[None, ...] >> shifts.reshape((-1,) + (1,) * man.ndim)) & (
+            2**r - 1
+        )
+        return exp, slices
+
+    @classmethod
+    def sign_bits(cls, h: torch.Tensor) -> torch.Tensor:
+        return (cls._bits(h) >> 15) & 1
+
+    def plane_scales(self) -> np.ndarray:
+        r = self.mantissa_radix
+        return (2.0 ** (r * np.arange(self.num_planes))).astype(np.float64)

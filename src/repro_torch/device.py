@@ -1,0 +1,16 @@
+"""Device resolution shared by the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises when CUDA is asked for and
+    no card is present (there is no silent CPU path)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' explicitly to run the plain versions"
+        )
+    return dev

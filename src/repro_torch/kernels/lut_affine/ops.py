@@ -1,0 +1,224 @@
+"""Wrappers of the Hopper LUT affine kernels (counterpart of
+``repro/kernels/lut_affine/ops.py``).
+
+Contract kept from the reference: leading batch dims, bias added after
+the accumulate, and the plan's accumulator contract checked first.
+
+Dispatch: a CUDA tensor with ``use_kernels=True`` launches the kernel in
+``csrc/lut_affine.cu`` or raises; a CPU tensor, or ``use_kernels=False``
+(an explicit request for the plain version, made by the tests and the
+comparison phase of ``chip_smoke.py``), runs ``ref.py``.  Each wrapper
+counts its launches in :data:`LAUNCHES`, right where it launches.
+
+``scales`` are host values (a sequence, numpy array or CPU tensor): the
+kernels take each plane scale as an integer exponent and a sign, passed
+with the launch, so they must be powers of two -- every plane scale and
+narrow-table dequant scale the planner produces is one.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import check_acc_contract
+from repro_torch.kernels.lut_affine.ref import lut_affine_grouped_ref, lut_affine_ref
+
+LAUNCHES = {"lut_affine": 0, "lut_affine_grouped": 0}
+
+MAX_PLANES = 32
+MAX_SPLITS = 8
+# the kernel's output tile: 4 batch rows x 32 columns per block
+_TILE_ROWS, _TILE_COLS = 4, 32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
+_ARGS = (
+    [ctypes.c_void_p] * 4  # codes, tables, out, k-split partials
+    + [ctypes.c_void_p, ctypes.c_uint]  # plane exponents (host), sign mask
+    + [ctypes.c_int]  # dtype code
+)
+_DIMS = [ctypes.c_int] * 8  # B, n, k, E, p, shift_bits, vec, splits
+
+
+def host_scales(scales) -> np.ndarray:
+    """``scales`` as a host float64 vector (refuses device tensors: reading
+    one back would stall the stream every call)."""
+    if isinstance(scales, torch.Tensor):
+        if scales.device.type != "cpu":
+            raise ValueError("lut_affine scales must be host values, not on a device")
+        scales = scales.numpy()
+    return np.asarray(scales, np.float64).reshape(-1)
+
+
+def plane_shifts(scales) -> tuple[list[int], int]:
+    """Host plane scales -> (exponents, negative-sign bit mask), so that
+    ``scales[j] == (-1 if mask >> j & 1 else 1) * 2**exps[j]``.  Raises
+    unless every scale is +-2**e."""
+    vals = host_scales(scales)
+    if not 1 <= len(vals) <= MAX_PLANES:
+        raise ValueError(f"the kernels take 1..{MAX_PLANES} planes, got {len(vals)}")
+    exps, neg = [], 0
+    for j, s in enumerate(vals):
+        mant, e = math.frexp(abs(float(s)))
+        if not math.isfinite(s) or mant != 0.5:
+            raise ValueError(
+                f"plane scale {j} = {s!r} is not +-2**e: the kernels apply "
+                "scales as exponent shifts"
+            )
+        exps.append(e - 1)
+        if s < 0:
+            neg |= 1 << j
+    return exps, neg
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("lut_affine")
+    if not getattr(lib, "_bound", False):
+        lib.lut_affine_launch.argtypes = _ARGS + _DIMS + [ctypes.c_void_p]
+        lib.lut_affine_grouped_launch.argtypes = (
+            _ARGS + [ctypes.c_int] + _DIMS + [ctypes.c_void_p]
+        )
+        lib.lut_affine_launch.restype = ctypes.c_int
+        lib.lut_affine_grouped_launch.restype = ctypes.c_int
+        lib.lut_affine_error_string.argtypes = [ctypes.c_int]
+        lib.lut_affine_error_string.restype = ctypes.c_char_p
+        lib._bound = True
+    return lib
+
+
+def _check_operands(codes: torch.Tensor, tables: torch.Tensor, shift_bits: int):
+    if codes.dtype != torch.int32:
+        raise TypeError(f"codes must be int32, got {codes.dtype}")
+    if tables.dtype not in _DTYPE_CODE:
+        raise TypeError(f"tables must be f32/bf16/i8/i16, got {tables.dtype}")
+    if codes.device != tables.device:
+        raise ValueError(f"codes on {codes.device}, tables on {tables.device}")
+    if not (codes.is_contiguous() and tables.is_contiguous()):
+        raise ValueError("the kernels take contiguous codes and tables")
+    E = tables.shape[-2]
+    if shift_bits and E & (E - 1):
+        raise ValueError(f"shift_bits needs a power-of-two entry count, got {E}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k_splits(G: int, B: int, k: int, p: int, sms: int) -> int:
+    """How many k ranges the launch cuts the work into: enough blocks for
+    about four per SM when the output tiles alone are fewer (a decode
+    batch), at most ``MAX_SPLITS`` and never more than the chunks."""
+    tiles = G * -(-B // _TILE_ROWS) * -(-p // _TILE_COLS)
+    return max(1, min(MAX_SPLITS, k, -(-4 * sms // tiles)))
+
+
+def _operands(codes, tables, scales, shift_bits):
+    """Shared launch arguments: (out, k-split partials or None, ctypes args
+    before the dims, dims).  The partials live until the caller drops them,
+    after the launch; the caching allocator orders any reuse on the stream."""
+    _check_operands(codes, tables, shift_bits)
+    B, n, k = codes.shape
+    G, _, E, p = tables.shape
+    exps, neg = plane_shifts(scales)
+    if len(exps) != n:
+        raise ValueError(f"{len(exps)} scales for {n} planes")
+    out = torch.empty((G, B, p), dtype=torch.float32, device=codes.device)
+    splits = k_splits(G, B, k, p, _sm_count(codes.device))
+    part = (
+        torch.empty((splits, G, B, p), dtype=torch.float32, device=codes.device)
+        if splits > 1 else None
+    )
+    vec = p % 4 == 0 and tables.data_ptr() % (4 * tables.element_size()) == 0
+    head = (
+        codes.data_ptr(),
+        tables.data_ptr(),
+        out.data_ptr(),
+        part.data_ptr() if part is not None else None,
+        (ctypes.c_int * n)(*exps),  # read by the host entry before it returns
+        neg,
+        _DTYPE_CODE[tables.dtype],
+    )
+    dims = (B, n, k, E, p, shift_bits, int(vec), splits)
+    return out, part, head, dims
+
+
+def _raise_on(err: int, op: str):
+    if err != 0:
+        msg = _lib().lut_affine_error_string(err).decode()
+        raise RuntimeError(f"{op}: kernel launch failed with CUDA error {err} ({msg})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def lut_affine(
+    codes: torch.Tensor,  # (..., n, k) int32
+    tables: torch.Tensor,  # (k, E, p)
+    scales,  # (n,) host powers of two
+    bias: torch.Tensor | None = None,
+    *,
+    shift_bits: int = 0,
+    plan=None,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """``out[..., :] = sum_j scales[j] * sum_c tables[c, idx, :] (+ bias)``
+    in fp32, ``idx`` per the ``shift_bits`` code contract."""
+    if plan is not None:
+        check_acc_contract("lut_affine", plan, "float32")
+    *lead, n, k = codes.shape
+    k2, E, p = tables.shape
+    if k != k2:
+        raise ValueError(f"codes have {k} chunks, tables {k2}")
+    codes2 = codes.reshape(-1, n, k)
+    if use_kernels and codes2.is_cuda:
+        out, part, head, dims = _operands(
+            codes2.contiguous(), tables[None], scales, shift_bits
+        )
+        err = _lib().lut_affine_launch(*head, *dims, _stream(codes2))
+        _raise_on(err, "lut_affine")
+        LAUNCHES["lut_affine"] += 1
+        out = out[0]
+    else:
+        s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
+        out = lut_affine_ref(codes2, tables, s, shift_bits)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.reshape(*lead, p)
+
+
+def lut_affine_grouped(
+    codes: torch.Tensor,  # (..., n, k) int32, one packed input for the group
+    tables: torch.Tensor,  # (G, k, E, p), the LUTGroup leaf as stored
+    scales,  # (n,) host powers of two
+    biases: torch.Tensor | None = None,  # (G, p)
+    *,
+    shift_bits: int = 0,
+    plan=None,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """``out[g] = lut_affine(codes, tables[g], scales) (+ biases[g])`` for
+    all ``G`` projections in one launch -> ``(G, ..., p)``."""
+    if plan is not None:
+        check_acc_contract("lut_affine_grouped", plan, "float32")
+    *lead, n, k = codes.shape
+    G, k2, E, p = tables.shape
+    if k != k2:
+        raise ValueError(f"codes have {k} chunks, tables {k2}")
+    codes2 = codes.reshape(-1, n, k)
+    if use_kernels and codes2.is_cuda:
+        codes2 = codes2.contiguous()
+        out, part, head, dims = _operands(codes2, tables, scales, shift_bits)
+        err = _lib().lut_affine_grouped_launch(*head, G, *dims, _stream(codes2))
+        _raise_on(err, "lut_affine_grouped")
+        LAUNCHES["lut_affine_grouped"] += 1
+    else:
+        s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
+        out = lut_affine_grouped_ref(codes2, tables, s, shift_bits)
+    if biases is not None:
+        out = out + biases[:, None, :].to(torch.float32)
+    return out.reshape(G, *lead, p)

@@ -1,0 +1,93 @@
+"""Parameter specs and initialisation (counterpart of
+``repro/models/params.py``).
+
+Models declare shapes as :class:`PSpec` trees (nested dicts); the runtime
+materialises tensors on an explicit device from an explicit
+``torch.Generator``.  :func:`params_from_numpy` carries a tree exported
+from the JAX package (``jax.tree.map(np.asarray, params)``) across, so
+both packages can run on the same weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class PSpec:
+    """Declaration of one parameter tensor."""
+
+    shape: tuple[int, ...]
+    axes: tuple[Any, ...]  # logical axis name (str) or None per dim
+    init: str = "normal"  # normal | zeros | ones | embed
+    scale: float | None = None  # stddev override for "normal"
+    dtype: Any = None  # None -> model default
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn: Callable, tree):
+    """Map ``fn`` over the leaves of a nested dict (``None`` stays ``None``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def _fan_in(spec: PSpec) -> int:
+    # convention: last axis is the output axis of a projection, so a
+    # stacked (L, q, p) leaf counts L*q -- the reference's rule, kept as is
+    if len(spec.shape) == 1:
+        return 1
+    return int(np.prod(spec.shape[:-1]))
+
+
+def init_params(
+    tree,
+    generator: torch.Generator,
+    device: str | torch.device = "cuda",
+    default_dtype: torch.dtype = torch.float32,
+):
+    """Materialise real tensors on ``device`` from ``generator``, with the
+    reference's init rules (zeros / ones / N(0, 0.02) embeddings / N(0,
+    1/fan_in) otherwise).  Draws happen on the generator's device and the
+    result moves to ``device``, so a CPU generator gives the same weights
+    on every device."""
+    dev = resolve_device(device)
+
+    def one(spec: PSpec):
+        dtype = spec.dtype or default_dtype
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=dev)
+        std = spec.scale
+        if std is None:
+            std = 0.02 if spec.init == "embed" else 1.0 / math.sqrt(_fan_in(spec))
+        x = torch.randn(
+            spec.shape, generator=generator, dtype=torch.float32,
+            device=generator.device,
+        )
+        return (x * std).to(device=dev, dtype=dtype)
+
+    return tree_map(one, tree)
+
+
+def params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """Nested dict of numpy arrays (e.g. the JAX package's parameters via
+    ``np.asarray``) -> the same tree of tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def one(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    return tree_map(one, tree)
+
