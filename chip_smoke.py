@@ -1,28 +1,49 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
-    python3 chip_smoke.py [--phases device,kernel,serve] [--iters 20]
+    python3 chip_smoke.py [--phases device,kernel,serve,tl1_kernel,tl1_serve]
+                          [--iters 20]
 
 Phases, one JSON object per line:
 
 1. ``device``  the card, torch/CUDA versions, and the build of every
-   kernel from ``src/repro_torch/csrc`` with nvcc for sm_90a.
-2. ``kernel``  each Hopper kernel against its plain PyTorch version on the
-   card, at the main path's full-width granite_8b shapes (decode B = 4 and
-   prefill B = 4 slots x 32 tokens) and on a grid of table types,
-   shift_bits and ragged edges; with the kernel's time, the plain
-   version's, the least time the card could take (``bound_ms``) and, for
-   context, the dense bf16 matmul the tables replace.
+   kernel from ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per
+   source, all started together).
+2. ``kernel``  each weight-family kernel (``lut_affine``) against its
+   plain PyTorch version on the card, at the main path's full-width
+   granite_8b shapes (decode B = 4 and prefill B = 4 slots x 32 tokens) and
+   on a grid of table types, shift_bits and ragged edges; with the
+   kernel's time, the plain version's, the least time the card could take
+   (``bound_ms``) and, for context, the dense bf16 matmul the tables
+   replace.
 3. ``serve``   full-width granite_8b, depth cut to 4 layers, planned
    with the serving recipe, converted to i8 tables and served through
    ``BatchingEngine`` on the kernels; then the same requests on the plain
    versions, the prefill logits of both compared and every request's
    first token held equal.
+4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
+   version at the same full-width shapes and on a grid of int8/int4/exact
+   fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
+   bit, fp32 cases within 1e-5 x max|plain|; with ``torch._int_mm`` (a
+   cuBLAS int8 GEMM over the unpacked ternary weights) as the library
+   yardstick and an independent check of the integer accumulate.
+5. ``tl1_serve``  full-width granite_8b at all 36 layers, planned into
+   TL1 as the reference's ``serving_tl1_plan`` plans it (int8
+   activations), converted, its fp32 weights freed, served through
+   ``BatchingEngine`` on the kernels and then on the plain versions:
+   every stream identical, prefill logits within 1e-5 x max|plain|.
 
-Then one ``kernels`` summary line, the card's name and power limit as
-nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.  Any
-failure raises: the script exits non-zero without that last line.  It
-exits non-zero at once when no CUDA device is present.
+Kernel and library times are device times (:func:`device_ms`): many
+calls back to back between one pair of CUDA events, each call on its own
+copy of the tables so that it reads them from HBM as serving does, held
+behind a spin kernel until the host has enqueued them all.
+
+Every path is driven with the kernels' launch counts set to 0 just before
+it and read just after.  Then one ``kernels`` summary line, the card's
+name and power limit as nvidia-smi prints them, and last ``{"ok": true,
+"device": {...}}``.  Any failure raises: the script exits non-zero
+without that last line.  It exits non-zero at once when no CUDA device is
+present.
 """
 from __future__ import annotations
 
@@ -43,20 +64,35 @@ SRC = os.path.join(ROOT, "src")
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+# fp32 adds: one per fp32 lane (128 per SM) per clock; int32 adds: the 64
+# INT32 lanes per SM each retire a three-input IADD3, two adds per clock
+ADDS_PER_S = 128 * 132 * 1.98e9
+L2_BYTES = 50 * 2**20  # H100 SXM
+SPIN_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clock cycles
 KERNEL_TOL = 1e-5  # x max|plain|: fp32 sums taken in another order
 LOGITS_TOL = 5e-2  # x max|plain|, see the serve phase
 LOGITS_FRO_TOL = 5e-2  # ||kernel - plain|| / ||plain|| over the prefill logits
 
 # the serve phase: depth (cut by memory), requests, new tokens each
 LAYERS, REQUESTS, MAX_NEW = 4, 8, 16
+SLOTS, MAX_LEN, BUCKET = 4, 64, 32  # engine slots, cache length, prefill bucket
+TL1_LAYERS = 36  # the published depth: TL1 tables take 52 MiB per layer
+TL1_TOL = 1e-5  # x max|plain| on the exact fp32 path; the int path is exact
 
 # main-path shapes of full-width granite_8b: name -> (G, k, p)
 LONE = {"wq": (1, 4096, 4096), "wo": (1, 4096, 4096), "w_down": (1, 14336, 4096)}
 GROUPED = {"wk+wv": (2, 4096, 1024), "w_gate+w_up": (2, 4096, 14336)}
-SOURCE = "src/repro_torch/csrc/lut_affine.cu"
+SOURCES = {
+    "lut_affine": "src/repro_torch/csrc/lut_affine.cu",
+    "lut_affine_grouped": "src/repro_torch/csrc/lut_affine.cu",
+    "lut_tl1": "src/repro_torch/csrc/lut_tl1.cu",
+    "lut_tl1_grouped": "src/repro_torch/csrc/lut_tl1.cu",
+}
 REPLACES = {
     "lut_affine": "src/repro/kernels/lut_affine/lut_affine.py:275",
     "lut_affine_grouped": "src/repro/kernels/lut_affine/lut_affine.py:239",
+    "lut_tl1": "src/repro/kernels/lut_tl1/lut_tl1.py:125",
+    "lut_tl1_grouped": "src/repro/kernels/lut_tl1/lut_tl1.py:154",
 }
 
 
@@ -72,23 +108,54 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Median over ``iters`` launches of ``fn``, each between its own CUDA
-    events, after ``warmup`` untimed calls."""
+def device_ms(fns, iters: int, warmup: int = 2, hold: bool = True) -> float:
+    """Time of one call: ``iters`` calls of ``fns`` (cycled, so that each
+    can read its own copy of the operands, see :func:`copies_of`) back to
+    back between one pair of CUDA events, over the count, after ``warmup``
+    untimed calls.
+
+    With ``hold``, a spin kernel keeps the stream busy until the host has
+    enqueued every call, so the reading is the device's time alone and not
+    the host's enqueue (allocation, the ctypes call); it is checked that
+    the device had not reached the first event when the host was done.
+    Without it (the plain versions, hundreds of small launches per call at
+    prefill, more than the stream's queue holds) the reading includes the
+    host's enqueue wherever that outlasts the device's work."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
+    fns = list(fns)
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fns[0]()
+    torch.cuda.synchronize()
+    spin_s = 2 * iters * (time.perf_counter() - t0) + 1e-3  # host + device, with room
+    for _ in range(4):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
         a.record()
-        fn()
+        for i in range(iters):
+            fns[i % len(fns)]()
         b.record()
+        ahead = not a.query()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        if ahead or not hold:
+            return a.elapsed_time(b) / iters
+        spin_s *= 4
+    raise AssertionError("the host did not get ahead of the device; timing refused")
+
+
+def copies_of(t) -> list:
+    """``t`` and enough copies of it that together they hold twice the L2:
+    between two reads of one copy the others stream more than the L2
+    holds (or ``t`` alone exceeds it), so every timed call finds its
+    operand in HBM, as the main path does, which reads each layer's tables
+    once per step."""
+    n = min(64, max(1, -(-2 * L2_BYTES // max(1, t.numel() * t.element_size()))))
+    return [t] + [t.clone() for _ in range(n - 1)]
 
 
 # ---------------------------------------------------------------------------
@@ -140,23 +207,20 @@ def run_case(name, codes, tables, scales, shift_bits, iters, plain_iters, lib_fn
 
     G, k, E, p = tables.shape
     B, n, _ = codes.shape
-    if name == "lut_affine":
-        t = tables[0]
 
-        def kern():
-            return ops.lut_affine(codes, t, scales, shift_bits=shift_bits)
+    def kern(t=tables):
+        if name == "lut_affine":
+            return ops.lut_affine(codes, t[0], scales, shift_bits=shift_bits)
+        return ops.lut_affine_grouped(codes, t, scales, shift_bits=shift_bits)
 
-        def plain():
-            return ops.lut_affine(codes, t, scales, shift_bits=shift_bits, use_kernels=False)
-    else:
-
-        def kern():
-            return ops.lut_affine_grouped(codes, tables, scales, shift_bits=shift_bits)
-
-        def plain():
-            return ops.lut_affine_grouped(
-                codes, tables, scales, shift_bits=shift_bits, use_kernels=False
+    def plain():
+        if name == "lut_affine":
+            return ops.lut_affine(
+                codes, tables[0], scales, shift_bits=shift_bits, use_kernels=False
             )
+        return ops.lut_affine_grouped(
+            codes, tables, scales, shift_bits=shift_bits, use_kernels=False
+        )
 
     got = kern()
     torch.cuda.synchronize()
@@ -167,11 +231,11 @@ def run_case(name, codes, tables, scales, shift_bits, iters, plain_iters, lib_fn
     if not (err <= tol and torch.isfinite(got).all().item()):
         raise AssertionError(f"{name} B={B} n={n} k={k} E={E} p={p}: err {err} > tol {tol}")
     del got, ref
-    ms = cuda_ms(kern, iters)
-    plain_ms = cuda_ms(plain, plain_iters, warmup=1)
+    ms = device_ms([functools.partial(kern, c) for c in copies_of(tables)], iters)
+    plain_ms = device_ms([plain], plain_iters, warmup=1, hold=False)
     calls = 1 if name == "lut_affine" else G
     bms, by = bound(codes, calls, E, p, tables.element_size(), shift_bits)
-    lib_ms = cuda_ms(lib_fn, iters) if lib_fn is not None else None
+    lib_ms = device_ms([lib_fn], iters) if lib_fn is not None else None
     return {
         "max_abs_err": err, "tol": tol,
         "tol_reason": f"{KERNEL_TOL} x max|plain|: fp32 sums in another order",
@@ -208,7 +272,10 @@ def dense_ms(B, G, k, p, iters):
 
     x = torch.randn(B, k, device=DEV, dtype=torch.bfloat16)
     ws = torch.randn(G, k, p, device=DEV, dtype=torch.bfloat16)
-    return cuda_ms(lambda: [x @ ws[g] for g in range(G)], iters)
+    return device_ms(
+        [functools.partial(lambda w: [x @ w[g] for g in range(G)], c) for c in copies_of(ws)],
+        iters,
+    )
 
 
 def kernel_phase(iters: int, prefill_rows: int) -> dict:
@@ -281,17 +348,15 @@ def kernel_phase(iters: int, prefill_rows: int) -> dict:
 
 
 def serve_phase(layers: int, requests: int, max_new: int) -> dict:
-    import numpy as np
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import conversion_summary, convert_params
     from repro_torch.core.planner import plan_model
-    from repro_torch.kernels.lut_affine import ops
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.models.model import model_forward, model_specs
     from repro_torch.models.params import init_params
-    from repro_torch.serve import BatchingEngine, Request, make_cache
+    from repro_torch.serve import make_cache
 
     full = get_config("granite_8b")
     cfg = dataclasses.replace(full, num_layers=layers)
@@ -328,37 +393,13 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
           "seconds": time.perf_counter() - t0,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
 
-    rng = np.random.default_rng(0)
-    prompts = [
-        rng.integers(0, cfg.vocab_size, int(rng.integers(8, 33))).astype(np.int32)
-        for _ in range(requests)
-    ]
-    slots, max_len, bucket = 4, 64, 32
-
-    def serve(use_kernels: bool):
-        ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
-        eng = BatchingEngine(lut, ctx, slots, max_len, prefill_bucket=bucket, device=DEV)
-        reqs = [Request(i, pr, max_new) for i, pr in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
-        decode_ms = []
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        while True:
-            before, t = eng.prefill_tokens, time.perf_counter()
-            if not eng.step():
-                break
-            if eng.prefill_tokens == before:  # a pure decode step
-                decode_ms.append((time.perf_counter() - t) * 1e3)
-        wall = time.perf_counter() - start
-        return reqs, eng, wall, decode_ms
-
-    for key in ops.LAUNCHES:
-        ops.LAUNCHES[key] = 0
-    reqs, eng, wall, decode_ms = serve(True)
-    launches = dict(ops.LAUNCHES)
+    prompts = serve_requests(cfg, requests)
+    reset_launches()
+    reqs, eng, wall, decode_ms = run_engine(lut, cfg, prompts, max_new, True)
+    launches = read_launches()
     forwards = eng.readbacks
-    expect = {"lut_affine": 3 * layers * forwards, "lut_affine_grouped": 2 * layers * forwards}
+    expect = {"lut_affine": 3 * layers * forwards, "lut_affine_grouped": 2 * layers * forwards,
+              "lut_tl1": 0, "lut_tl1_grouped": 0}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
           "tok_per_s": tokens / wall, "wall_s": wall,
@@ -366,15 +407,15 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
           "forwards": forwards, "launches": launches, "expected_launches": expect,
           "per_forward": {"lut_affine": 3 * layers, "lut_affine_grouped": 2 * layers},
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
-    if launches != expect or min(launches.values()) <= 0:
+    if launches != expect or forwards <= 0:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
 
     emit({"phase": "serve", "step": "decode_profile",
-          **profile_decode(lut, cfg, prompts[:slots], slots, max_len, bucket, max_new)})
+          **profile_decode(lut, cfg, prompts[:SLOTS], max_new)})
 
-    plain_reqs, _, plain_wall, plain_decode = serve(False)
+    plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new, False)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
@@ -387,18 +428,13 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
 
     # one prefill batch, both paths, fresh caches; first at every depth up to
     # the served one, to show how the paths' difference grows layer by layer
-    tok = np.zeros((slots, bucket), np.int32)
-    mask = np.zeros((slots, bucket), bool)
-    for s in range(slots):
-        tok[s, : len(prompts[s])] = prompts[s]
-        mask[s, : len(prompts[s])] = True
-    inputs = {"tokens": torch.from_numpy(tok).to(DEV), "token_mask": torch.from_numpy(mask).to(DEV)}
+    inputs = prefill_inputs(prompts)
 
     def prefill_logits(depth: int, use_kernels: bool):
         dcfg = dataclasses.replace(cfg, num_layers=depth)
         params = dict(lut, blocks=first_layers(lut["blocks"], depth))
         ctx = Ctx(dcfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
-        cache = make_cache(dcfg, slots, max_len, ctx, device=DEV)
+        cache = make_cache(dcfg, SLOTS, MAX_LEN, ctx, device=DEV)
         with torch.no_grad():
             logits, _, _ = model_forward(params, inputs, ctx, cache=cache)
         return logits[inputs["token_mask"]]
@@ -433,7 +469,350 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
     return {"launches": launches}
 
 
-def profile_decode(lut, cfg, prompts, slots, max_len, bucket, max_new, steps=4):
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    from repro_torch.kernels.lut_affine import ops
+    from repro_torch.kernels.lut_tl1 import ops as tl1_ops
+
+    for counts in (ops.LAUNCHES, tl1_ops.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.lut_affine import ops
+    from repro_torch.kernels.lut_tl1 import ops as tl1_ops
+
+    return {**ops.LAUNCHES, **tl1_ops.LAUNCHES}
+
+
+def serve_requests(cfg, requests: int):
+    """The serve phases' requests: prompts of 8..32 tokens from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [
+        rng.integers(0, cfg.vocab_size, int(rng.integers(8, 33))).astype(np.int32)
+        for _ in range(requests)
+    ]
+
+
+def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool):
+    """Serve ``prompts`` through ``BatchingEngine`` (SLOTS slots, grouped
+    launches) on the kernels or the plain versions; returns the requests,
+    the engine, the wall seconds and each pure decode step's ms."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import BatchingEngine, Request
+
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
+    eng = BatchingEngine(params, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV)
+    reqs = [Request(i, pr, max_new) for i, pr in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    decode_ms = []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    while True:
+        before, t = eng.prefill_tokens, time.perf_counter()
+        if not eng.step():
+            break
+        if eng.prefill_tokens == before:  # a pure decode step
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+    return reqs, eng, time.perf_counter() - start, decode_ms
+
+
+def prefill_inputs(prompts):
+    """The first SLOTS prompts right-padded into one masked prefill batch."""
+    import numpy as np
+    import torch
+
+    tok = np.zeros((SLOTS, BUCKET), np.int32)
+    mask = np.zeros((SLOTS, BUCKET), bool)
+    for i in range(SLOTS):
+        tok[i, : len(prompts[i])] = prompts[i]
+        mask[i, : len(prompts[i])] = True
+    return {"tokens": torch.from_numpy(tok).to(DEV),
+            "token_mask": torch.from_numpy(mask).to(DEV)}
+
+
+# ---------------------------------------------------------------------------
+# TL1 kernel phase
+# ---------------------------------------------------------------------------
+
+
+def tl1_bound(G, B, kb, p):
+    """Least time for the card: the packed tables, the codes and the output
+    once over HBM bandwidth; or the adds over the add rate.  The least work
+    is one add per packed byte per column (an 81-entry LUT per packed byte,
+    i.e. per pair of pairs), plus building those LUTs: the two 9-entry pair
+    LUTs and the 81 entries, one add each, per token and packed byte."""
+    nbytes = G * kb * p + B * 4 * kb * 4 + G * B * p * 4
+    ops = G * B * kb * p + B * kb * (2 * 9 + 81)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ADDS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int_mm_fn(codes, tables):
+    """One cuBLAS call computing the same int32 accumulate: ``_int_mm`` of
+    the int8 codes (rows padded to 32, as it takes no fewer than 17) and
+    the unpacked int8 ternary weights of all G members side by side,
+    stored column-major.
+    Returns ``(calls, result reshaped to (G, B, p))``, one call for each of
+    :func:`copies_of` the weights; ``(None, None)`` where ``_int_mm``
+    refuses the shape."""
+    import torch
+
+    from repro_torch.core.lut_tl1 import unpack_indices
+
+    G, kb, p = tables.shape
+    B = codes.shape[0]
+    if p % 8 or kb % 2 or codes.is_floating_point():  # _int_mm: dims multiples of 8
+        return None, None
+    idx = unpack_indices(tables)  # (G, 2kb, p): pair j covers elements 2j, 2j+1
+    t = torch.stack([idx // 3 - 1, idx % 3 - 1], dim=2).reshape(G, 4 * kb, p)
+    # column-major, the layout cuBLAS's int8 tensor-core GEMM takes as is
+    w = t.to(torch.int8).permute(1, 0, 2).reshape(4 * kb, G * p).t().contiguous().t()
+    rows = max(32, -(-B // 8) * 8)
+    a = torch.zeros((rows, 4 * kb), dtype=torch.int8, device=codes.device)
+    a[:B] = codes.to(torch.int8)
+    calls = [functools.partial(torch._int_mm, a, c) for c in copies_of(w)]
+    return calls, calls[0]()[:B].reshape(B, G, p).permute(1, 0, 2)
+
+
+def run_tl1_case(name, acts, act_scale, tables, scale, bias, iters, plain_iters):
+    """Kernel vs plain on one case: the int path bit for bit (raw accumulate
+    and dequantized output), the fp32 path within TL1_TOL x max|plain|;
+    then the kernel's, the plain version's and ``_int_mm``'s times."""
+    import torch
+
+    from repro_torch.kernels.lut_tl1 import ops
+    from repro_torch.kernels.lut_tl1.ref import lut_tl1_grouped_ref
+
+    G, kb, p = tables.shape
+    exact = not acts.is_floating_point()
+    if name == "lut_tl1":
+        got = ops.lut_tl1(acts, tables[0], act_scale, scale[0], bias=bias[0])[None]
+        want = ops.lut_tl1(
+            acts, tables[0], act_scale, scale[0], bias=bias[0], use_kernels=False
+        )[None]
+    else:
+        got = ops.lut_tl1_grouped(acts, tables, act_scale, scale, biases=bias)
+        want = ops.lut_tl1_grouped(
+            acts, tables, act_scale, scale, biases=bias, use_kernels=False
+        )
+    flat = acts.reshape(-1, acts.shape[-1])
+    B = flat.shape[0]
+    raw = ops._launch(name, flat, tables)
+    torch.cuda.synchronize()
+    raw_plain = lut_tl1_grouped_ref(flat, tables)
+    err = max((got - want).abs().max().item(), (raw - raw_plain).abs().max().item())
+    scale_ref = want.abs().max().item()
+    tol = 0.0 if exact else TL1_TOL * scale_ref
+    if not (err <= tol and torch.isfinite(got).all().item()):
+        raise AssertionError(f"{name} B={B} kb={kb} p={p} G={G}: err {err} > tol {tol}")
+    lib, lib_out = int_mm_fn(flat, tables)
+    if lib_out is not None and not torch.equal(lib_out, raw):
+        raise AssertionError(f"{name} B={B} kb={kb} p={p}: _int_mm disagrees with the kernel")
+    del got, want, raw, raw_plain, lib_out
+    ms = device_ms(
+        [functools.partial(ops._launch, name, flat, t) for t in copies_of(tables)], iters
+    )
+    plain_ms = device_ms(
+        [lambda: lut_tl1_grouped_ref(flat, tables)], plain_iters, warmup=1, hold=False
+    )
+    lib_ms = device_ms(lib, iters) if lib is not None else None
+    bms, by = tl1_bound(G, B, kb, p)
+    return {
+        "max_abs_err": err, "tol": tol,
+        "tol_reason": "int path: integer accumulate, bit for bit" if exact
+        else f"{TL1_TOL} x max|plain|: fp32 sums in another order",
+        "int_mm_agrees": None if lib is None else True,
+        "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms,
+    }
+
+
+def tl1_kernel_phase(iters: int, prefill_rows: int) -> dict:
+    import torch
+
+    from repro_torch.core.lut_tl1 import TL1Plan, build_tl1_tables, quantize_acts
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    worst = {"lut_tl1": 0.0, "lut_tl1_grouped": 0.0}
+    main = {}  # decode-shape numbers per kernel, summed over one layer's calls
+    for rows in (4, prefill_rows):
+        for name, shapes in (("lut_tl1", LONE), ("lut_tl1_grouped", GROUPED)):
+            for proj, (G, q, p) in shapes.items():
+                plan = TL1Plan(q, p, act_bits=8)
+                built = [
+                    build_tl1_tables(torch.randn(q, p, generator=gen, device=DEV))
+                    for _ in range(G)
+                ]
+                tables = torch.stack([t for t, _ in built])
+                scale = torch.stack([s for _, s in built])
+                bias = torch.randn(G, p, generator=gen, device=DEV)
+                x = torch.randn(rows, q, generator=gen, device=DEV)
+                codes, act_scale = quantize_acts(x, plan)
+                r = run_tl1_case(name, codes, act_scale, tables, scale, bias, iters,
+                                 5 if rows > 4 else 10)
+                emit({"phase": "tl1_kernel", "kernel": name, "proj": proj, "rows": rows,
+                      "G": G, "q": q, "kb": plan.packed_chunks, "p": p, "act_bits": 8, **r})
+                worst[name] = max(worst[name], r["max_abs_err"])
+                if rows == 4:
+                    m = main.setdefault(name, {"kernel_ms": 0.0, "plain_ms": 0.0,
+                                               "bound_ms": 0.0, "library_ms": 0.0,
+                                               "bound_by": set()})
+                    for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms"):
+                        m[key] += r[key]
+                    m["bound_by"].add(r["bound_by"])
+                del tables, built, codes
+                torch.cuda.empty_cache()
+    # grid: int8 / int4 / exact fp32 codes, ragged q (zero-padded tail),
+    # p off the 128-column tile and off 4, leading dims, few packed rows
+    grid = [
+        # lead, kb, p, G
+        ((2, 5), 77, 130, 2),
+        ((3,), 50, 67, 2),
+        ((40,), 9, 256, 2),
+        ((1,), 300, 1000, 1),
+    ]
+    for act_bits in (8, 4, None):
+        for lead, kb, p, G in grid:
+            q = 4 * kb - 3
+            if act_bits is None:
+                acts = torch.randn(lead + (4 * kb,), generator=gen, device=DEV)
+                act_scale = None
+            else:
+                qa = 2 ** (act_bits - 1) - 1
+                acts = torch.randint(-qa, qa + 1, lead + (4 * kb,), generator=gen,
+                                     device=DEV, dtype=torch.int32)
+                act_scale = torch.rand(lead + (1,), generator=gen, device=DEV)
+            acts[..., q:] = 0
+            nib = torch.randint(0, 9, (G, kb, p, 2), generator=gen, device=DEV)
+            tables = (nib[..., 0] | (nib[..., 1] << 4)).to(torch.uint8)
+            scale = torch.rand(G, generator=gen, device=DEV)
+            bias = torch.randn(G, p, generator=gen, device=DEV)
+            for name in ("lut_tl1", "lut_tl1_grouped"):
+                t, s, b = (tables[:1], scale[:1], bias[:1]) if name == "lut_tl1" \
+                    else (tables, scale, bias)
+                r = run_tl1_case(name, acts, act_scale, t, s, b, iters, 5)
+                emit({"phase": "tl1_kernel", "kernel": name, "grid": True,
+                      "lead": list(lead), "G": t.shape[0], "q": q, "kb": kb, "p": p,
+                      "act_bits": act_bits, **r})
+    return {"worst": worst, "main": main}
+
+
+# ---------------------------------------------------------------------------
+# TL1 serve phase
+# ---------------------------------------------------------------------------
+
+
+def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import conversion_summary, convert_params
+    from repro_torch.core.planner import plan_model
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward, model_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import make_cache
+
+    full = get_config("granite_8b")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(model_specs(cfg), gen, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the reference's serving_tl1_plan: every projection into TL1, int8
+    # activations (its TPU block sizes are the port's own business)
+    mplan = plan_model(params, float("inf"), families=("tl1",))
+    emit({"phase": "tl1_serve", "step": "plan", "summary": mplan.summary(),
+          "families": list(mplan.families), "table_mib": mplan.total_lut_bytes / 2**20,
+          "table_mib_per_layer": mplan.total_lut_bytes / layers / 2**20,
+          "act_bits": sorted({p.act_bits for p in mplan.layers.values()}),
+          "depth": {"layers": layers, "published": full.num_layers},
+          "init_seconds": init_s})
+    t0 = time.perf_counter()
+    tl1, report = convert_params(params, plan=mplan)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    peak_convert = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "tl1_serve", "step": "convert", "summary": conversion_summary(report),
+          "seconds": convert_s, "max_memory_allocated_gib": peak_convert,
+          "table_bytes": report.table_bytes, "planned_fp32_gib": report.weight_bytes / 2**30,
+          "memory_allocated_after_free_gib": torch.cuda.memory_allocated() / 2**30})
+    if report.table_bytes != mplan.total_lut_bytes:
+        raise AssertionError(f"tables {report.table_bytes} B != plan {mplan.total_lut_bytes} B")
+
+    prompts = serve_requests(cfg, requests)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reqs, eng, wall, decode_ms = run_engine(tl1, cfg, prompts, max_new, True)
+    launches = read_launches()
+    forwards = eng.readbacks
+    per_forward = {"lut_tl1": 3 * layers, "lut_tl1_grouped": 2 * layers}
+    expect = {"lut_affine": 0, "lut_affine_grouped": 0,
+              **{k: v * forwards for k, v in per_forward.items()}}
+    tokens = sum(len(r.generated) for r in reqs)
+    emit({"phase": "tl1_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
+          "tok_per_s": tokens / wall, "wall_s": wall,
+          "median_decode_step_ms": statistics.median(decode_ms),
+          "forwards": forwards, "launches": launches, "expected_launches": expect,
+          "per_forward": per_forward,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if launches != expect or forwards <= 0:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if not all(len(r.generated) == max_new for r in reqs):
+        raise AssertionError("a request stopped short of max_new")
+
+    emit({"phase": "tl1_serve", "step": "decode_profile",
+          **profile_decode(tl1, cfg, prompts[:SLOTS], max_new)})
+
+    plain_reqs, _, plain_wall, plain_decode = run_engine(tl1, cfg, prompts, max_new, False)
+    same = sum(
+        x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
+    )
+    identical = all(a.generated == b.generated for a, b in zip(reqs, plain_reqs))
+    emit({"phase": "tl1_serve", "step": "plain", "layers": layers,
+          "tok_per_s": tokens / plain_wall, "wall_s": plain_wall,
+          "median_decode_step_ms": statistics.median(plain_decode),
+          "streams_identical": identical, "identical_token_share": same / tokens})
+    if not identical:
+        raise AssertionError("kernel and plain paths disagree on a TL1 stream")
+
+    inputs = prefill_inputs(prompts)
+
+    def prefill_logits(use_kernels: bool):
+        ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
+        cache = make_cache(cfg, SLOTS, MAX_LEN, ctx, device=DEV)
+        with torch.no_grad():
+            logits, _, _ = model_forward(tl1, inputs, ctx, cache=cache)
+        return logits[inputs["token_mask"]]
+
+    got, ref = prefill_logits(True), prefill_logits(False)
+    err = (got - ref).abs().max().item()
+    tol = TL1_TOL * ref.abs().max().item()
+    finite = bool(torch.isfinite(got).all().item())
+    emit({"phase": "tl1_serve", "step": "prefill_logits", "layers": layers,
+          "shape": list(got.shape), "max_abs_err": err, "max_abs_ref": ref.abs().max().item(),
+          "tol": tol, "finite": finite,
+          "argmax_agree": (got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+          "tol_reason": f"{TL1_TOL} x max|plain|; the integer TL1 accumulate makes both "
+                        "paths compute the same values, so 0 is expected"})
+    if not (finite and err <= tol):
+        raise AssertionError(f"TL1 prefill logits differ: {err} > {tol}")
+    return {"launches": launches}
+
+
+def profile_decode(lut, cfg, prompts, max_new, steps=4):
     """Where a steady decode step's time goes: ``torch.profiler`` over
     ``steps`` engine steps after admission.  ``busy_ms`` sums the device
     time of every kernel; the idle share is the rest of the host-clock
@@ -446,7 +825,7 @@ def profile_decode(lut, cfg, prompts, slots, max_len, bucket, max_new, steps=4):
     from repro_torch.serve import BatchingEngine, Request
 
     ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
-    eng = BatchingEngine(lut, ctx, slots, max_len, prefill_bucket=bucket, device=DEV)
+    eng = BatchingEngine(lut, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV)
     for i, pr in enumerate(prompts):
         eng.submit(Request(i, pr, max_new))
     eng.step()  # admission prefill + first decode
@@ -501,7 +880,7 @@ def plain_gather_bytes(nbytes: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,kernel,serve")
+    ap.add_argument("--phases", default="device,kernel,serve,tl1_kernel,tl1_serve")
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -519,8 +898,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     built = build.build(force=True)
-    ptxas = [ln.strip() for log in build.BUILD_LOG.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in build.BUILD_LOG.items()}
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "tf32": {"matmul": False, "cudnn": False},
@@ -528,17 +908,26 @@ def main(argv=None) -> int:
           "ptxas": ptxas})
     kern = kernel_phase(args.iters, 4 * 32) if "kernel" in phases else None
     srv = serve_phase(LAYERS, REQUESTS, MAX_NEW) if "serve" in phases else None
-    if kern is not None and srv is not None:
-        emit({"kernels": [
-            {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-             "launches": srv["launches"][name], "max_abs_err": kern["worst"][name],
-             "ms": kern["main"][name]["kernel_ms"],
-             "plain_ms": kern["main"][name]["plain_ms"],
-             "bound_ms": kern["main"][name]["bound_ms"],
-             "bound_by": "/".join(sorted(kern["main"][name]["bound_by"])),
-             "library_ms": None}
-            for name in ("lut_affine", "lut_affine_grouped")
-        ]})
+    torch.cuda.empty_cache()
+    tkern = tl1_kernel_phase(args.iters, 4 * 32) if "tl1_kernel" in phases else None
+    tsrv = tl1_serve_phase(TL1_LAYERS, REQUESTS, MAX_NEW) if "tl1_serve" in phases else None
+    rows = []
+    for k, s, names in ((kern, srv, ("lut_affine", "lut_affine_grouped")),
+                        (tkern, tsrv, ("lut_tl1", "lut_tl1_grouped"))):
+        if k is None or s is None:
+            continue
+        for name in names:
+            m = k["main"][name]
+            rows.append({
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": s["launches"][name],
+                "max_abs_err": k["worst"][name], "ms": m["kernel_ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": "/".join(sorted(m["bound_by"])),
+                "library_ms": m.get("library_ms"),
+            })
+    if rows:
+        emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

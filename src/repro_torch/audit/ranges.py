@@ -1,20 +1,24 @@
-"""Closed-form range certificates for weight-family plans (counterpart of
-the weight branch of ``repro/audit/ranges.py::layer_range_cert``).
+"""Closed-form range certificates for both table families (counterpart of
+``repro/audit/ranges.py::layer_range_cert``).
 
 Every gathered entry is ``sum_i coeff_i * W_i`` with the per-element
 dequantised coefficient bounded by ``elem_max``: fp16 ``full`` mode 65504,
 fp16 bitplane modes ``32 * (2**(r*n) - 1)``, fixed point
 ``max(|min_value|, max_value)`` (full) or ``(2**n - 1) * 2**-f``
 (bitplane).  Hence ``max_abs_acc = padded_in * elem_max * w_max``; i8/i16
-storage inflates it by ``(1 + 1/qmax)``.  The planner stamps each chosen
-plan with this bound and the kernels check it before every dispatch.
-The TL1 family's certificate comes with the TL1 slice.
+storage inflates it by ``(1 + 1/qmax)``.
+
+TL1's int path counts CODE units: with ``qa = 2**(act_bits-1) - 1`` every
+entry is ``|+-a0 +- a1| <= 2*qa`` and ``max_abs_acc = 2*qa*num_chunks``;
+its exact path is fp32.  The planner stamps each chosen plan with its
+bound and the kernels check it before every dispatch.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.core.lut import TABLE_QMAX, LUTPlan
+from repro_torch.core.lut_tl1 import TL1Plan
 from repro_torch.core.quantize import Float16Format
 from repro_torch.kernels.common import ACC_CAPACITY
 
@@ -61,14 +65,40 @@ def _weight_elem_max(plan: LUTPlan) -> float:
     return float(2**fmt.total_bits - 1) * fmt.scale
 
 
-def layer_range_cert(
-    plan: LUTPlan, *, w_max: float = 1.0, act_max: float = 1.0
-) -> RangeCert:
-    """Closed-form :class:`RangeCert` for one weight-family plan."""
-    if not isinstance(plan, LUTPlan):
-        raise NotImplementedError(
-            f"range certificates for {type(plan).__name__} come with the TL1 slice"
+def _tl1_cert(plan: TL1Plan, w_max: float, act_max: float) -> RangeCert:
+    if plan.act_bits is not None:
+        qa = float(2 ** (int(plan.act_bits) - 1) - 1)
+        entry_max = 2.0 * qa  # |+-a0 +- a1| in code units
+        max_abs_acc = entry_max * plan.num_chunks
+        # absmax rounding <= scale/2 = act_max/(2*qa) per element, through
+        # a |weight| <= w_max, summed over the input width
+        return RangeCert(
+            family="tl1",
+            integer=True,
+            max_abs_acc=max_abs_acc,
+            min_acc_dtype=_min_acc_dtype(max_abs_acc, integer=True),
+            entry_max=entry_max,
+            table_quant_err=0.0,  # ternary indices are stored exactly
+            act_quant_err=plan.in_features * w_max * act_max / (2.0 * qa),
         )
+    entry_max = 2.0 * act_max
+    return RangeCert(
+        family="tl1",
+        integer=False,
+        max_abs_acc=entry_max * plan.num_chunks,
+        min_acc_dtype="float32",
+        entry_max=entry_max,
+        table_quant_err=0.0,
+        act_quant_err=0.0,  # the exact path quantizes nothing
+    )
+
+
+def layer_range_cert(
+    plan: LUTPlan | TL1Plan, *, w_max: float = 1.0, act_max: float = 1.0
+) -> RangeCert:
+    """Closed-form :class:`RangeCert` for one plan (either family)."""
+    if isinstance(plan, TL1Plan):
+        return _tl1_cert(plan, w_max, act_max)
     elem_max = _weight_elem_max(plan)
     exact_acc = plan.padded_in * elem_max * w_max
     if plan.table_format is not None:

@@ -1,5 +1,5 @@
 """Model -> TableNet conversion pass (counterpart of
-``repro/core/convert.py``, weight family, dense models).
+``repro/core/convert.py``, both table families, dense models).
 
 Walks a parameter tree of tensors and replaces every eligible linear node
 (``{"w": (..., q, p)}``, optionally with ``"b"``) by its tables:
@@ -10,13 +10,21 @@ Walks a parameter tree of tensors and replaces every eligible linear node
   under an ``"a+b"`` key: the layout the grouped kernel reads in place.
 
 Both carry their plan, so execution never infers it from table shapes.
-Narrow tables (``table_format`` i8/i16) carry ``scale``: one power-of-2
-dequant scale per table set, a host fp32 tensor shaped like the leading
-(layer) dims -- the kernels take it with the launch as an exponent.
+Narrow weight-family tables (``table_format`` i8/i16) carry ``scale``: one
+power-of-2 dequant scale per table set, a host fp32 tensor shaped like the
+leading (layer) dims -- the kernels take it with the launch as an exponent.
 
-Tables are built and quantized a slice of chunks at a time, with the
-scale taken first from the set's global max, so no whole fp32 table set
-is ever held; every entry equals the whole-array build bit for bit.
+Weight-family tables are built and quantized a slice of chunks at a time,
+with the scale taken first from the set's global max, so no whole fp32
+table set is ever held; every entry equals the whole-array build bit for
+bit.
+
+TL1-planned projections store ``(..., [G,] kb, p)`` uint8 packed base-3
+indices and ``scale``, the ternary weight scale of each matrix: a float32
+tensor on the tables' device shaped ``(...)`` (``(..., G)`` for a group),
+applied after the integer accumulate.  They are built one leading (layer)
+index at a time, so a stacked fp32 model never needs temporaries of its
+own size.
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ from repro_torch.core.lut import (
     quantize_with_scale,
     scale_from_maxabs,
 )
-from repro_torch.core.planner import ModelPlan, path_key
+from repro_torch.core.lut_tl1 import TL1Plan, build_tl1_tables
+from repro_torch.core.planner import AnyPlan, ModelPlan, path_key
 from repro_torch.core.quantize import Float16Format
 
 FUSABLE_SIBLINGS = (("wq", "wk", "wv"), ("w_gate", "w_up"))
@@ -54,10 +63,12 @@ def _index(x, i):
 class LUTLinear:
     """A converted projection: kernel-ready tables + its conversion plan."""
 
-    tables: Any  # (..., k, E, p)
-    plan: LUTPlan
+    tables: Any  # weight: (..., k, E, p); tl1: (..., kb, p) uint8
+    plan: AnyPlan
     b: Any = None  # (..., p) or None
-    scale: Any = None  # host fp32 (...) dequant scale for i8/i16 tables
+    # weight: host fp32 (...) dequant scale for i8/i16 tables, else None;
+    # tl1: the (...) ternary weight scale, on the tables' device
+    scale: Any = None
 
     def layer(self, i: int) -> "LUTLinear":
         """View of layer ``i`` of a scan-stacked node (no copy)."""
@@ -71,11 +82,12 @@ class LUTGroup:
     """Pre-stacked fusable sibling projections sharing one plan.
 
     ``b`` is ``None``, a stacked ``(..., G, p)`` tensor (every member has a
-    bias) or a per-member tuple with ``None`` holes.  ``scale`` is ONE
-    dequant scale per table set shared by every member."""
+    bias) or a per-member tuple with ``None`` holes.  Weight family:
+    ``scale`` is ONE dequant scale per table set shared by every member;
+    TL1: one ternary scale per member, ``(..., G)``."""
 
-    tables: Any  # (..., G, k, E, p)
-    plan: LUTPlan
+    tables: Any  # weight: (..., G, k, E, p); tl1: (..., G, kb, p) uint8
+    plan: AnyPlan
     members: tuple
     b: Any = None
     scale: Any = None
@@ -176,6 +188,25 @@ def build_table_sets(
     return out, scales
 
 
+def build_tl1_sets(
+    ws: list[torch.Tensor], plan: TL1Plan, grouped: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed TL1 tables for the member weights ``ws`` (each ``(*lead, q,
+    p)``): ``(*lead, [G,] kb, p)`` uint8 and the ternary scales ``(*lead,
+    [G])`` float32, one leading index and member at a time."""
+    lead = tuple(ws[0].shape[:-2])
+    G = (len(ws),) if grouped else ()
+    dev = ws[0].device
+    shape = lead + G + (plan.packed_chunks, plan.out_features)
+    tables = torch.empty(shape, dtype=torch.uint8, device=dev)
+    scales = torch.empty(lead + G, dtype=torch.float32, device=dev)
+    for li in itertools.product(*(range(d) for d in lead)):
+        for g, w in enumerate(ws):
+            at = li + ((g,) if grouped else ())
+            tables[at], scales[at] = build_tl1_tables(w[li])
+    return tables, scales
+
+
 def convert_params(
     params: dict,
     chunk_size: int = 1,
@@ -203,7 +234,7 @@ def convert_params(
         {frozenset(g) for g in plan.groups} if plan is not None else None
     )
 
-    def member_plan(path: tuple, node: dict) -> Optional[LUTPlan]:
+    def member_plan(path: tuple, node: dict) -> Optional[AnyPlan]:
         w = node["w"]
         q, p = w.shape[-2:]
         if q < min_features or (predicate and not predicate(path, node)):
@@ -219,8 +250,6 @@ def convert_params(
                 f"{layer_plan.in_features}x{layer_plan.out_features}, "
                 f"layer is {q}x{p}"
             )
-        if layer_plan.table_family != "weight":
-            raise NotImplementedError("the TL1 table family comes with the TL1 slice")
         used_plan_keys.add(path_key(path))
         return layer_plan
 
@@ -229,10 +258,15 @@ def convert_params(
             stats["w_bytes"] += w.numel() * w.element_size()
         stats["t_bytes"] += tables.numel() * tables.element_size()
 
-    def convert_one(node: dict, layer_plan: LUTPlan) -> LUTLinear:
-        tables, scale = build_table_sets(
-            [node["w"]], layer_plan, table_dtype, slice_bytes=slice_bytes
+    def build(ws, layer_plan: AnyPlan, grouped: bool):
+        if isinstance(layer_plan, TL1Plan):
+            return build_tl1_sets(ws, layer_plan, grouped=grouped)
+        return build_table_sets(
+            ws, layer_plan, table_dtype, grouped=grouped, slice_bytes=slice_bytes
         )
+
+    def convert_one(node: dict, layer_plan: AnyPlan) -> LUTLinear:
+        tables, scale = build([node["w"]], layer_plan, grouped=False)
         stats["converted"] += 1
         account([node["w"]], tables)
         return LUTLinear(tables=tables, plan=layer_plan, b=node.get("b"), scale=scale)
@@ -256,9 +290,7 @@ def convert_params(
                 f"mismatched member plans — grouped siblings must share one"
             )
         ws = [node[m]["w"] for m in members]
-        tables, scale = build_table_sets(
-            ws, plans[0], table_dtype, grouped=True, slice_bytes=slice_bytes
-        )
+        tables, scale = build(ws, plans[0], grouped=True)
         stats["converted"] += len(members)
         account(ws, tables)
         biases = [node[m].get("b") for m in members]

@@ -1,5 +1,5 @@
-"""Partition planner (counterpart of ``repro/core/planner.py``, weight
-family).
+"""Partition planner (counterpart of ``repro/core/planner.py``, both
+table families).
 
 :func:`plan_model` walks a parameter tree, enumerates the Pareto frontier
 of plans for every eligible linear layer (fusable sibling groups as one
@@ -14,25 +14,26 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Iterable, Iterator, Mapping, Sequence
+from typing import Any, Callable, Iterable, Iterator, Mapping, Sequence, Union
 
 from repro_torch.core.lut import LUTPlan
+from repro_torch.core.lut_tl1 import TL1Plan
 from repro_torch.core.quantize import FixedPointFormat, Float16Format
 
 TABLE_FAMILIES = ("weight", "tl1")
-_TL1 = "the TL1 table family comes with the TL1 slice of the port"
+AnyPlan = Union[LUTPlan, TL1Plan]
 
 
 @dataclasses.dataclass(frozen=True)
 class PlanPoint:
-    plan: LUTPlan
+    plan: AnyPlan
     num_tables: int
     lut_bytes: int
     lut_evaluations: int
     shift_add_ops: int
 
     @staticmethod
-    def of(plan: LUTPlan) -> "PlanPoint":
+    def of(plan: AnyPlan) -> "PlanPoint":
         return PlanPoint(
             plan=plan,
             num_tables=plan.num_chunks,
@@ -137,7 +138,22 @@ def _fmt_from_json(d: Mapping) -> Any:
     return FixedPointFormat(d["total_bits"], d["frac_bits"], signed=d["signed"])
 
 
-def plan_to_json(plan: LUTPlan) -> dict:
+def plan_to_json(plan: AnyPlan) -> dict:
+    if isinstance(plan, TL1Plan):
+        out = {
+            "family": "tl1",
+            "in_features": plan.in_features,
+            "out_features": plan.out_features,
+            "act_bits": plan.act_bits,
+        }
+        if plan.blocks is not None:
+            out["blocks"] = list(plan.blocks)
+        # defaults stay implicit, as in the reference's JSON
+        if plan.act_bits is not None and plan.acc_dtype != "int32":
+            out["acc_dtype"] = plan.acc_dtype
+        if plan.max_abs_acc is not None:
+            out["max_abs_acc"] = plan.max_abs_acc
+        return out
     out = {
         "in_features": plan.in_features,
         "out_features": plan.out_features,
@@ -157,13 +173,21 @@ def plan_to_json(plan: LUTPlan) -> dict:
     return out
 
 
-def plan_from_json(d: Mapping) -> LUTPlan:
+def plan_from_json(d: Mapping) -> AnyPlan:
+    # plans written before the TL1 family existed carry no "family"
     family = d.get("family", "weight")
+    blocks = d.get("blocks")
     if family == "tl1":
-        raise NotImplementedError(_TL1)
+        return TL1Plan(
+            d["in_features"],
+            d["out_features"],
+            act_bits=d.get("act_bits", 8),
+            blocks=tuple(blocks) if blocks is not None else None,
+            acc_dtype=d.get("acc_dtype", "int32"),
+            max_abs_acc=d.get("max_abs_acc"),
+        )
     if family != "weight":
         raise ValueError(f"unknown table family {family!r}")
-    blocks = d.get("blocks")
     return LUTPlan(
         d["in_features"],
         d["out_features"],
@@ -184,7 +208,7 @@ class ModelPlan:
     the fusable sibling ``groups`` and the per-entry table-set ``copies``
     (product of leading scan dims)."""
 
-    layers: Mapping[str, LUTPlan]
+    layers: Mapping[str, AnyPlan]
     budget_bytes: int | None = None
     groups: tuple = ()
     copies: Mapping[str, int] = dataclasses.field(default_factory=dict)
@@ -314,11 +338,16 @@ def plan_model(
     radices: Sequence[int] = (1,),
     table_formats: Sequence[str | None] = (None,),
     families: Sequence[str] = ("weight",),
+    tl1_act_bits: int | None = 8,
+    tl1_acc_dtype: str = "int32",
 ) -> ModelPlan:
     """Choose a per-layer plan for every eligible linear under a global
     byte budget: the reference's greedy knapsack over each item's Pareto
-    frontier, certificate gate included.  Raises ``ValueError`` if even the
-    minimal plans exceed the budget."""
+    frontier, certificate gate included.  With ``"tl1"`` in ``families``
+    each frontier also carries the TL1 point (``tl1_act_bits``
+    activations, ``tl1_acc_dtype`` accumulator), so layers may land in
+    different families.  Raises ``ValueError`` if even the minimal plans
+    exceed the budget or no candidate of a layer passes its certificate."""
     from repro_torch.audit.ranges import layer_range_cert
     from repro_torch.kernels.common import acc_capacity
 
@@ -328,8 +357,6 @@ def plan_model(
             f"families must be a non-empty subset of {TABLE_FAMILIES}, "
             f"got {families}"
         )
-    if "tl1" in families:
-        raise NotImplementedError(_TL1)
     fmt = fmt if fmt is not None else Float16Format(signed=signed)
     if isinstance(fmt, Float16Format):
         fmt_variants = [
@@ -360,18 +387,26 @@ def plan_model(
         q, p = shapes[item[0]]
         assert all(shapes[k] == (q, p) for k in item), item
         if (q, p) not in frontier_cache:
-            pts = [
-                pt
-                for fv in fmt_variants
-                for pt in enumerate_plans(
-                    q,
-                    p,
-                    fv,
-                    modes=modes,
-                    max_chunk=max_chunk,
-                    table_formats=table_formats,
+            pts = []
+            if "weight" in families:
+                pts += [
+                    pt
+                    for fv in fmt_variants
+                    for pt in enumerate_plans(
+                        q,
+                        p,
+                        fv,
+                        modes=modes,
+                        max_chunk=max_chunk,
+                        table_formats=table_formats,
+                    )
+                ]
+            if "tl1" in families:
+                pts.append(
+                    PlanPoint.of(
+                        TL1Plan(q, p, act_bits=tl1_act_bits, acc_dtype=tl1_acc_dtype)
+                    )
                 )
-            ]
             kept, rejected = [], []
             for pt in pts:
                 cert = layer_range_cert(pt.plan)

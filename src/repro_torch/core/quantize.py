@@ -11,8 +11,13 @@
   ``sigma(e) = 2**(max(e,1) - 25)``, exact for normals and subnormals.
 
 Both decompositions are bit-exact against the reference on the same
-inputs.  The ternary formats and the stochastic-rounding LUT belong to the
-TL1 slice.
+inputs.
+
+* :func:`ternary_quantize` / :func:`ternary_fake_quant` — absmean
+  ternarisation of a weight matrix for the TL1 family, and
+  :func:`absmax_int_quantize`, its per-token activation quantizer.
+
+The stochastic-rounding LUT is not ported yet.
 """
 from __future__ import annotations
 
@@ -150,3 +155,49 @@ class Float16Format:
     def plane_scales(self) -> np.ndarray:
         r = self.mantissa_radix
         return (2.0 ** (r * np.arange(self.num_planes))).astype(np.float64)
+
+
+# ---------------------------------------------------------------------------
+# Ternary weights and integer activations (the TL1 family)
+# ---------------------------------------------------------------------------
+
+
+def ternary_quantize(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Absmean ternarisation: ``w ~= s * t`` with ``t`` in {-1, 0, +1}.
+
+    ``t = clip(round(w / mean|w|), -1, 1)``, then the scale is refit in
+    closed form over the chosen codes, ``s = <w, t> / <t, t>``, which makes
+    the quantizer idempotent.  Returns ``t`` int8 of ``w``'s shape and
+    ``s`` a 0-d float32 tensor (one per call: loop over leading dims for
+    stacked weights).  ``mean|w|`` and the refit are float reductions whose
+    order differs from the reference's, so ``s`` can differ in its last
+    ulps and ``t`` only on elements exactly at a rounding boundary.
+    """
+    w = w.to(torch.float32)
+    s0 = torch.clamp(w.abs().mean(), min=1e-12)
+    t = torch.clamp(torch.round(w / s0), -1.0, 1.0)
+    s = (w * t).sum() / torch.clamp((t * t).sum(), min=1.0)
+    return t.to(torch.int8), s.to(torch.float32)
+
+
+def ternary_fake_quant(w: torch.Tensor) -> torch.Tensor:
+    """``s * t`` at ``w``'s dtype: the dense stand-in for a TL1 layer."""
+    t, s = ternary_quantize(w)
+    return (s * t.to(torch.float32)).to(w.dtype)
+
+
+def absmax_int_quantize(
+    x: torch.Tensor, bits: int = 8, axis: int = -1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric absmax quantization of activations.
+
+    Returns ``(q, scale)``: ``q`` int32 codes in ``[-(2**(bits-1)-1),
+    2**(bits-1)-1]`` (round half to even, as the reference) and ``scale``
+    float32 shaped like ``x`` with ``axis`` kept at size 1, so that
+    ``x ~= q * scale``.
+    """
+    qmax = float(2 ** (bits - 1) - 1)
+    amax = x.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / qmax
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
+    return q, scale.to(torch.float32)

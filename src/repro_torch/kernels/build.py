@@ -23,7 +23,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 # library name -> source files under csrc/
-SOURCES: dict[str, tuple[str, ...]] = {"lut_affine": ("lut_affine.cu",)}
+SOURCES: dict[str, tuple[str, ...]] = {
+    "lut_affine": ("lut_affine.cu",),
+    "lut_tl1": ("lut_tl1.cu",),
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -5,9 +5,10 @@ LUT path, GQA attention over a dense KV cache, the gated MLP and sampling.
 Every projection goes through :func:`linear` (or :func:`fused_linears` for
 sibling projections over one input).  Converted trees carry
 ``core.convert`` :class:`LUTLinear` / pre-stacked :class:`LUTGroup`
-nodes, which run on the Hopper kernels through ``kernels.lut_affine.ops``
-(``ExecCfg.use_kernels``; on CPU tensors the wrappers run the plain
-versions).
+nodes, which run on the Hopper kernels by their plan's table family:
+weight-side tables through ``kernels.lut_affine.ops``, TL1 activation-side
+tables through ``kernels.lut_tl1.ops`` (``ExecCfg.use_kernels``; on CPU
+tensors the wrappers run the plain versions).
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.convert import LUTGroup, LUTLinear
 from repro_torch.core.lut import LUTPlan, pack_codes, plane_scales
+from repro_torch.core.lut_tl1 import TL1Plan, quantize_acts
 from repro_torch.kernels.lut_affine.ops import lut_affine, lut_affine_grouped
+from repro_torch.kernels.lut_tl1.ops import lut_tl1, lut_tl1_grouped
 from repro_torch.models.params import PSpec
 
 
@@ -174,15 +177,76 @@ def _lut_apply(
     return y.to(x.dtype)
 
 
+def _tl1_apply(
+    tables: torch.Tensor,  # (kb, p) uint8 packed base-3 indices
+    b: torch.Tensor | None,
+    plan: TL1Plan,
+    x: torch.Tensor,
+    ctx: Ctx,
+    acts: tuple | None = None,  # already quantized (codes, act_scale)
+    scale: torch.Tensor | None = None,  # ternary weight scale
+) -> torch.Tensor:
+    """One TL1-converted projection: per-token 9-entry activation LUTs over
+    the packed ternary weight-pair indices."""
+    assert x.shape[-1] == plan.in_features, (x.shape, plan)
+    if acts is None:
+        acts = quantize_acts(x, plan)
+    codes, act_scale = acts
+    y = lut_tl1(
+        codes, tables, act_scale, scale, bias=b, plan=plan,
+        use_kernels=ctx.ex.use_kernels,
+    )
+    return y.to(x.dtype)
+
+
 def linear(p: dict | LUTLinear, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """y = x @ W (+ b), or its TableNet-converted equivalent."""
     if isinstance(p, LUTLinear):
+        if isinstance(p.plan, TL1Plan):
+            return _tl1_apply(p.tables, p.b, p.plan, x, ctx, scale=p.scale)
         return _lut_apply(p.tables, p.b, p.plan, x, ctx, scale=p.scale)
     y = x @ p["w"]
     b = p.get("b")
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def _tl1_group_apply(
+    node: LUTGroup,
+    wanted: list[str],
+    x: torch.Tensor,
+    ctx: Ctx,
+    acts: tuple | None = None,  # already quantized (shared across groups)
+):
+    """TL1 twin of :func:`_group_apply`: the input is quantized ONCE for the
+    group; with every member wanted and ``ctx.ex.lut_grouped`` set, the
+    stored ``(G, kb, p)`` leaf feeds one grouped launch.  Ternary scales
+    are per member (``node.scale`` is ``(G,)``)."""
+    plan = node.plan
+    if acts is None:
+        acts = quantize_acts(x, plan)
+    codes, act_scale = acts
+    outs: dict[str, torch.Tensor] = {}
+    if len(wanted) == len(node.members) and ctx.ex.lut_grouped:
+        stacked_b = node.b if isinstance(node.b, torch.Tensor) else None
+        y = lut_tl1_grouped(
+            codes, node.tables, act_scale, node.scale, biases=stacked_b, plan=plan,
+            use_kernels=ctx.ex.use_kernels,
+        )
+        for g, name in enumerate(node.members):
+            yi = y[g]
+            if stacked_b is None and node.member_bias(g) is not None:
+                yi = yi + node.member_bias(g)
+            outs[name] = yi.to(x.dtype)
+        return outs
+    for g, name in enumerate(node.members):
+        if name in wanted:
+            outs[name] = _tl1_apply(
+                node.tables[g], node.member_bias(g), plan, x, ctx,
+                acts=acts, scale=node.scale[..., g],
+            )
+    return outs
 
 
 def _group_apply(
@@ -241,12 +305,21 @@ def fused_linears(
     for node in parent.values():
         if isinstance(node, LUTGroup):
             wanted = [m for m in node.members if m in names]
-            if wanted:
-                p = node.plan
-                key = (p.in_features, p.chunk_size, p.mode, p.fmt)
+            if not wanted:
+                continue
+            p = node.plan
+            if isinstance(p, TL1Plan):
+                # TL1's packing is the activation quantization: one
+                # (codes, act_scale) per input format across groups
+                key = ("tl1", p.in_features, p.act_bits)
                 if key not in packed:
-                    packed[key] = pack_codes(x, p)
-                outs.update(_group_apply(node, wanted, x, ctx, codes=packed[key]))
+                    packed[key] = quantize_acts(x, p)
+                outs.update(_tl1_group_apply(node, wanted, x, ctx, acts=packed[key]))
+                continue
+            key = ("weight", p.in_features, p.chunk_size, p.mode, p.fmt)
+            if key not in packed:
+                packed[key] = pack_codes(x, p)
+            outs.update(_group_apply(node, wanted, x, ctx, codes=packed[key]))
     for name in names:
         if name not in outs:
             outs[name] = linear(parent[name], x, ctx)

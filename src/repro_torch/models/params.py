@@ -5,7 +5,8 @@ Models declare shapes as :class:`PSpec` trees (nested dicts); the runtime
 materialises tensors on an explicit device from an explicit
 ``torch.Generator``.  :func:`params_from_numpy` carries a tree exported
 from the JAX package (``jax.tree.map(np.asarray, params)``) across, so
-both packages can run on the same weights.
+both packages can run on the same weights -- converted trees included,
+whose tables, scales and biases cross as they are.
 """
 from __future__ import annotations
 
@@ -81,13 +82,54 @@ def init_params(
     return tree_map(one, tree)
 
 
-def params_from_numpy(tree, device: str | torch.device = "cuda"):
+def params_from_numpy(tree, device: str | torch.device = "cuda", plan=None):
     """Nested dict of numpy arrays (e.g. the JAX package's parameters via
-    ``np.asarray``) -> the same tree of tensors on ``device``."""
+    ``np.asarray``) -> the same tree of tensors on ``device``.
+
+    A converted node -- an object with ``tables``/``b``/``scale``
+    attributes, such as the JAX package's ``LUTLinear``/``LUTGroup`` after
+    ``jax.tree.map(np.asarray, ...)`` -- becomes the port's :class:`~repro_torch.core.convert.LUTLinear` or,
+    under an ``"a+b"`` key, :class:`~repro_torch.core.convert.LUTGroup`,
+    with its plan read from ``plan`` (a ``ModelPlan``) by tree path.  A
+    weight-family dequant scale stays on the host, as the converter keeps
+    it; a TL1 ternary scale goes to ``device``."""
+    from repro_torch.core.convert import LUTGroup, LUTLinear
+    from repro_torch.core.planner import path_key
+
     dev = resolve_device(device)
 
-    def one(a):
-        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+    def tensor(a, host: bool = False):
+        t = torch.from_numpy(np.array(a, copy=True))
+        return t if host else t.to(dev)
 
-    return tree_map(one, tree)
+    def converted(path: tuple, node):
+        members = tuple(str(path[-1]).split("+"))
+        key = path_key(path[:-1] + (members[0],))
+        if plan is None or key not in plan.layers:
+            raise ValueError(
+                f"converted node {path_key(path)} has no plan entry {key!r}"
+            )
+        node_plan = plan.layers[key]
+        b = node.b
+        if isinstance(b, (tuple, list)):
+            b = tuple(None if v is None else tensor(v) for v in b)
+        elif b is not None:
+            b = tensor(b)
+        scale = node.scale
+        if scale is not None:
+            scale = tensor(scale, host=node_plan.table_family == "weight")
+        tables = tensor(node.tables)
+        if len(members) > 1:
+            return LUTGroup(tables, node_plan, members, b=b, scale=scale)
+        return LUTLinear(tables, node_plan, b=b, scale=scale)
 
+    def walk(path: tuple, node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(path + (k,), v) for k, v in node.items()}
+        if hasattr(node, "tables"):
+            return converted(path, node)
+        return tensor(node)
+
+    return walk((), tree)

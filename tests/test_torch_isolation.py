@@ -35,7 +35,13 @@ def test_no_jax_and_no_reference_imports(path):
 
 def test_the_file_list_is_the_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
-    assert {"kernels/lut_affine/ops.py", "serve/_engine.py", "core/lut.py"} <= names
+    assert {
+        "kernels/lut_affine/ops.py",
+        "kernels/lut_tl1/ops.py",
+        "serve/_engine.py",
+        "core/lut.py",
+        "core/lut_tl1.py",
+    } <= names
 
 
 def test_kernel_wrappers_have_no_try():

@@ -1,8 +1,8 @@
-"""The Hopper LUT affine kernels against their plain PyTorch versions, on
-the card.  The kernels have no CPU mode, so every test here is marked
-``cuda`` and skips without a card.  The file imports neither JAX nor the
-JAX package, so it runs on a machine that has only the port's
-dependencies:
+"""The Hopper LUT kernels (weight family: ``lut_affine``; TL1:
+``lut_tl1``) against their plain PyTorch versions, on the card.  The
+kernels have no CPU mode, so every test here is marked ``cuda`` and skips
+without a card.  The file imports neither JAX nor the JAX package, so it
+runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.lut_affine import ops
+from repro_torch.kernels.lut_tl1 import ops as tl1_ops
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8, "i16": torch.int16}
 
@@ -79,3 +80,66 @@ def test_kernels_take_bias_and_one_row(cuda_device):
     _close(got, want)
     got1 = ops.lut_affine(c, t[1], scales, bias=bias[1], shift_bits=5)
     _close(got1, want[1])
+
+
+def _tl1_case(seed, lead, kb, p, G, act_bits):
+    """Codes (..., 4*kb) with a zero-padded ragged tail, packed tables whose
+    nibbles are base-3 pair indices 0..8, scales and biases."""
+    rng = np.random.default_rng(seed)
+    q = 4 * kb - 3  # ragged: the last packed row holds one real element
+    if act_bits is None:
+        acts = rng.standard_normal(lead + (4 * kb,)).astype(np.float32)
+        act_scale = None
+    else:
+        qa = 2 ** (act_bits - 1) - 1
+        acts = rng.integers(-qa, qa + 1, lead + (4 * kb,)).astype(np.int32)
+        act_scale = torch.from_numpy(rng.random(lead + (1,)).astype(np.float32))
+    acts[..., q:] = 0
+    nib = rng.integers(0, 9, (G, kb, p, 2))
+    tables = (nib[..., 0] | (nib[..., 1] << 4)).astype(np.uint8)
+    scale = torch.from_numpy(rng.random(G).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal((G, p)).astype(np.float32))
+    return torch.from_numpy(acts), act_scale, torch.from_numpy(tables), scale, bias
+
+
+def _tl1_same(got: torch.Tensor, want: torch.Tensor, exact: bool) -> None:
+    if exact:  # integer accumulate: bit for bit
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    else:  # fp32 sums in another order
+        _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_bits", [8, 4, None])
+@pytest.mark.parametrize(
+    "lead,kb,p",
+    [
+        ((4,), 1024, 4096),  # decode wq: few output tiles, split packed rows
+        ((2, 5), 77, 130),  # leading dims, 8-row tiles, ragged p
+        ((3,), 50, 67),  # p not a multiple of 4: byte loads
+        ((40,), 9, 256),  # fewer packed rows than one per warp
+    ],
+)
+def test_tl1_kernels_match_plain_on_card(cuda_device, act_bits, lead, kb, p):
+    acts, act_scale, tables, scale, bias = _tl1_case(9, lead, kb, p, 2, act_bits)
+    acts, tables = acts.to(cuda_device), tables.to(cuda_device)
+    scale, bias = scale.to(cuda_device), bias.to(cuda_device)
+    if act_scale is not None:
+        act_scale = act_scale.to(cuda_device)
+    before = dict(tl1_ops.LAUNCHES)
+    got1 = tl1_ops.lut_tl1(acts, tables[1], act_scale, scale[1], bias=bias[1])
+    got2 = tl1_ops.lut_tl1_grouped(acts, tables, act_scale, scale, biases=bias)
+    raw = tl1_ops.lut_tl1_grouped(acts, tables)
+    torch.cuda.synchronize()
+    assert tl1_ops.LAUNCHES["lut_tl1"] == before["lut_tl1"] + 1
+    assert tl1_ops.LAUNCHES["lut_tl1_grouped"] == before["lut_tl1_grouped"] + 2
+    want = tl1_ops.lut_tl1_grouped(
+        acts, tables, act_scale, scale, biases=bias, use_kernels=False
+    )
+    want_raw = tl1_ops.lut_tl1_grouped(acts, tables, use_kernels=False)
+    assert tuple(got1.shape) == lead + (p,)
+    assert tuple(got2.shape) == (2,) + lead + (p,)
+    exact = act_bits is not None
+    _tl1_same(raw, want_raw, exact)
+    _tl1_same(got2, want, exact)
+    _tl1_same(got1, want[1], exact)

@@ -93,11 +93,17 @@ def test_plans_from_shapes_alone(granite):
 
 
 def test_tl1_and_budget_errors(granite):
+    # the TL1 family plans since its slice was ported (test_torch_tl1.py
+    # holds its JSON to the reference); an unknown family still raises
     _, tp = granite
-    with pytest.raises(NotImplementedError, match="TL1"):
-        plan_model(tp, float("inf"), families=("weight", "tl1"))
-    with pytest.raises(NotImplementedError, match="TL1"):
-        plan_from_json({"family": "tl1", "in_features": 4, "out_features": 4})
+    mixed = plan_model(tp, float("inf"), families=("weight", "tl1"))
+    assert mixed.families == ("tl1",)  # fewer bytes and fewer adds here
+    plan = plan_from_json({"family": "tl1", "in_features": 4, "out_features": 4})
+    assert plan.table_family == "tl1" and plan.act_bits == 8
+    with pytest.raises(ValueError, match="famil"):
+        plan_model(tp, float("inf"), families=("lut3",))
+    with pytest.raises(ValueError, match="famil"):
+        plan_from_json({"family": "lut3", "in_features": 4, "out_features": 4})
     with pytest.raises(ValueError, match="budget"):
         plan_model(tp, 10)
     assert torch.is_tensor(tp["embed"])
