@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
-    python3 chip_smoke.py [--phases device,kernel,serve,tl1_kernel,tl1_serve]
-                          [--iters 20]
+    python3 chip_smoke.py [--phases device,kernel,serve,tl1_kernel,tl1_serve,
+                                    moe_kernel,moe_serve] [--iters 20]
 
 Phases, one JSON object per line:
 
@@ -32,6 +32,18 @@ Phases, one JSON object per line:
    activations), converted, its fp32 weights freed, served through
    ``BatchingEngine`` on the kernels and then on the plain versions:
    every stream identical, prefill logits within 1e-5 x max|plain|.
+6. ``moe_kernel``  the ragged MoE kernel (``lut_affine_experts``) against
+   its plain version at full-width qwen2_moe_a2_7b expert shapes (60
+   experts, top-4, expert width 1408; decode 4 tokens = 16 expert rows and
+   prefill 128 tokens = 512 rows, routed by a seeded router) and on a grid
+   of table types, shift_bits, empty experts, ragged T and p, G 1/2/3 and a
+   zero tail; then one decode-shaped ``moe_ffn`` on the kernels under
+   ``torch.cuda.set_sync_debug_mode("error")``: no read-back may happen.
+7. ``moe_serve``  full-width qwen2_moe_a2_7b, depth set by the card's
+   memory (2 of 24 layers), planned by the serving recipe with
+   ``convert_experts=True``, converted to i8 tables and served through
+   ``BatchingEngine`` on the kernels, then on the plain versions: every
+   first token identical, prefill logits held as in ``serve``.
 
 Kernel and library times are device times (:func:`device_ms`): many
 calls back to back between one pair of CUDA events, each call on its own
@@ -78,6 +90,9 @@ LAYERS, REQUESTS, MAX_NEW = 4, 8, 16
 SLOTS, MAX_LEN, BUCKET = 4, 64, 32  # engine slots, cache length, prefill bucket
 TL1_LAYERS = 36  # the published depth: TL1 tables take 52 MiB per layer
 TL1_TOL = 1e-5  # x max|plain| on the exact fp32 path; the int path is exact
+# the moe_serve phase: memory kept free beside the converted model (the
+# plain path's 1 GiB gathers, the caches, the allocator's slack)
+MOE_HEADROOM = 16 * 2**30
 
 # main-path shapes of full-width granite_8b: name -> (G, k, p)
 LONE = {"wq": (1, 4096, 4096), "wo": (1, 4096, 4096), "w_down": (1, 14336, 4096)}
@@ -87,12 +102,14 @@ SOURCES = {
     "lut_affine_grouped": "src/repro_torch/csrc/lut_affine.cu",
     "lut_tl1": "src/repro_torch/csrc/lut_tl1.cu",
     "lut_tl1_grouped": "src/repro_torch/csrc/lut_tl1.cu",
+    "lut_affine_experts": "src/repro_torch/csrc/lut_affine.cu",
 }
 REPLACES = {
     "lut_affine": "src/repro/kernels/lut_affine/lut_affine.py:275",
     "lut_affine_grouped": "src/repro/kernels/lut_affine/lut_affine.py:239",
     "lut_tl1": "src/repro/kernels/lut_tl1/lut_tl1.py:125",
     "lut_tl1_grouped": "src/repro/kernels/lut_tl1/lut_tl1.py:154",
+    "lut_affine_experts": "src/repro/kernels/lut_affine/lut_affine.py:181",
 }
 
 
@@ -163,16 +180,21 @@ def copies_of(t) -> list:
 # ---------------------------------------------------------------------------
 
 
-def bound(codes, G, E, p, itemsize, shift_bits):
+def bound(codes, G, E, p, itemsize, shift_bits, expert_of=None):
     """Least time for the card: the table rows this run's codes touch (each
     read once), the codes and the output, over HBM bandwidth; or the
-    shift + add per gathered element over the fp32 rate."""
+    shift + add per gathered element over the fp32 rate.  ``expert_of``
+    (the ragged MoE form) gives each code row's expert: a row is then
+    keyed by (expert, chunk, index)."""
     import torch
 
     B, n, k = codes.shape
     idx = codes & (E - 1) if shift_bits else codes
     chunk = torch.arange(k, device=codes.device, dtype=torch.int64)
-    rows = torch.unique(chunk * E + idx.to(torch.int64)).numel()
+    key = chunk * E + idx.to(torch.int64)
+    if expert_of is not None:
+        key = key + expert_of.to(torch.int64)[:, None, None] * (k * E)
+    rows = torch.unique(key).numel()
     nbytes = G * rows * p * itemsize + codes.numel() * 4 + G * B * p * 4
     ops = 2 * G * B * n * k * p
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -399,7 +421,7 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
     launches = read_launches()
     forwards = eng.readbacks
     expect = {"lut_affine": 3 * layers * forwards, "lut_affine_grouped": 2 * layers * forwards,
-              "lut_tl1": 0, "lut_tl1_grouped": 0}
+              "lut_affine_experts": 0, "lut_tl1": 0, "lut_tl1_grouped": 0}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
           "tok_per_s": tokens / wall, "wall_s": wall,
@@ -759,7 +781,7 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     launches = read_launches()
     forwards = eng.readbacks
     per_forward = {"lut_tl1": 3 * layers, "lut_tl1_grouped": 2 * layers}
-    expect = {"lut_affine": 0, "lut_affine_grouped": 0,
+    expect = {"lut_affine": 0, "lut_affine_grouped": 0, "lut_affine_experts": 0,
               **{k: v * forwards for k, v in per_forward.items()}}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "tl1_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
@@ -810,6 +832,408 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     if not (finite and err <= tol):
         raise AssertionError(f"TL1 prefill logits differ: {err} > {tol}")
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# MoE kernel phase
+# ---------------------------------------------------------------------------
+
+
+def moe_fmt_plan(k, p):
+    """The serving plan of every qwen2_moe_a2_7b projection at full width."""
+    from repro_torch.core.lut import LUTPlan
+    from repro_torch.core.quantize import Float16Format
+
+    fmt = Float16Format(signed=True, mantissa_radix=4)
+    return LUTPlan(k, p, 1, fmt, mode="bitplane_shift", table_format="i8")
+
+
+def sorted_expert_of(gs, T):
+    """(T,) expert of each expert-sorted row (measurement helper)."""
+    import torch
+
+    return torch.repeat_interleave(
+        torch.arange(gs.numel(), device=gs.device), gs, output_size=T
+    )
+
+
+def run_experts_case(codes, tables, scales, gs, shift_bits, iters, plain_iters):
+    """Kernel vs plain on one ragged case, then the kernel's device time,
+    the plain version's time and the bound."""
+    import torch
+
+    from repro_torch.kernels.lut_affine import ops
+
+    E, G, k, En, p = tables.shape
+    T = codes.shape[0]
+
+    def kern(t=tables):
+        return ops.lut_affine_experts(codes, t, scales, gs, shift_bits=shift_bits)
+
+    def plain():
+        return ops.lut_affine_experts(
+            codes, tables, scales, gs, shift_bits=shift_bits, use_kernels=False
+        )
+
+    got = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (got - ref).abs().max().item() if got.numel() else 0.0
+    tol = KERNEL_TOL * (ref.abs().max().item() if ref.numel() else 0.0)
+    live = int(gs.sum().item())
+    if not (err <= tol and torch.isfinite(got).all().item() and not got[:, live:].any()):
+        raise AssertionError(f"lut_affine_experts E={E} G={G} T={T} k={k} p={p}: "
+                             f"err {err} > tol {tol} (or a nonzero tail row)")
+    del got, ref
+    ms = device_ms([functools.partial(kern, c) for c in copies_of(tables)], iters)
+    plain_ms = device_ms([plain], plain_iters, warmup=1, hold=False)
+    eot = sorted_expert_of(gs, live)
+    bms, by = bound(codes[:live], G, En, p, tables.element_size(), shift_bits, expert_of=eot)
+    return {
+        "max_abs_err": err, "tol": tol,
+        "tol_reason": f"{KERNEL_TOL} x max|plain|: fp32 sums in another order",
+        "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
+        "library_reason": "no PyTorch call takes i8 expert tables with exponent shifts",
+    }
+
+
+def dense_experts_ms(rows, gs, k, p, iters):
+    """For context only: the dense bf16 expert products the tables replace,
+    each sorted row times its expert's (k, p) weights -- one
+    ``torch._grouped_mm`` where this torch has it, else a ``torch.matmul``
+    per occupied expert."""
+    import torch
+
+    E = gs.numel()
+    xs = torch.randn(rows, k, device=DEV, dtype=torch.bfloat16)
+    w = torch.randn(E, p, k, device=DEV, dtype=torch.bfloat16).transpose(1, 2)
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        how = "torch._grouped_mm"
+        fn = functools.partial(torch._grouped_mm, xs, w, offs=offs)
+    else:
+        how = "torch.matmul per occupied expert"
+        ends = offs.tolist()
+        spans = [(e, a, b) for e, (a, b) in enumerate(zip([0] + ends[:-1], ends)) if b > a]
+
+        def fn():
+            return [xs[a:b] @ w[e] for e, a, b in spans]
+    return device_ms([fn], iters), how
+
+
+def moe_kernel_phase(iters: int, prefill_tokens: int) -> dict:
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import LUTGroup, LUTLinear
+    from repro_torch.core.lut import pack_codes, plane_scales
+    from repro_torch.kernels.lut_affine import ops
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Ctx, ExecCfg
+
+    cfg = get_config("qwen2_moe_a2_7b")
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    router = torch.randn(d, E, generator=gen, device=DEV) / math.sqrt(d)
+    plans = {"w_gate+w_up": (2, moe_fmt_plan(d, f)), "w_down": (1, moe_fmt_plan(f, d))}
+    tables = {
+        name: torch.randint(-127, 128, (E, G, plan.num_chunks, plan.num_entries,
+                                        plan.out_features),
+                            generator=gen, device=DEV, dtype=torch.int8)
+        for name, (G, plan) in plans.items()
+    }
+    dequant = 2.0**-6
+    worst, main = 0.0, {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                        "bound_by": set()}
+    for tokens in (SLOTS, prefill_tokens):
+        # real routing of seeded activations through a seeded router
+        x = torch.randn(tokens, d, generator=gen, device=DEV)
+        _, _, order, token_of, gs = moe.dispatch(x, router, cfg)
+        T = token_of.numel()
+        h = torch.randn(T, f, generator=gen, device=DEV) * 0.1
+        for name, (G, plan) in plans.items():
+            src = x[token_of] if name == "w_gate+w_up" else h
+            codes = pack_codes(src, plan)
+            scales = plane_scales(plan).astype(np.float32) * np.float32(dequant)
+            r = run_experts_case(codes, tables[name], scales, gs, plan.shift_bits, iters,
+                                 2 if T > 16 else 5)
+            dense, how = dense_experts_ms(T, gs, plan.in_features, G * plan.out_features,
+                                          iters)
+            emit({"phase": "moe_kernel", "kernel": "lut_affine_experts", "proj": name,
+                  "tokens": tokens, "rows": T, "experts": E,
+                  "occupied_experts": int((gs > 0).sum().item()), "G": G,
+                  "n": plan.num_planes, "k": plan.num_chunks, "En": plan.num_entries,
+                  "p": plan.out_features, "table": "i8", "shift_bits": plan.shift_bits,
+                  **r, "dense_bf16_ms": dense, "dense_bf16_how": how})
+            worst = max(worst, r["max_abs_err"])
+            if tokens == SLOTS:
+                for key in ("kernel_ms", "plain_ms", "bound_ms"):
+                    main[key] += r[key]
+                main["bound_by"].add(r["bound_by"])
+        torch.cuda.empty_cache()
+
+    # grid: table types x shift_bits, empty experts, every row on one
+    # expert, T = 1, ragged T and p, G 1/2/3, a zero tail past the groups
+    grid = [
+        # E, G, T, n, k, En, p, group sizes
+        (5, 2, 11, 3, 77, 32, 130, (3, 0, 6, 2, 0)),
+        (3, 3, 9, 3, 40, 32, 96, (0, 9, 0)),
+        (4, 1, 1, 3, 64, 32, 67, (0, 0, 1, 0)),
+        (6, 1, 30, 3, 33, 32, 64, (5, 1, 0, 7, 4, 2)),
+        (60, 2, 37, 3, 48, 32, 45, tuple(int(v) for v in np.bincount(
+            np.random.default_rng(0).integers(0, 60, 37), minlength=60))),
+    ]
+    for dtype in (torch.float32, torch.bfloat16, torch.int8, torch.int16):
+        for shift in (0, 5):
+            for Ex, G, T, n, k, En, p, sizes in grid:
+                c, t, s = make_case(gen, T, n, k, En, p, Ex * G, dtype, shift,
+                                    np.asarray([1.0, -16.0, 2.0**-5], np.float32))
+                t = t.reshape(Ex, G, k, En, p)
+                gs = torch.tensor(sizes, dtype=torch.int64, device=DEV)
+                r = run_experts_case(c, t, s, gs, shift, iters, 5)
+                emit({"phase": "moe_kernel", "kernel": "lut_affine_experts", "grid": True,
+                      "experts": Ex, "G": G, "rows": T, "live_rows": sum(sizes), "n": n,
+                      "k": k, "En": En, "p": p, "table": str(dtype).replace("torch.", ""),
+                      "shift_bits": shift, **r})
+
+    # one decode-shaped moe_ffn on the kernels with the stream's sync
+    # debugging set to raise: routing, sort, dispatch and combine must not
+    # read the device back
+    shared = {"w_gate+w_up": (2, moe_fmt_plan(d, cfg.d_ff)),
+              "w_down": (1, moe_fmt_plan(cfg.d_ff, d))}
+    sh = {}
+    for name, (G, plan) in shared.items():
+        shape = (G,) if G > 1 else ()
+        t = torch.randint(-127, 128, shape + (plan.num_chunks, plan.num_entries,
+                                              plan.out_features),
+                          generator=gen, device=DEV, dtype=torch.int8)
+        sh[name] = (LUTGroup(t, plan, ("w_gate", "w_up"), scale=torch.tensor(dequant))
+                    if G > 1 else LUTLinear(t, plan, scale=torch.tensor(dequant)))
+    params = {
+        "router": router,
+        "w_gate+w_up": LUTGroup(tables["w_gate+w_up"], plans["w_gate+w_up"][1],
+                                ("w_gate", "w_up"), scale=torch.tensor(dequant)),
+        "w_down": LUTLinear(tables["w_down"][:, 0], plans["w_down"][1],
+                            scale=torch.tensor(dequant)),
+        "shared": sh,
+        "shared_gate": torch.randn(d, 1, generator=gen, device=DEV) / math.sqrt(d),
+    }
+    x = torch.randn(SLOTS, 1, d, generator=gen, device=DEV)
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
+    with torch.no_grad():
+        moe.moe_ffn(params, x, ctx)  # warm: the first call builds nothing new
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        y, aux = moe.moe_ffn(params, x, ctx)
+        torch.cuda.set_sync_debug_mode(0)
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        want, _ = moe.moe_ffn(params, x, Ctx(cfg, ex=ExecCfg(lut_grouped=True,
+                                                             use_kernels=False)))
+    err = (y - want).abs().max().item()
+    scale = want.abs().max().item()
+    expect = {"lut_affine": 1, "lut_affine_grouped": 1, "lut_affine_experts": 2}
+    emit({"phase": "moe_kernel", "step": "moe_ffn_sync_debug", "sync_debug_mode": "error",
+          "raised": False, "x": list(x.shape), "launches": launched,
+          "expected_launches": expect, "max_abs_err": err, "max_abs_ref": scale,
+          "tol": LOGITS_TOL * scale, "aux": aux.item()})
+    if launched != expect:
+        raise AssertionError(f"moe_ffn launches {launched} != {expect}")
+    if not err <= LOGITS_TOL * scale:
+        raise AssertionError(f"moe_ffn kernel vs plain: {err} > {LOGITS_TOL * scale}")
+    del tables, params, sh
+    torch.cuda.empty_cache()
+    return {"worst": {"lut_affine_experts": worst}, "main": {"lut_affine_experts": main}}
+
+
+# ---------------------------------------------------------------------------
+# MoE serve phase
+# ---------------------------------------------------------------------------
+
+
+def moe_serving_plan(params):
+    """The serving recipe (``benchmarks/serving.py::serving_model_plan``:
+    half the uniform chunk-2 footprint, the widened frontier) with
+    ``convert_experts=True`` and chunks capped at 1; returns (plan, the
+    uncapped recipe's plan)."""
+    from repro_torch.core.planner import plan_model
+
+    uniform = plan_model(params, float("inf"), max_chunk=2, convert_experts=True)
+    kw = dict(modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
+              table_formats=(None, "i8"), convert_experts=True)
+    budget = uniform.total_lut_bytes // 2
+    return (plan_model(params, budget, max_chunk=1, **kw),
+            plan_model(params, budget, max_chunk=2, **kw))
+
+
+def moe_depth(full) -> tuple[int, dict]:
+    """Layers of full-width ``full`` that convert on this card: a 1-layer
+    plan's table bytes (on shapes alone) plus the fp32 weights held while
+    converting, against the card's memory less MOE_HEADROOM."""
+    import torch
+
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import tree_map
+
+    def meta(cfg):
+        return tree_map(
+            lambda s: torch.empty(s.shape, dtype=s.dtype or torch.float32, device="meta"),
+            model_specs(cfg),
+        )
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    one = meta(dataclasses.replace(full, num_layers=1))
+    plan, uncapped = moe_serving_plan(one)
+    head = plan.layers["lm_head"].total_lut_bytes
+    layer_tables = plan.total_lut_bytes - head
+    layer_fp32 = nbytes(one["blocks"])
+    rest_fp32 = nbytes(one) - layer_fp32
+    total = torch.cuda.get_device_properties(0).total_memory
+    avail = total - MOE_HEADROOM
+
+    def peak(n):
+        return head + n * (layer_tables + layer_fp32) + rest_fp32
+
+    layers = max([n for n in range(1, full.num_layers + 1) if peak(n) <= avail] or [0])
+    if layers < 1:
+        raise AssertionError(f"not one layer of {full.name} fits: {peak(1) / 2**30:.1f} GiB")
+    gib = 2**30
+    return layers, {
+        "layers": layers, "published": full.num_layers,
+        "table_gib_per_layer": layer_tables / gib, "lm_head_table_gib": head / gib,
+        "conversion_peak_gib": peak(layers) / gib,
+        "next_depth_peak_gib": peak(layers + 1) / gib,
+        "card_gib": total / gib, "headroom_gib": MOE_HEADROOM / gib,
+        "uncapped_recipe_table_gib_1_layer": uncapped.total_lut_bytes / gib,
+        "reason": f"{layer_tables / gib:.1f} GiB of i8 tables per layer and "
+                  f"{head / gib:.1f} GiB for lm_head: converting {layers} layers peaks at "
+                  f"{peak(layers) / gib:.1f} GiB with the fp32 weights, {layers + 1} "
+                  f"would reach {peak(layers + 1) / gib:.1f} GiB, over the card's "
+                  f"{total / gib:.1f} GiB less {MOE_HEADROOM / gib:.0f} GiB kept for the "
+                  f"plain path's 1 GiB gathers and the allocator; all {full.num_layers} "
+                  f"layers would need {(head + full.num_layers * layer_tables) / gib:.0f} "
+                  "GiB of tables; widths are the published ones",
+        "chunk_cap_reason": "the recipe's halved uniform budget admits chunk-2 tables at "
+                            "full width (a 1-layer plan of "
+                            f"{uncapped.total_lut_bytes / gib:.0f} GiB); at chunk 1 it "
+                            "plans what it plans on the reduced config",
+    }
+
+
+def moe_serve_phase(requests: int, max_new: int) -> dict:
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import conversion_summary, convert_params
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward, model_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import make_cache
+
+    full = get_config("qwen2_moe_a2_7b")
+    torch.cuda.empty_cache()
+    layers, depth = moe_depth(full)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(model_specs(cfg), gen, device=DEV)
+    mplan, _ = moe_serving_plan(params)
+    kinds = sorted({
+        f"{p.mode}-r{p.fmt.mantissa_radix}-{p.table_format}-c{p.chunk_size}"
+        for p in mplan.layers.values()
+    })
+    emit({"phase": "moe_serve", "step": "plan", "summary": mplan.summary(),
+          "table_mib": mplan.total_lut_bytes / 2**20, "plans": kinds,
+          "groups": [list(g) for g in mplan.groups], "depth": depth})
+    lut, report = convert_params(params, plan=mplan, convert_experts=True)
+    torch.cuda.synchronize()
+    peak_convert = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_serve", "step": "convert", "summary": conversion_summary(report),
+          "seconds": time.perf_counter() - t0, "max_memory_allocated_gib": peak_convert,
+          "table_bytes": report.table_bytes,
+          "memory_allocated_after_free_gib": torch.cuda.memory_allocated() / 2**30})
+    if report.table_bytes != mplan.total_lut_bytes:
+        raise AssertionError(f"tables {report.table_bytes} B != plan {mplan.total_lut_bytes} B")
+
+    prompts = serve_requests(cfg, requests)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reqs, eng, wall, decode_ms = run_engine(lut, cfg, prompts, max_new, True)
+    launches = read_launches()
+    forwards = eng.readbacks
+    per_forward = {"lut_affine": 2 * layers + 1, "lut_affine_grouped": 2 * layers,
+                   "lut_affine_experts": 2 * layers}
+    expect = {**{k: v * forwards for k, v in per_forward.items()},
+              "lut_tl1": 0, "lut_tl1_grouped": 0}
+    tokens = sum(len(r.generated) for r in reqs)
+    emit({"phase": "moe_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
+          "tok_per_s": tokens / wall, "wall_s": wall,
+          "median_decode_step_ms": statistics.median(decode_ms),
+          "forwards": forwards, "launches": launches, "expected_launches": expect,
+          "per_forward": per_forward, "table_mib": report.table_bytes / 2**20,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if launches != expect or forwards <= 0:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if not all(len(r.generated) == max_new for r in reqs):
+        raise AssertionError("a request stopped short of max_new")
+
+    emit({"phase": "moe_serve", "step": "decode_profile",
+          **profile_decode(lut, cfg, prompts[:SLOTS], max_new)})
+
+    plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new, False)
+    first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
+    same = sum(
+        x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
+    )
+    emit({"phase": "moe_serve", "step": "plain", "tok_per_s": tokens / plain_wall,
+          "wall_s": plain_wall, "median_decode_step_ms": statistics.median(plain_decode),
+          "first_tokens_identical": first_ok, "identical_token_share": same / tokens})
+    if not first_ok:
+        raise AssertionError("kernel and plain paths disagree on a first token")
+
+    inputs = prefill_inputs(prompts)
+
+    def prefill_logits(use_kernels: bool):
+        ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
+        cache = make_cache(cfg, SLOTS, MAX_LEN, ctx, device=DEV)
+        with torch.no_grad():
+            logits, _, _ = model_forward(lut, inputs, ctx, cache=cache)
+        return logits[inputs["token_mask"]]
+
+    got, ref = prefill_logits(True), prefill_logits(False)
+    with plain_gather_bytes(64 * 2**20):
+        other = prefill_logits(False)
+    res, floor = compare_logits(got, ref), compare_logits(other, ref)
+    finite = bool(torch.isfinite(got).all().item())
+    tol = LOGITS_TOL * res["max_abs_ref"]
+    emit({"phase": "moe_serve", "step": "prefill_logits", "layers": layers,
+          "shape": list(got.shape), **res, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL,
+          "finite": finite, "plain_vs_plain": floor,
+          "tol_reason": "as the serve phase's: the paths sum in other orders, an "
+                        "activation near an fp16 rounding boundary takes the neighbouring "
+                        "code before the next lookup, and top-k routing is a second "
+                        "discontinuity"})
+    if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
+        raise AssertionError(f"MoE prefill logits differ: {res} (tol {tol}, {LOGITS_FRO_TOL})")
+    return {"launches": launches}
+
+
+def compare_logits(a, b) -> dict:
+    d = a - b
+    return {"max_abs_err": d.abs().max().item(), "max_abs_ref": b.abs().max().item(),
+            "rel_fro_err": (d.norm() / b.norm()).item(),
+            "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item()}
 
 
 def profile_decode(lut, cfg, prompts, max_new, steps=4):
@@ -869,18 +1293,22 @@ def plain_gather_bytes(nbytes: int):
     fp32 summation order) inside a ``with`` block."""
     from repro_torch.kernels.lut_affine import ops
 
-    saved = ops.lut_affine_ref, ops.lut_affine_grouped_ref
-    ops.lut_affine_ref = functools.partial(saved[0], max_gather_bytes=nbytes)
-    ops.lut_affine_grouped_ref = functools.partial(saved[1], max_gather_bytes=nbytes)
+    names = ("lut_affine_ref", "lut_affine_grouped_ref", "lut_affine_experts_ref")
+    saved = {name: getattr(ops, name) for name in names}
+    for name, fn in saved.items():
+        setattr(ops, name, functools.partial(fn, max_gather_bytes=nbytes))
     try:
         yield
     finally:
-        ops.lut_affine_ref, ops.lut_affine_grouped_ref = saved
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,kernel,serve,tl1_kernel,tl1_serve")
+    ap.add_argument(
+        "--phases", default="device,kernel,serve,tl1_kernel,tl1_serve,moe_kernel,moe_serve"
+    )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -911,9 +1339,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tkern = tl1_kernel_phase(args.iters, 4 * 32) if "tl1_kernel" in phases else None
     tsrv = tl1_serve_phase(TL1_LAYERS, REQUESTS, MAX_NEW) if "tl1_serve" in phases else None
+    torch.cuda.empty_cache()
+    mkern = moe_kernel_phase(args.iters, SLOTS * BUCKET) if "moe_kernel" in phases else None
+    msrv = moe_serve_phase(REQUESTS, MAX_NEW) if "moe_serve" in phases else None
     rows = []
     for k, s, names in ((kern, srv, ("lut_affine", "lut_affine_grouped")),
-                        (tkern, tsrv, ("lut_tl1", "lut_tl1_grouped"))):
+                        (tkern, tsrv, ("lut_tl1", "lut_tl1_grouped")),
+                        (mkern, msrv, ("lut_affine_experts",))):
         if k is None or s is None:
             continue
         for name in names:

@@ -1,5 +1,5 @@
 """Model -> TableNet conversion pass (counterpart of
-``repro/core/convert.py``, both table families, dense models).
+``repro/core/convert.py``, both table families, dense and MoE models).
 
 Walks a parameter tree of tensors and replaces every eligible linear node
 (``{"w": (..., q, p)}``, optionally with ``"b"``) by its tables:
@@ -18,6 +18,12 @@ Weight-family tables are built and quantized a slice of chunks at a time,
 with the scale taken first from the set's global max, so no whole fp32
 table set is ever held; every entry equals the whole-array build bit for
 bit.
+
+With ``convert_experts=True`` the raw MoE expert stacks ``(L, E, q, p)``
+convert too: gate/up into one ``(L, E, G, k, En, p)`` :class:`LUTGroup`,
+``w_down`` into an ``(L, E, k, En, p)`` :class:`LUTLinear`.  A layer's E
+experts (and G members) form ONE table set with one dequant scale, as the
+reference gives them, so the experts kernel applies it as one shift.
 
 TL1-planned projections store ``(..., [G,] kb, p)`` uint8 packed base-3
 indices and ``scale``, the ternary weight scale of each matrix: a float32
@@ -46,6 +52,8 @@ from repro_torch.core.planner import AnyPlan, ModelPlan, path_key
 from repro_torch.core.quantize import Float16Format
 
 FUSABLE_SIBLINGS = (("wq", "wk", "wv"), ("w_gate", "w_up"))
+
+EXPERT_WEIGHT_KEYS = ("w_gate", "w_up", "w_down")
 
 # fp32 bytes of one chunk slice built at a time
 SLICE_BYTES = 256 * 2**20
@@ -125,6 +133,15 @@ def _is_linear_node(node: Any) -> bool:
     )
 
 
+def _is_expert_stack(node: Any) -> bool:
+    return (
+        isinstance(node, dict)
+        and {"w_gate", "w_up", "w_down", "router"} <= set(node)
+        and hasattr(node["w_gate"], "ndim")
+        and node["w_gate"].ndim in (3, 4)
+    )
+
+
 def sibling_groups(node: dict) -> list[tuple[str, ...]]:
     """Fusable sibling sets present in ``node``: same-``w``-shape classes
     with >= 2 members of each candidate key set (shared with the planner)."""
@@ -134,6 +151,24 @@ def sibling_groups(node: dict) -> list[tuple[str, ...]]:
         by_shape: dict[tuple, list[str]] = {}
         for n in present:
             by_shape.setdefault(tuple(node[n]["w"].shape), []).append(n)
+        for members in by_shape.values():
+            if len(members) > 1:
+                out.append(tuple(members))
+    return out
+
+
+def expert_sibling_groups(node: dict) -> list[tuple[str, ...]]:
+    """Fusable sibling sets among the raw expert-stack weights of ``node``
+    (an expert stack: bare ``(..., E, q, p)`` tensors, not linear nodes),
+    same-shape classes as :func:`sibling_groups` (shared with the planner)."""
+    out: list[tuple[str, ...]] = []
+    for base in FUSABLE_SIBLINGS:
+        present = [
+            n for n in base if n in EXPERT_WEIGHT_KEYS and hasattr(node.get(n), "ndim")
+        ]
+        by_shape: dict[tuple, list[str]] = {}
+        for n in present:
+            by_shape.setdefault(tuple(node[n].shape), []).append(n)
         for members in by_shape.values():
             if len(members) > 1:
                 out.append(tuple(members))
@@ -156,35 +191,47 @@ def build_table_sets(
     table_dtype=torch.float32,
     grouped: bool = False,
     slice_bytes: int = SLICE_BYTES,
+    set_dims: int = 0,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Tables for the member weights ``ws`` (each ``(*lead, q, p)``):
-    ``(*lead, [G,] k, E, p)`` plus the per-set scale (``lead``-shaped, on
-    the host) when the plan stores narrow tables, else ``None``."""
-    lead = tuple(ws[0].shape[:-2])
+    """Tables for the member weights ``ws`` (each ``(*lead, *inner, q,
+    p)``, with ``set_dims`` inner dims): ``(*lead, *inner, [G,] k, E, p)``
+    plus, when the plan stores narrow tables, the scale of each table set
+    (``lead``-shaped, on the host) -- one set per leading index, covering
+    every inner index and member: an expert stack ``(L, E, q, p)`` with
+    ``set_dims=1`` has one scale per layer across its E experts, as the
+    reference's ``quantize_tables(trailing=)`` gives it."""
+    dims = tuple(ws[0].shape[:-2])
+    lead, inner = dims[: len(dims) - set_dims], dims[len(dims) - set_dims :]
     k, E, p = plan.num_chunks, plan.num_entries, plan.out_features
     narrow = plan.table_format
-    shape = lead + ((len(ws),) if grouped else ()) + (k, E, p)
+    shape = dims + ((len(ws),) if grouped else ()) + (k, E, p)
     dtype = TABLE_DTYPES[narrow] if narrow else table_dtype
     out = torch.empty(shape, dtype=dtype, device=ws[0].device)
     scales = torch.empty(lead, dtype=torch.float32) if narrow else None
     slices = _chunk_slices(plan, slice_bytes)
+    inner_idx = list(itertools.product(*(range(d) for d in inner)))
     for li in itertools.product(*(range(d) for d in lead)):
-        mats = [w[li] for w in ws]
-        dst = out[li]
         s = None
         if narrow:
-            # the set's scale comes first, from its global max over slices
+            # the set's scale comes first, from its global max over every
+            # inner index, member and chunk slice
             maxabs = torch.zeros((), dtype=torch.float32, device=out.device)
-            for w in mats:
-                for sl in slices:
-                    maxabs = torch.maximum(maxabs, build_luts(w, plan, sl).abs().amax())
+            for ii in inner_idx:
+                for w in ws:
+                    for sl in slices:
+                        t = build_luts(w[li + ii], plan, sl)
+                        maxabs = torch.maximum(maxabs, t.abs().amax())
             s = scale_from_maxabs(maxabs.cpu(), narrow)
             scales[li] = s
-        for g, w in enumerate(mats):
-            dg = dst[g] if grouped else dst
-            for c0, c1 in slices:
-                t = build_luts(w, plan, (c0, c1))
-                dg[c0:c1] = quantize_with_scale(t, s, narrow) if narrow else t.to(dtype)
+        for ii in inner_idx:
+            dst = out[li + ii]
+            for g, w in enumerate(ws):
+                dg = dst[g] if grouped else dst
+                for c0, c1 in slices:
+                    t = build_luts(w[li + ii], plan, (c0, c1))
+                    dg[c0:c1] = (
+                        quantize_with_scale(t, s, narrow) if narrow else t.to(dtype)
+                    )
     return out, scales
 
 
@@ -225,8 +272,6 @@ def convert_params(
     consumes raises; ``group_siblings`` emits exactly the plan's groups (or,
     without a plan, every fusable group) as pre-stacked :class:`LUTGroup`s.
     """
-    if convert_experts:
-        raise NotImplementedError("MoE expert conversion comes with the MoE slice")
     stats = {"converted": 0, "skipped": 0, "w_bytes": 0, "t_bytes": 0, "groups": 0}
     fmt = Float16Format(signed=signed)
     used_plan_keys: set[str] = set()
@@ -258,20 +303,25 @@ def convert_params(
             stats["w_bytes"] += w.numel() * w.element_size()
         stats["t_bytes"] += tables.numel() * tables.element_size()
 
-    def build(ws, layer_plan: AnyPlan, grouped: bool):
+    def build(ws, layer_plan: AnyPlan, grouped: bool, expert: bool):
         if isinstance(layer_plan, TL1Plan):
+            # one ternary scale per matrix: per layer, expert and member
             return build_tl1_sets(ws, layer_plan, grouped=grouped)
+        # an expert stack's E experts belong to one table set of the layer
         return build_table_sets(
-            ws, layer_plan, table_dtype, grouped=grouped, slice_bytes=slice_bytes
+            ws, layer_plan, table_dtype, grouped=grouped, slice_bytes=slice_bytes,
+            set_dims=int(expert),
         )
 
-    def convert_one(node: dict, layer_plan: AnyPlan) -> LUTLinear:
-        tables, scale = build([node["w"]], layer_plan, grouped=False)
+    def convert_one(node: dict, layer_plan: AnyPlan, expert: bool = False) -> LUTLinear:
+        tables, scale = build([node["w"]], layer_plan, grouped=False, expert=expert)
         stats["converted"] += 1
         account([node["w"]], tables)
         return LUTLinear(tables=tables, plan=layer_plan, b=node.get("b"), scale=scale)
 
-    def convert_group(path: tuple, node: dict, members: tuple) -> Optional[LUTGroup]:
+    def convert_group(
+        path: tuple, node: dict, members: tuple, expert: bool = False
+    ) -> Optional[LUTGroup]:
         key_tuple = frozenset(path_key(path + (m,)) for m in members)
         declared = declared_groups is not None and key_tuple in declared_groups
         if declared_groups is not None and not declared:
@@ -290,7 +340,7 @@ def convert_params(
                 f"mismatched member plans — grouped siblings must share one"
             )
         ws = [node[m]["w"] for m in members]
-        tables, scale = build(ws, plans[0], grouped=True)
+        tables, scale = build(ws, plans[0], grouped=True, expert=expert)
         stats["converted"] += len(members)
         account(ws, tables)
         biases = [node[m].get("b") for m in members]
@@ -303,6 +353,13 @@ def convert_params(
         stats["groups"] += 1
         return LUTGroup(tables=tables, plan=plans[0], members=members, b=b, scale=scale)
 
+    def convert_expert_member(path: tuple, key: str, w) -> Any:
+        layer_plan = member_plan(path + (key,), {"w": w})
+        if layer_plan is None:
+            stats["skipped"] += 1
+            return w
+        return convert_one({"w": w}, layer_plan, expert=True)
+
     def walk(path: tuple, node: Any):
         if _is_linear_node(node):
             layer_plan = member_plan(path, node)
@@ -312,11 +369,20 @@ def convert_params(
             return convert_one(node, layer_plan)
         if not isinstance(node, dict):
             return node
+        # an expert stack's raw (L, E, q, p) weights are wrapped as linear
+        # nodes, so the group rules apply unchanged; a group's leaf is then
+        # (L, E, G, k, En, p), the layout the experts kernel reads
+        expert = convert_experts and _is_expert_stack(node)
+        if expert:
+            members_of = expert_sibling_groups(node)
+            source = {k: {"w": v} for k, v in node.items() if k in EXPERT_WEIGHT_KEYS}
+        else:
+            members_of, source = sibling_groups(node), node
         grouped: dict[str, LUTGroup] = {}
         consumed: set[str] = set()
         if group_siblings:
-            for members in sibling_groups(node):
-                g = convert_group(path, node, members)
+            for members in members_of:
+                g = convert_group(path, source, members, expert=expert)
                 if g is not None:
                     grouped[group_key(members)] = g
                     consumed |= set(members)
@@ -326,8 +392,10 @@ def convert_params(
                 gk = next(gk for gk, g in grouped.items() if k in g.members)
                 if gk not in out:
                     out[gk] = grouped[gk]
-                continue
-            out[k] = walk(path + (k,), v)
+            elif expert and k in EXPERT_WEIGHT_KEYS:
+                out[k] = convert_expert_member(path, k, v)
+            else:
+                out[k] = walk(path + (k,), v)
         return out
 
     out = walk((), params)

@@ -265,11 +265,6 @@ def _copies(w) -> int:
     return int(math.prod(int(d) for d in w.shape[:-2]))
 
 
-def _check_experts(convert_experts: bool):
-    if convert_experts:
-        raise NotImplementedError("MoE expert conversion comes with the MoE slice")
-
-
 def iter_linear_layers(
     params: dict,
     min_features: int = 1,
@@ -277,21 +272,40 @@ def iter_linear_layers(
     convert_experts: bool = False,
 ) -> Iterator[tuple[str, tuple[int, int], int]]:
     """Yield ``(path_key, (in_features, out_features), copies)`` for every
-    linear node ``convert_params`` would convert (same eligibility)."""
-    from repro_torch.core.convert import _is_linear_node
+    linear node ``convert_params`` would convert (same eligibility); with
+    ``convert_experts`` the raw MoE expert stacks too (``.../w_gate`` ...),
+    each one item whose ``copies`` is the product of its leading
+    (layer, expert) dims."""
+    from repro_torch.core.convert import (
+        EXPERT_WEIGHT_KEYS,
+        _is_expert_stack,
+        _is_linear_node,
+    )
 
-    _check_experts(convert_experts)
+    def eligible(path: tuple, node: dict) -> bool:
+        q = node["w"].shape[-2]
+        return q >= min_features and (predicate is None or predicate(path, node))
 
     def walk(path: tuple, node: Any):
         if _is_linear_node(node):
-            q = node["w"].shape[-2]
-            if q >= min_features and (predicate is None or predicate(path, node)):
+            if eligible(path, node):
                 q, p = node["w"].shape[-2:]
                 yield path_key(path), (int(q), int(p)), _copies(node["w"])
             return
-        if isinstance(node, dict):
-            for k in node:
-                yield from walk(path + (k,), node[k])
+        if not isinstance(node, dict):
+            return
+        if convert_experts and _is_expert_stack(node):
+            for k, v in node.items():
+                if k in EXPERT_WEIGHT_KEYS:
+                    mpath = path + (k,)
+                    if eligible(mpath, {"w": v}):
+                        q, p = v.shape[-2:]
+                        yield path_key(mpath), (int(q), int(p)), _copies(v)
+                else:
+                    yield from walk(path + (k,), v)
+            return
+        for k in node:
+            yield from walk(path + (k,), node[k])
 
     yield from walk((), params)
 
@@ -303,10 +317,15 @@ def iter_sibling_groups(
     convert_experts: bool = False,
 ) -> Iterator[tuple[str, ...]]:
     """Yield fusable sibling groups as tuples of layer path keys, the same
-    detection ``convert_params(group_siblings=True)`` runs."""
-    from repro_torch.core.convert import _is_linear_node, sibling_groups
-
-    _check_experts(convert_experts)
+    detection ``convert_params(group_siblings=True)`` runs; with
+    ``convert_experts`` the same-shape expert stacks (gate/up) too."""
+    from repro_torch.core.convert import (
+        EXPERT_WEIGHT_KEYS,
+        _is_expert_stack,
+        _is_linear_node,
+        expert_sibling_groups,
+        sibling_groups,
+    )
 
     def eligible(path: tuple, node: dict) -> bool:
         q = node["w"].shape[-2]
@@ -314,6 +333,15 @@ def iter_sibling_groups(
 
     def walk(path: tuple, node: Any):
         if not isinstance(node, dict) or _is_linear_node(node):
+            return
+        if _is_expert_stack(node):
+            if convert_experts:
+                for members in expert_sibling_groups(node):
+                    if all(eligible(path + (m,), {"w": node[m]}) for m in members):
+                        yield tuple(path_key(path + (m,)) for m in members)
+            for k, v in node.items():
+                if k not in EXPERT_WEIGHT_KEYS:
+                    yield from walk(path + (k,), v)
             return
         for members in sibling_groups(node):
             if all(eligible(path + (m,), node[m]) for m in members):

@@ -12,15 +12,25 @@
 //     (body _kernel :52, _gather_row :41)              -> lut_affine_launch
 //   src/repro/kernels/lut_affine/lut_affine.py:239 lut_affine_grouped_pallas
 //     (body _grouped_kernel :88)                       -> lut_affine_grouped_launch
-// Both entries run the one kernel template below; the lone projection is
-// the G = 1 case of the grouped grid.
+//   src/repro/kernels/lut_affine/lut_affine.py:181 lut_affine_experts_pallas
+//     (body _experts_kernel :128)                      -> lut_affine_experts_launch
+// All three run one tile function (lut_tile); the lone projection is the
+// G = 1 case of the grouped grid.  The ragged MoE form evaluates each row,
+// sorted by expert, against its own expert's (G, k, E, p) tables: the TPU
+// kernel walked every (token block x expert) pair and masked the rows a
+// block shared with a neighbour; here each block owns one segment of at
+// most 4 rows of ONE expert, found on the device from the expert offsets
+// (no read-back), so empty experts cost nothing and no row is masked.
 //
 // Bound on an H100 (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor cores):
 // at decode (B = 4, n = 3 planes, E = 32, i8) a chunk's B*n codes touch at
 // most min(E, B*n) = 12 of its 32 rows, so the least traffic is
 // k * 12 * p bytes per table set -- memory-bound (wq: ~60 us).  At prefill
 // (B = 128) every row is touched and the B*n*k*p shift-adds make it
-// operation-bound instead.
+// operation-bound instead.  The MoE form at decode (4 slots x top-4 = 16
+// rows, mostly one per expert) touches up to 16 x 3 rows per chunk of
+// different experts' tables: bytes-bound (expert w_gate+w_up of
+// qwen2_moe_a2_7b: <= 277 MB, ~83 us); at prefill operation-bound.
 //
 // Design, simple and correct first:
 // * A block owns a tile of 4 batch rows x 32 output columns of one table
@@ -157,33 +167,30 @@ __device__ __forceinline__ void accumulate_int(float acc[kCols], const int2* run
   }
 }
 
+// One block's output tile: rows [b0, b0 + nb) x the 32 columns of column
+// tile `ct`, accumulated over chunks [k0, k1) of one table set `tset`
+// (k, E, p) and written to `out` (rows of p fp32).  An empty chunk range
+// writes zeros.
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-lut_affine_kernel(const int32_t* __restrict__ codes,  // (B, n, k)
-                  const T* __restrict__ tables,       // (G, k, E, p)
-                  float* __restrict__ out,            // (splits, G, B, p)
-                  const PlaneShift ps, const int B, const int n, const int k,
-                  const int E, const int p, const int shift_bits,
-                  const int kt_max, const int vec, const int fast_int,
-                  const int splits) {
+__device__ __forceinline__ void lut_tile(const int32_t* __restrict__ codes,  // (B, n, k)
+                                         const T* __restrict__ tset,
+                                         float* __restrict__ out, const PlaneShift& ps,
+                                         const int b0, const int nb, const int ct,
+                                         const int n, const int k, const int k0,
+                                         const int k1, const int E, const int p,
+                                         const int shift_bits, const int kt_max,
+                                         const int vec, const int fast_int) {
   // staged codes, [row][chunk][plane] of {table row, (exponent << 1) | sign};
   // reused for the warp partials at the end
   extern __shared__ int2 smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int rb = lane / kQuads;
-  const int b0 = blockIdx.x * kRows;
-  const int nb = min(kRows, B - b0);
-  const int G = gridDim.z / splits;
-  const int g = blockIdx.z / splits;
-  const int split = blockIdx.z - g * splits;
-  const int k0 = static_cast<int>(static_cast<long long>(k) * split / splits);
-  const int k1 = static_cast<int>(static_cast<long long>(k) * (split + 1) / splits);
-  const int col = blockIdx.y * kTileP + (lane % kQuads) * kCols;
+  const int col = ct * kTileP + (lane % kQuads) * kCols;
   const int valid = min(kCols, p - col);
   const bool live = rb < nb && valid > 0;
   const bool full = vec && valid == kCols;
-  const T* __restrict__ tcol = tables + static_cast<size_t>(g) * k * E * p + col;
+  const T* __restrict__ tcol = tset + col;
   const int per_chunk = kRows * n;
 
   float acc[kCols];
@@ -235,11 +242,102 @@ lut_affine_kernel(const int32_t* __restrict__ codes,  // (B, n, k)
     for (int w = 0; w < kWarps; ++w) s += red[w * 32 * kCols + t];
     const int l = t / kCols;
     const int br = l / kQuads;
-    const int cc = blockIdx.y * kTileP + (l % kQuads) * kCols + t % kCols;
-    if (br < nb && cc < p) {
-      out[((static_cast<size_t>(split) * G + g) * B + b0 + br) * p + cc] = s;
-    }
+    const int cc = ct * kTileP + (l % kQuads) * kCols + t % kCols;
+    if (br < nb && cc < p) out[static_cast<size_t>(b0 + br) * p + cc] = s;
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+lut_affine_kernel(const int32_t* __restrict__ codes,  // (B, n, k)
+                  const T* __restrict__ tables,       // (G, k, E, p)
+                  float* __restrict__ out,            // (splits, G, B, p)
+                  const PlaneShift ps, const int B, const int n, const int k,
+                  const int E, const int p, const int shift_bits,
+                  const int kt_max, const int vec, const int fast_int,
+                  const int splits) {
+  const int b0 = blockIdx.x * kRows;
+  const int G = gridDim.z / splits;
+  const int g = blockIdx.z / splits;
+  const int split = blockIdx.z - g * splits;
+  const int k0 = static_cast<int>(static_cast<long long>(k) * split / splits);
+  const int k1 = static_cast<int>(static_cast<long long>(k) * (split + 1) / splits);
+  lut_tile<T>(codes, tables + static_cast<size_t>(g) * k * E * p,
+              out + (static_cast<size_t>(split) * G + g) * B * p, ps, b0,
+              min(kRows, B - b0), blockIdx.y, n, k, k0, k1, E, p, shift_bits, kt_max,
+              vec, fast_int);
+}
+
+// The ragged MoE form.  Rows arrive sorted by expert: expert e owns rows
+// [offsets[e], offsets[e+1]), and the rows past offsets[E] (a ragged
+// tail) are a last pseudo-expert whose output is zero.  Each expert's rows
+// are cut into segments of at most kRows, so a segment never crosses an
+// expert boundary; blockIdx.x numbers the segments in expert order and
+// varies fastest, so the blocks in flight share a column tile and a
+// prefill's segments of one expert re-read its tables from L2.  Each
+// block finds its segment from the offsets itself (warp 0: a prefix sum
+// of the segment counts over 32 experts at a time), with no read-back to
+// the host; blocks past the last segment exit at once, and an empty
+// expert costs nothing.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+lut_affine_experts_kernel(const int32_t* __restrict__ codes,   // (T, n, k)
+                          const T* __restrict__ tables,        // (E, G, k, En, p)
+                          const int32_t* __restrict__ offsets, // (E + 1,)
+                          float* __restrict__ out,             // (G, T, p)
+                          const PlaneShift ps, const int num_experts, const int G,
+                          const int T_rows, const int n, const int k, const int En,
+                          const int p, const int shift_bits, const int kt_max,
+                          const int vec, const int fast_int) {
+  __shared__ int seg[3];  // expert (num_experts = the zero tail), first row, rows
+  const int s = blockIdx.x;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int carry = 0;
+    bool found = false;
+    for (int base = 0; base <= num_experts && !found; base += 32) {
+      const int e = base + lane;
+      int start = T_rows, end = T_rows;
+      if (e < num_experts) {
+        start = min(offsets[e], T_rows);
+        end = min(offsets[e + 1], T_rows);
+      } else if (e == num_experts) {
+        start = min(offsets[num_experts], T_rows);
+      }
+      const int cnt = max(end - start, 0) / kRows + (max(end - start, 0) % kRows != 0);
+      int inc = cnt;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, inc, d);
+        if (lane >= d) inc += v;
+      }
+      const int lo = carry + inc - cnt;
+      const unsigned hit = __ballot_sync(0xffffffffu, cnt > 0 && s >= lo && s < lo + cnt);
+      if (hit) {
+        found = true;
+        if (lane == __ffs(hit) - 1) {
+          const int row0 = start + (s - lo) * kRows;
+          seg[0] = e;
+          seg[1] = row0;
+          seg[2] = min(kRows, end - row0);
+        }
+      }
+      carry += __shfl_sync(0xffffffffu, inc, 31);
+    }
+    if (!found && lane == 0) seg[2] = 0;
+  }
+  __syncthreads();
+  const int nb = seg[2];
+  if (nb <= 0) return;  // past the last segment: uniform over the block
+  const int e = seg[0];
+  const int ptiles = (p + kTileP - 1) / kTileP;
+  const int g = blockIdx.y / ptiles;
+  const int ct = blockIdx.y - g * ptiles;
+  const bool tail = e == num_experts;
+  // the tail's rows have no expert: an empty chunk range writes zeros
+  lut_tile<T>(codes, tables + (static_cast<size_t>(tail ? 0 : e) * G + g) * k * En * p,
+              out + static_cast<size_t>(g) * T_rows * p, ps, seg[1], nb, ct, n, k, 0,
+              tail ? 0 : k, En, p, shift_bits, kt_max, vec, fast_int);
 }
 
 // out[i] = sum of the k-splits' partials, in split order (deterministic)
@@ -253,61 +351,92 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
   }
 }
 
-template <typename T>
-void launch(const void* codes, const void* tables, void* out, void* part,
-            const PlaneShift& ps, int G, int B, int n, int k, int E, int p, int shift_bits,
-            int vec, int fast_int, int splits, cudaStream_t stream) {
-  const int per_chunk = kRows * n;
-  const int ks = (k + splits - 1) / splits;  // chunks of the largest split
-  int kt = kCodeSmemBytes / (per_chunk * static_cast<int>(sizeof(int2)));
+// Staged chunks per pass: as many as kCodeSmemBytes holds (at most 512 and
+// at most the chunks of the largest k range), a multiple of the warps.
+int staged_chunks(int n, int ks) {
+  int kt = kCodeSmemBytes / (kRows * n * static_cast<int>(sizeof(int2)));
   kt = kt < 512 ? kt : 512;
   kt = kt < ks ? kt : ks;
   if (kt >= kWarps) kt -= kt % kWarps;
-  kt = kt > 1 ? kt : 1;
-  const size_t code_bytes = static_cast<size_t>(kt) * per_chunk * sizeof(int2);
+  return kt > 1 ? kt : 1;
+}
+
+size_t smem_bytes(int n, int kt) {
+  const size_t code_bytes = static_cast<size_t>(kt) * kRows * n * sizeof(int2);
   const size_t red_bytes = static_cast<size_t>(kWarps) * 32 * kCols * sizeof(float);
-  const size_t smem = code_bytes > red_bytes ? code_bytes : red_bytes;
-  const dim3 grid((B + kRows - 1) / kRows, (p + kTileP - 1) / kTileP, G * splits);
-  lut_affine_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const int32_t*>(codes), static_cast<const T*>(tables),
-      static_cast<float*>(splits > 1 ? part : out), ps, B, n, k, E, p, shift_bits, kt,
-      vec, fast_int, splits);
-  if (splits > 1) {
-    const size_t count = static_cast<size_t>(G) * B * p;
+  return code_bytes > red_bytes ? code_bytes : red_bytes;
+}
+
+// The shapes of one launch.  `offsets` non-null selects the ragged MoE
+// form: `E` experts' tables (E, G, k, En, p) over B expert-sorted rows.
+struct Launch {
+  const void* codes;
+  const void* tables;
+  const void* offsets;
+  void* out;
+  void* part;
+  int E, G, B, n, k, En, p, shift_bits, vec, splits;
+};
+
+template <typename T>
+void launch(const Launch& a, const PlaneShift& ps, int fast_int, cudaStream_t stream) {
+  const int ptiles = (a.p + kTileP - 1) / kTileP;
+  if (a.offsets != nullptr) {
+    const int kt = staged_chunks(a.n, a.k);
+    // at most ceil(rows / kRows) + 1 segments per expert, the tail included
+    const unsigned segs = static_cast<unsigned>(a.E + 1 + (a.B + kRows - 1) / kRows);
+    lut_affine_experts_kernel<T><<<dim3(segs, a.G * ptiles), kWarps * 32,
+                                   smem_bytes(a.n, kt), stream>>>(
+        static_cast<const int32_t*>(a.codes), static_cast<const T*>(a.tables),
+        static_cast<const int32_t*>(a.offsets), static_cast<float*>(a.out), ps, a.E, a.G,
+        a.B, a.n, a.k, a.En, a.p, a.shift_bits, kt, a.vec, fast_int);
+    return;
+  }
+  const int kt = staged_chunks(a.n, (a.k + a.splits - 1) / a.splits);
+  const dim3 grid((a.B + kRows - 1) / kRows, ptiles, a.G * a.splits);
+  lut_affine_kernel<T><<<grid, kWarps * 32, smem_bytes(a.n, kt), stream>>>(
+      static_cast<const int32_t*>(a.codes), static_cast<const T*>(a.tables),
+      static_cast<float*>(a.splits > 1 ? a.part : a.out), ps, a.B, a.n, a.k, a.En, a.p,
+      a.shift_bits, kt, a.vec, fast_int, a.splits);
+  if (a.splits > 1) {
+    const size_t count = static_cast<size_t>(a.G) * a.B * a.p;
     sum_splits<<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
-        static_cast<const float*>(part), static_cast<float*>(out), count, splits);
+        static_cast<const float*>(a.part), static_cast<float*>(a.out), count, a.splits);
   }
 }
 
-int run(const void* codes, const void* tables, void* out, void* part,
-        const int* plane_exp, unsigned plane_neg, int dtype, int G, int B, int n, int k,
-        int E, int p, int shift_bits, int vec, int splits, void* stream) {
-  if (n < 1 || n > kMaxPlanes || G < 1 || B < 1 || k < 1 || E < 1 || p < 1 ||
-      splits < 1 || splits > k || (splits > 1 && part == nullptr) ||
-      static_cast<long long>(G) * splits > 65535 || static_cast<long long>(k) * E > INT_MAX) {
+int run(const Launch& a, const int* plane_exp, unsigned plane_neg, int dtype,
+        void* stream) {
+  const int ptiles = (a.p + kTileP - 1) / kTileP;
+  if (a.n < 1 || a.n > kMaxPlanes || a.G < 1 || a.B < 1 || a.k < 1 || a.En < 1 ||
+      a.p < 1 || a.splits < 1 || a.splits > a.k || (a.splits > 1 && a.part == nullptr) ||
+      static_cast<long long>(a.G) * a.splits > 65535 ||
+      static_cast<long long>(a.k) * a.En > INT_MAX ||
+      (a.offsets != nullptr &&
+       (a.E < 1 || a.splits != 1 || static_cast<long long>(a.G) * ptiles > 65535))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PlaneShift ps;
-  for (int j = 0; j < kMaxPlanes; ++j) ps.exp[j] = j < n ? plane_exp[j] : 0;
+  for (int j = 0; j < kMaxPlanes; ++j) ps.exp[j] = j < a.n ? plane_exp[j] : 0;
   ps.neg = plane_neg;
   // every total exponent is a plane exponent plus, with shift_bits, a
   // sigma exponent max(e, 1) - 25 in [-24, 6]
   int lo = plane_exp[0], hi = plane_exp[0];
-  for (int j = 1; j < n; ++j) {
+  for (int j = 1; j < a.n; ++j) {
     lo = plane_exp[j] < lo ? plane_exp[j] : lo;
     hi = plane_exp[j] > hi ? plane_exp[j] : hi;
   }
-  if (shift_bits) {
+  if (a.shift_bits) {
     lo -= 24;
     hi += 6;
   }
   const int fast_int = lo >= -126 && hi <= 113;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: launch<float>(codes, tables, out, part, ps, G, B, n, k, E, p, shift_bits, vec, fast_int, splits, s); break;
-    case 1: launch<uint16_t>(codes, tables, out, part, ps, G, B, n, k, E, p, shift_bits, vec, fast_int, splits, s); break;
-    case 2: launch<int8_t>(codes, tables, out, part, ps, G, B, n, k, E, p, shift_bits, vec, fast_int, splits, s); break;
-    case 3: launch<int16_t>(codes, tables, out, part, ps, G, B, n, k, E, p, shift_bits, vec, fast_int, splits, s); break;
+    case 0: launch<float>(a, ps, fast_int, s); break;
+    case 1: launch<uint16_t>(a, ps, fast_int, s); break;
+    case 2: launch<int8_t>(a, ps, fast_int, s); break;
+    case 3: launch<int16_t>(a, ps, fast_int, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -324,8 +453,8 @@ extern "C" int lut_affine_launch(const void* codes, const void* tables, void* ou
                                  void* part, const int* plane_exp, unsigned plane_neg,
                                  int dtype, int B, int n, int k, int E, int p,
                                  int shift_bits, int vec, int splits, void* stream) {
-  return run(codes, tables, out, part, plane_exp, plane_neg, dtype, 1, B, n, k, E, p,
-             shift_bits, vec, splits, stream);
+  const Launch a{codes, tables, nullptr, out, part, 0, 1, B, n, k, E, p, shift_bits, vec, splits};
+  return run(a, plane_exp, plane_neg, dtype, stream);
 }
 
 extern "C" int lut_affine_grouped_launch(const void* codes, const void* tables, void* out,
@@ -333,8 +462,23 @@ extern "C" int lut_affine_grouped_launch(const void* codes, const void* tables, 
                                          unsigned plane_neg, int dtype, int G, int B, int n,
                                          int k, int E, int p, int shift_bits, int vec,
                                          int splits, void* stream) {
-  return run(codes, tables, out, part, plane_exp, plane_neg, dtype, G, B, n, k, E, p,
-             shift_bits, vec, splits, stream);
+  const Launch a{codes, tables, nullptr, out, part, 0, G, B, n, k, E, p, shift_bits, vec, splits};
+  return run(a, plane_exp, plane_neg, dtype, stream);
+}
+
+// The ragged MoE form: codes (T, n, k) sorted by expert, tables
+// (num_experts, G, k, En, p), offsets (num_experts + 1,) int32 on the
+// device (offsets[0] = 0, offsets[e + 1] = rows of experts 0..e), out
+// (G, T, p) fp32; rows past offsets[num_experts] come out 0.  No k-split.
+extern "C" int lut_affine_experts_launch(const void* codes, const void* tables,
+                                         const void* offsets, void* out,
+                                         const int* plane_exp, unsigned plane_neg,
+                                         int dtype, int num_experts, int G, int T, int n,
+                                         int k, int En, int p, int shift_bits, int vec,
+                                         void* stream) {
+  const Launch a{codes, tables, offsets, out, nullptr, num_experts, G, T, n, k, En, p,
+                 shift_bits, vec, 1};
+  return run(a, plane_exp, plane_neg, dtype, stream);
 }
 
 extern "C" const char* lut_affine_error_string(int err) {

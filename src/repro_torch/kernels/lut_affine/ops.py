@@ -26,9 +26,13 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_acc_contract
-from repro_torch.kernels.lut_affine.ref import lut_affine_grouped_ref, lut_affine_ref
+from repro_torch.kernels.lut_affine.ref import (
+    lut_affine_experts_ref,
+    lut_affine_grouped_ref,
+    lut_affine_ref,
+)
 
-LAUNCHES = {"lut_affine": 0, "lut_affine_grouped": 0}
+LAUNCHES = {"lut_affine": 0, "lut_affine_grouped": 0, "lut_affine_experts": 0}
 
 MAX_PLANES = 32
 MAX_SPLITS = 8
@@ -81,8 +85,15 @@ def _lib() -> ctypes.CDLL:
         lib.lut_affine_grouped_launch.argtypes = (
             _ARGS + [ctypes.c_int] + _DIMS + [ctypes.c_void_p]
         )
+        # codes, tables, offsets, out, plane exponents, sign mask, dtype,
+        # experts, G, T, n, k, En, p, shift_bits, vec, stream
+        lib.lut_affine_experts_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_uint] + [ctypes.c_int] * 10
+            + [ctypes.c_void_p]
+        )
         lib.lut_affine_launch.restype = ctypes.c_int
         lib.lut_affine_grouped_launch.restype = ctypes.c_int
+        lib.lut_affine_experts_launch.restype = ctypes.c_int
         lib.lut_affine_error_string.argtypes = [ctypes.c_int]
         lib.lut_affine_error_string.restype = ctypes.c_char_p
         lib._bound = True
@@ -222,3 +233,53 @@ def lut_affine_grouped(
     if biases is not None:
         out = out + biases[:, None, :].to(torch.float32)
     return out.reshape(G, *lead, p)
+
+
+def lut_affine_experts(
+    codes: torch.Tensor,  # (T, n, k) int32, rows sorted by expert
+    tables: torch.Tensor,  # (E, G, k, En, p), the expert LUTGroup leaf as stored
+    scales,  # (n,) host powers of two
+    group_sizes: torch.Tensor,  # (E,) rows per expert, on the codes' device
+    *,
+    shift_bits: int = 0,
+    plan=None,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Ragged MoE form -> ``(G, T, p)`` fp32: row ``t`` against its expert's
+    ``tables[e(t)]`` for all ``G`` projections in one launch; rows past
+    ``sum(group_sizes)`` give 0.  The expert offsets are a cumulative sum
+    on the device, so nothing is read back."""
+    if plan is not None:
+        check_acc_contract("lut_affine_experts", plan, "float32")
+    T, n, k = codes.shape
+    E, G, k2, En, p = tables.shape
+    if k != k2:
+        raise ValueError(f"codes have {k} chunks, tables {k2}")
+    if tuple(group_sizes.shape) != (E,):
+        raise ValueError(f"group_sizes {tuple(group_sizes.shape)} for {E} experts")
+    if not (use_kernels and codes.is_cuda):
+        s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
+        return lut_affine_experts_ref(codes, tables, s, group_sizes, shift_bits)
+    codes = codes.contiguous()
+    _check_operands(codes, tables, shift_bits)
+    if group_sizes.device != codes.device:
+        raise ValueError(
+            f"group_sizes on {group_sizes.device}, codes on {codes.device}"
+        )
+    exps, neg = plane_shifts(scales)
+    if len(exps) != n:
+        raise ValueError(f"{len(exps)} scales for {n} planes")
+    out = torch.empty((G, T, p), dtype=torch.float32, device=codes.device)
+    if T == 0:
+        return out
+    offsets = torch.zeros(E + 1, dtype=torch.int32, device=codes.device)
+    torch.cumsum(group_sizes, 0, dtype=torch.int32, out=offsets[1:])
+    vec = p % 4 == 0 and tables.data_ptr() % (4 * tables.element_size()) == 0
+    err = _lib().lut_affine_experts_launch(
+        codes.data_ptr(), tables.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        (ctypes.c_int * n)(*exps), neg, _DTYPE_CODE[tables.dtype],
+        E, G, T, n, k, En, p, shift_bits, int(vec), _stream(codes),
+    )
+    _raise_on(err, "lut_affine_experts")
+    LAUNCHES["lut_affine_experts"] += 1
+    return out

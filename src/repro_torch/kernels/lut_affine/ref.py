@@ -60,3 +60,53 @@ def lut_affine_grouped_ref(
             for t in tables
         ]
     )
+
+
+def expert_of_token(group_sizes: torch.Tensor, num_tokens: int) -> torch.Tensor:
+    """(T,) int64 expert id of each expert-sorted row; rows past
+    ``sum(group_sizes)`` (a ragged tail) get ``E``, one past the last
+    expert."""
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    rows = torch.arange(num_tokens, dtype=torch.int64, device=group_sizes.device)
+    return (rows[:, None] >= ends[None, :]).sum(-1)
+
+
+def lut_affine_experts_ref(
+    codes: torch.Tensor,  # (T, n, k) int32, rows sorted by expert
+    tables: torch.Tensor,  # (E, G, k, En, p)
+    scales: torch.Tensor,  # (n,) fp32
+    group_sizes: torch.Tensor,  # (E,) rows per expert
+    shift_bits: int = 0,
+    max_gather_bytes: int = _GATHER_BYTES,
+) -> torch.Tensor:
+    """(G, T, p) fp32: row ``t`` against ITS expert's tables,
+    ``sum_j scales[j] * sum_c T[e(t), g, c, idx(t,j,c), :]``; rows past
+    ``sum(group_sizes)`` give 0, as in the kernels.  The ``(T, G, n, k,
+    p)`` gather runs in token and chunk slices of at most
+    ``max_gather_bytes``."""
+    T, n, k = codes.shape
+    E, G, k2, En, p = tables.shape
+    assert k == k2, (codes.shape, tables.shape)
+    dev = tables.device
+    eot = expert_of_token(group_sizes.to(dev), T)
+    live = eot < E
+    eot = torch.clamp(eot, max=E - 1)
+    per_plane = torch.zeros((T, G, n, p), dtype=torch.float32, device=dev)
+    c_step = max(1, min(k, max_gather_bytes // max(1, G * n * p * 4)))
+    t_step = max(1, max_gather_bytes // max(1, G * n * c_step * p * 4))
+    ag = torch.arange(G, device=dev)[None, :, None, None]
+    for t0 in range(0, T, t_step):
+        t1 = min(T, t0 + t_step)
+        e = eot[t0:t1, None, None, None]
+        for c0 in range(0, k, c_step):
+            c1 = min(k, c0 + c_step)
+            cd = codes[t0:t1, None, :, c0:c1]  # (Ts, 1, n, kc)
+            idx = cd & (En - 1) if shift_bits else cd
+            ac = torch.arange(c0, c1, device=dev)[None, None, None, :]
+            rows = tables[e, ag, ac, idx].to(torch.float32)  # (Ts, G, n, kc, p)
+            if shift_bits:
+                sig = pow2(torch.clamp(cd >> shift_bits, min=1) - 25)
+                rows = rows * sig[..., None]
+            per_plane[t0:t1] += rows.sum(dim=-2)
+    out = torch.einsum("tgnp,n->gtp", per_plane, scales.to(torch.float32))
+    return torch.where(live[None, :, None], out, torch.zeros((), device=dev))

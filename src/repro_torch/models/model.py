@@ -4,8 +4,8 @@
   model_forward(params, inputs, ctx, cache=None) -> (logits, cache, aux)
 
 with ``inputs = {"tokens": (B, S)}`` and optionally ``"token_mask"``.
-The port serves the dense family so far; the others raise until their
-slices arrive.
+The port serves the dense and MoE families so far; the others raise until
+their slices arrive.
 """
 from __future__ import annotations
 
@@ -17,8 +17,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Ctx
 
 
-def _dense_only(cfg: ModelConfig):
-    if cfg.family != "dense":
+_FAMILIES = ("dense", "moe")
+
+
+def _check_family(cfg: ModelConfig):
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} comes with its own slice of the port"
         )
@@ -27,7 +30,7 @@ def _dense_only(cfg: ModelConfig):
 def model_specs(cfg: ModelConfig) -> dict:
     from repro_torch.models.transformer import decoder_specs
 
-    _dense_only(cfg)
+    _check_family(cfg)
     return decoder_specs(cfg)
 
 
@@ -40,7 +43,7 @@ def model_forward(
     """Returns ``(logits, new_cache, aux_loss)``."""
     from repro_torch.models.transformer import forward
 
-    _dense_only(ctx.cfg)
+    _check_family(ctx.cfg)
     return forward(
         params,
         inputs["tokens"],

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family (counterpart of
+"""Decoder-only transformer LM, dense and MoE families (counterpart of
 ``repro/models/transformer.py``).
 
 Layer parameters are stacked along a leading ``layers`` axis, as in the
@@ -15,6 +15,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.convert import LUTGroup, LUTLinear
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx
+from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.params import PSpec, tree_map
 
 
@@ -31,14 +32,14 @@ def block_specs(cfg: ModelConfig) -> dict:
         "ln1": L.norm_spec(cfg),
         "attn": L.attention_specs(cfg),
         "ln2": L.norm_spec(cfg),
-        "ffn": L.mlp_specs(cfg),
+        "ffn": moe_specs(cfg) if cfg.num_experts else L.mlp_specs(cfg),
     }
 
 
 def decoder_specs(cfg: ModelConfig) -> dict:
-    if cfg.attention != "gqa" or cfg.num_experts or cfg.norm != "rmsnorm":
+    if cfg.attention != "gqa" or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            "MLA attention, MoE blocks and layernorm come with their slices of the port"
+            "MLA attention and layernorm come with their slices of the port"
         )
     if cfg.sliding_window is not None:
         raise NotImplementedError("sliding-window rings come with the mixtral slice")
@@ -73,11 +74,15 @@ def lm_logits(params: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
 
 
 def _block_apply(p, x, ctx: Ctx, positions, layer_cache):
+    """One block -> (x, the router's aux loss: 0 for a dense FFN)."""
     cfg = ctx.cfg
     h = L.apply_norm(p["ln1"], x, cfg)
     x = x + L.attention(p["attn"], h, ctx, positions, cache=layer_cache)
     h = L.apply_norm(p["ln2"], x, cfg)
-    return x + L.mlp(p["ffn"], h, ctx)
+    if cfg.num_experts:
+        h, aux = moe_ffn(p["ffn"], h, ctx)
+        return x + h, aux
+    return x + L.mlp(p["ffn"], h, ctx), None
 
 
 def forward(
@@ -88,7 +93,8 @@ def forward(
     cache: Optional[dict] = None,
     token_mask: Optional[torch.Tensor] = None,  # (B, S) bool: real tokens
 ):
-    """Returns ``(logits, cache, aux_loss)``; ``cache`` is updated in place.
+    """Returns ``(logits, cache, aux_loss)``; ``cache`` is updated in place
+    and ``aux_loss`` is the routers' load-balance loss summed over layers.
 
     ``token_mask`` marks real tokens in a right-padded batch: masked
     positions write nothing into the cache and do not advance the per-slot
@@ -108,14 +114,17 @@ def forward(
         cache, meta = advance_meta(
             cache, positions, ctx.cfg.sliding_window, token_mask
         )
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(ctx.cfg.num_layers):
         lc = None
         if cache is not None:
             lc = {name: buf[i] for name, buf in cache["layers"].items()}
             lc["_meta"] = meta
-        x = _block_apply(layer_params(params["blocks"], i), x, ctx, positions, lc)
+        lp = layer_params(params["blocks"], i)
+        x, layer_aux = _block_apply(lp, x, ctx, positions, lc)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     x = L.apply_norm(params["ln_f"], x, ctx.cfg)
     if ctx.ex.logits == "last":
         x = x[:, -1:]
-    logits = lm_logits(params, x, ctx)
-    return logits, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(params, x, ctx), cache, aux

@@ -50,7 +50,11 @@ def cache_specs(
     """PSpec tree for a fresh dense decode cache."""
     if page_size is not None:
         raise NotImplementedError("paged caches come with the paging slice")
-    if cfg.family != "dense" or cfg.attention != "gqa" or cfg.sliding_window:
+    if (
+        cfg.family not in ("dense", "moe")
+        or cfg.attention != "gqa"
+        or cfg.sliding_window
+    ):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} caches and sliding-window rings come "
             "with their family's slice"

@@ -37,7 +37,7 @@ from repro_torch.models.model import model_forward
 from repro_torch.models.params import init_params
 from repro_torch.serve._cache import CacheOverflowError, cache_specs
 
-_ENGINE_FAMILIES = ("dense",)
+_ENGINE_FAMILIES = ("dense", "moe")
 
 
 def make_cache(

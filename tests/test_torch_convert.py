@@ -169,5 +169,19 @@ def test_never_consumed_plan_entries_raise(granite):
     d["layers"]["blocks/attn/w_ghost"] = d["layers"]["blocks/attn/wo"]
     with pytest.raises(ValueError, match="never consumed"):
         convert_params(tp, plan=ModelPlan.from_json(d))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        convert_params(tp, convert_experts=True)
+    # an expert-stack entry planned with convert_experts=True is one the
+    # converter never consumes without it
+    rng = np.random.default_rng(3)
+    moe = {"ffn": {
+        "router": rng.standard_normal((4, 2)).astype(np.float32),
+        **{k: rng.standard_normal((2, 4, 4)).astype(np.float32)
+           for k in ("w_gate", "w_up", "w_down")},
+    }}
+    tmoe = params_from_numpy(moe, device="cpu")
+    mp = plan_model(tmoe, float("inf"), convert_experts=True)
+    assert mp.to_json() == jplan_model(
+        jax.tree.map(jnp.asarray, moe), float("inf"), convert_experts=True
+    ).to_json()
+    with pytest.raises(ValueError, match="never consumed"):
+        convert_params(tmoe, plan=mp)
+    convert_params(tmoe, plan=mp, convert_experts=True)

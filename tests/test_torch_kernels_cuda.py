@@ -1,5 +1,6 @@
-"""The Hopper LUT kernels (weight family: ``lut_affine``; TL1:
-``lut_tl1``) against their plain PyTorch versions, on the card.  The
+"""The Hopper LUT kernels (weight family: ``lut_affine`` and its ragged
+MoE form ``lut_affine_experts``; TL1: ``lut_tl1``) against their plain
+PyTorch versions, on the card.  The
 kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 runs on a machine that has only the port's dependencies:
@@ -143,3 +144,34 @@ def test_tl1_kernels_match_plain_on_card(cuda_device, act_bits, lead, kb, p):
     _tl1_same(raw, want_raw, exact)
     _tl1_same(got2, want, exact)
     _tl1_same(got1, want[1], exact)
+
+
+# E, G, T, n, k, En, p, group sizes (a sum below T leaves a zero tail)
+EXPERT_CASES = [
+    (5, 2, 11, 3, 77, 32, 130, (3, 0, 6, 2, 0)),  # gate+up, empty experts, T % 4
+    (3, 3, 9, 3, 40, 32, 96, (0, 9, 0)),  # G = 3, every row on one expert
+    (4, 1, 1, 3, 64, 32, 67, (0, 0, 1, 0)),  # T = 1, p not a multiple of 4
+    (6, 1, 30, 3, 33, 32, 64, (5, 1, 0, 7, 4, 2)),  # 19 rows: an 11-row zero tail
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shift_bits", [0, 5])
+@pytest.mark.parametrize("case", EXPERT_CASES, ids=["gate_up", "g3", "t1", "tail"])
+def test_experts_kernel_matches_plain_on_card(cuda_device, dtype, shift_bits, case):
+    E, G, T, n, k, En, p, sizes = case
+    codes, tables, scales = _case(11 + T, T, n, k, En, p, E * G, dtype, shift_bits)
+    c = torch.from_numpy(codes).to(cuda_device)
+    t = tables.reshape(E, G, k, En, p).to(cuda_device)
+    gs = torch.tensor(sizes, dtype=torch.int64, device=cuda_device)
+    before = ops.LAUNCHES["lut_affine_experts"]
+    got = ops.lut_affine_experts(c, t, scales, gs, shift_bits=shift_bits)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lut_affine_experts"] == before + 1
+    want = ops.lut_affine_experts(
+        c, t, scales, gs, shift_bits=shift_bits, use_kernels=False
+    )
+    assert tuple(got.shape) == (G, T, p)
+    _close(got, want)
+    assert not got[:, sum(sizes):].any()

@@ -126,8 +126,11 @@ def test_cuda_entry_points_raise_without_a_card():
 def test_other_families_raise():
     from repro_torch.configs.base import ModelConfig
 
-    cfg = ModelConfig("x", "moe", 1, 8, 2, 2, 8, 16, num_experts=2)
+    cfg = ModelConfig("x", "ssm", 1, 8, 2, 2, 8, 16, attention="none")
     with pytest.raises(NotImplementedError):
         model_specs(cfg)
+    mla = ModelConfig("x", "moe", 1, 8, 2, 2, 8, 16, attention="mla", num_experts=2)
+    with pytest.raises(NotImplementedError):
+        model_specs(mla)
     with pytest.raises(NotImplementedError):
         get_config("mixtral_8x7b")
