@@ -1,0 +1,26 @@
+"""Plain PyTorch version of the packing kernel (counterpart of
+``repro/kernels/bitplane_pack/ref.py``): the core library's
+``pack_codes`` under the plan the kernel's arguments describe."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.lut import LUTPlan, pack_codes
+from repro_torch.core.quantize import FixedPointFormat, Float16Format
+
+
+def pack_plan(q: int, *, kind: str, bits: int, frac: int, signed: bool, m: int) -> LUTPlan:
+    """The chunk-``m`` bitplane plan of a ``q``-wide input (its checks are
+    the kernel's argument checks too)."""
+    if kind not in ("fixed", "float16"):
+        raise ValueError(f"unknown kind {kind!r}; expected 'fixed' or 'float16'")
+    fmt = Float16Format() if kind == "float16" else FixedPointFormat(bits, frac, signed)
+    return LUTPlan(q, 1, m, fmt, mode="bitplane")
+
+
+def bitplane_pack_ref(
+    x: torch.Tensor, *, kind: str, bits: int, frac: int, signed: bool, m: int
+) -> torch.Tensor:
+    """``(..., q)`` -> ``(..., n, ceil(q/m))`` int32 LUT indices."""
+    plan = pack_plan(x.shape[-1], kind=kind, bits=bits, frac=frac, signed=signed, m=m)
+    return pack_codes(x, plan)

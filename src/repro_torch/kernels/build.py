@@ -26,6 +26,8 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 SOURCES: dict[str, tuple[str, ...]] = {
     "lut_affine": ("lut_affine.cu",),
     "lut_tl1": ("lut_tl1.cu",),
+    "bitplane_pack": ("bitplane_pack.cu",),
+    "binary_matmul": ("binary_matmul.cu",),
 }
 
 NVCC_FLAGS = (

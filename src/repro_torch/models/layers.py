@@ -8,7 +8,11 @@ sibling projections over one input).  Converted trees carry
 nodes, which run on the Hopper kernels by their plan's table family:
 weight-side tables through ``kernels.lut_affine.ops``, TL1 activation-side
 tables through ``kernels.lut_tl1.ops`` (``ExecCfg.use_kernels``; on CPU
-tensors the wrappers run the plain versions).
+tensors the wrappers run the plain versions).  Under
+``ExecCfg(linear_mode="binary_matmul")`` the unconverted projections run
+the beyond-paper bitplane path against their original weights: the input
+is packed into 8/6 fixed-point bitplanes (``kernels.bitplane_pack``) and
+the tensor cores sum the planes' products (``kernels.binary_matmul``).
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.convert import LUTGroup, LUTLinear
 from repro_torch.core.lut import LUTPlan, pack_codes, plane_scales
 from repro_torch.core.lut_tl1 import TL1Plan, quantize_acts
+from repro_torch.core.quantize import FixedPointFormat
+from repro_torch.kernels.binary_matmul.ops import binary_matmul
+from repro_torch.kernels.bitplane_pack.ops import bitplane_pack
 from repro_torch.kernels.lut_affine.ops import lut_affine, lut_affine_grouped
 from repro_torch.kernels.lut_tl1.ops import lut_tl1, lut_tl1_grouped
 from repro_torch.models.params import PSpec
@@ -33,15 +40,31 @@ from repro_torch.models.params import PSpec
 class ExecCfg:
     """Execution options.
 
-    ``use_kernels`` runs converted projections on the Hopper kernels when
-    their inputs lie on the card (False asks for the plain PyTorch
-    versions); ``lut_grouped`` fuses a pre-stacked group's projections into
-    one grouped launch; ``logits="last"`` keeps only the final position's
+    ``linear_mode`` is how unconverted projections run: ``"standard"``
+    (and ``"lut_gather"``, the same, as in the reference) is ``x @ W``;
+    ``"binary_matmul"`` packs the input into ``fixed_bits``/``fixed_frac``
+    signed fixed-point bitplanes and sums ``scale_j * planes_j @ bf16(W)``
+    in fp32.  Converted projections take their LUT path in every mode.
+    ``use_kernels`` runs the projections on the Hopper kernels when their
+    inputs lie on the card (False asks for the plain PyTorch versions);
+    ``lut_grouped`` fuses a pre-stacked group's projections into one
+    grouped launch; ``logits="last"`` keeps only the final position's
     head."""
 
+    linear_mode: str = "standard"  # standard | lut_gather | binary_matmul
+    fixed_bits: int = 8  # binary_matmul input format
+    fixed_frac: int = 6
     lut_grouped: bool = False
     use_kernels: bool = True
     logits: str = "all"  # all | last
+
+    def __post_init__(self):
+        if self.linear_mode == "onehot_mxu":
+            raise NotImplementedError(
+                "linear_mode='onehot_mxu' is not ported yet (ROADMAP.md, Queue 1)"
+            )
+        if self.linear_mode not in ("standard", "lut_gather", "binary_matmul"):
+            raise ValueError(f"unknown linear_mode {self.linear_mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,14 +222,32 @@ def _tl1_apply(
     return y.to(x.dtype)
 
 
+def _binary_apply(
+    w: torch.Tensor, b: torch.Tensor | None, x: torch.Tensor, ctx: Ctx
+) -> torch.Tensor:
+    """The beyond-paper bitplane path of a dense projection: the paper's
+    chunk-1 bitplane LUT, a 2-entry table ``{0, w_i}`` being a product with
+    a bit, with the adds done by the tensor cores."""
+    ex = ctx.ex
+    fmt = FixedPointFormat(ex.fixed_bits, ex.fixed_frac, signed=True)
+    planes = bitplane_pack(
+        x, kind="fixed", m=1, bits=fmt.total_bits, frac=fmt.frac_bits, signed=True,
+        use_kernels=ex.use_kernels,
+    )  # (..., n, q): at chunk 1 a code is one bit
+    y = binary_matmul(planes, w, fmt.plane_scales(), bias=b, use_kernels=ex.use_kernels)
+    return y.to(x.dtype)
+
+
 def linear(p: dict | LUTLinear, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """y = x @ W (+ b), or its TableNet-converted equivalent."""
     if isinstance(p, LUTLinear):
         if isinstance(p.plan, TL1Plan):
             return _tl1_apply(p.tables, p.b, p.plan, x, ctx, scale=p.scale)
         return _lut_apply(p.tables, p.b, p.plan, x, ctx, scale=p.scale)
-    y = x @ p["w"]
     b = p.get("b")
+    if ctx.ex.linear_mode == "binary_matmul":
+        return _binary_apply(p["w"], b, x, ctx)
+    y = x @ p["w"]
     if b is not None:
         y = y + b.to(y.dtype)
     return y

@@ -38,6 +38,8 @@ def test_the_file_list_is_the_port():
     assert {
         "kernels/lut_affine/ops.py",
         "kernels/lut_tl1/ops.py",
+        "kernels/binary_matmul/ops.py",
+        "kernels/bitplane_pack/ops.py",
         "serve/_engine.py",
         "core/lut.py",
         "core/lut_tl1.py",

@@ -1,6 +1,7 @@
-"""The Hopper LUT kernels (weight family: ``lut_affine`` and its ragged
-MoE form ``lut_affine_experts``; TL1: ``lut_tl1``) against their plain
-PyTorch versions, on the card.  The
+"""The Hopper kernels (weight family: ``lut_affine`` and its ragged MoE
+form ``lut_affine_experts``; TL1: ``lut_tl1``; the binary-matmul mode:
+``bitplane_pack`` and ``binary_matmul``) against their plain PyTorch
+versions, on the card.  The
 kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 runs on a machine that has only the port's dependencies:
@@ -11,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.binary_matmul import ops as bmm_ops
+from repro_torch.kernels.bitplane_pack import ops as pack_ops
 from repro_torch.kernels.lut_affine import ops
 from repro_torch.kernels.lut_tl1 import ops as tl1_ops
 
@@ -175,3 +178,102 @@ def test_experts_kernel_matches_plain_on_card(cuda_device, dtype, shift_bits, ca
     assert tuple(got.shape) == (G, T, p)
     _close(got, want)
     assert not got[:, sum(sizes):].any()
+
+
+# (B, q, m, bits, frac, signed): the binary path's 8/6 signed m = 1 at a
+# full-width decode row, ragged q with m 2..4, 2..24 bits, both signs
+PACK_FIXED = [
+    (4, 4096, 1, 8, 6, True),
+    (3, 37, 2, 3, 1, True),
+    (5, 70, 3, 4, 2, False),
+    (2, 33, 4, 5, 3, True),
+    (9, 64, 1, 6, 4, False),
+    (300, 7, 3, 7, 0, True),
+    (7, 45, 4, 8, 4, False),
+    (2, 50, 1, 24, 10, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,q,m,bits,frac,signed", PACK_FIXED)
+def test_pack_fixed_matches_plain_on_card(cuda_device, B, q, m, bits, frac, signed):
+    rng = np.random.default_rng(B * q + m)
+    x = rng.uniform(-4.0, 4.0, (B, q)).astype(np.float32)
+    # rounding ties (half to even) and out-of-range inputs (saturation)
+    x[0, : min(q, 5)] = np.array([0.5, 1.5, -0.5, -2.5, 1e9], np.float32)[: min(q, 5)] / 2**frac
+    xs = torch.from_numpy(x).to(cuda_device).reshape(1, B, q)  # a leading dim
+    kw = dict(kind="fixed", bits=bits, frac=frac, signed=signed, m=m)
+    before = pack_ops.LAUNCHES["bitplane_pack"]
+    got = pack_ops.bitplane_pack(xs, **kw)
+    torch.cuda.synchronize()
+    assert pack_ops.LAUNCHES["bitplane_pack"] == before + 1
+    want = pack_ops.bitplane_pack(xs, use_kernels=False, **kw)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1, B, bits, -(-q // m))
+    assert torch.equal(got, want)  # bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,q,m", [(1, 1, 1), (5, 33, 2), (8, 130, 4), (130, 16, 1), (4, 27, 3)])
+def test_pack_float16_matches_plain_on_card(cuda_device, B, q, m):
+    rng = np.random.default_rng(q)
+    x = rng.uniform(0.0, 100.0, (B, q)) * (rng.uniform(size=(B, q)) > 0.1)
+    x[0, : min(q, 6)] = [-3.0, 5.96e-8, 1.2e-7, 6.0e-5, 1e6, 0.0][: min(q, 6)]  # <0, subnormal, inf
+    xs = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    kw = dict(kind="float16", m=m)
+    got = pack_ops.bitplane_pack(xs, **kw)
+    want = pack_ops.bitplane_pack(xs, use_kernels=False, **kw)
+    assert tuple(got.shape) == (B, 11, -(-q // m))
+    assert torch.equal(got, want)  # bit for bit
+
+
+def _bmm_case(seed, B, n, q, p):
+    rng = np.random.default_rng(seed)
+    planes = torch.from_numpy((rng.uniform(size=(B, n, q)) < 0.5).astype(np.int8))
+    W = torch.from_numpy((rng.standard_normal((q, p)) / np.sqrt(q)).astype(np.float32))
+    scales = (2.0 ** -np.arange(n)).astype(np.float32)
+    scales[-1] = -scales[-1]  # the signed MSB plane
+    return planes, W, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("plane_dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize(
+    "B,n,q,p",
+    [
+        (4, 8, 4096, 1024),  # decode wk: few output tiles, q split across blocks
+        (1, 1, 1, 1),
+        (4, 8, 100, 30),  # ragged q and p: element loads
+        (65, 11, 300, 140),  # 5 batch rows per block, a ragged last block
+        (2, 16, 513, 257),
+        (3, 32, 64, 64),  # the most planes the kernel takes
+    ],
+)
+def test_binary_matmul_matches_plain_on_card(cuda_device, w_dtype, plane_dtype, B, n, q, p):
+    planes, W, scales = _bmm_case(n * q, B, n, q, p)
+    planes = planes.to(plane_dtype).to(cuda_device)
+    W = W.to(cuda_device) if w_dtype == "f32" else W.to(torch.bfloat16).to(cuda_device)
+    before = bmm_ops.LAUNCHES["binary_matmul"]
+    got = bmm_ops.binary_matmul(planes, W, scales)
+    torch.cuda.synchronize()
+    assert bmm_ops.LAUNCHES["binary_matmul"] == before + 1
+    want = bmm_ops.binary_matmul(planes, W, scales, use_kernels=False)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, p)
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_binary_matmul_takes_leading_dims_bias_and_packed_codes(cuda_device):
+    """The binary path as ``linear`` runs it: int32 codes straight from the
+    packing kernel (no cast between the two launches), leading dims, bias."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(-2.5, 2.5, (2, 3, 200)).astype(np.float32)).to(cuda_device)
+    W = torch.from_numpy((rng.standard_normal((200, 72)) / 14).astype(np.float32)).to(cuda_device)
+    bias = torch.from_numpy(rng.standard_normal(72).astype(np.float32)).to(cuda_device)
+    planes = pack_ops.bitplane_pack(x, kind="fixed", m=1, bits=8, frac=6, signed=True)
+    scales = 2.0 ** (np.arange(8) - 6.0)
+    scales[-1] = -scales[-1]
+    got = bmm_ops.binary_matmul(planes, W, scales, bias=bias)
+    want = bmm_ops.binary_matmul(planes, W, scales, bias=bias, use_kernels=False)
+    assert tuple(got.shape) == (2, 3, 72)
+    _close(got, want)
