@@ -47,14 +47,18 @@ Phases, one JSON object per line:
    first token identical, prefill logits held as in ``serve``.
 8. ``bmm_kernel``  the binary-matmul mode's two kernels against their
    plain versions at full-width granite_8b shapes (decode 4 rows x 8
-   planes = 32 folded rows, prefill 128 rows = 1024 folded rows; W in fp32
-   as the path holds it): ``bitplane_pack`` bit for bit, ``binary_matmul``
+   planes = 32 folded rows, prefill 128 rows = 1024 folded rows; W in bf16
+   as the path holds it, an fp32 W's time beside it): ``bitplane_pack`` bit
+   for bit, ``binary_matmul``
    within 1e-5 x max|plain|, with a cuBLAS bf16 GEMM of the folded planes
    (``torch.matmul``) as the library yardstick and the dense bf16 ``x @ W``
    the mode replaces for context; then a grid of plane counts, ragged
    ``q``/``p``, leading dims, bias, bf16 ``W`` and every packing mode.
-9. ``bmm_serve``  full-width granite_8b at all 36 layers in fp32, served
-   through ``BatchingEngine`` under ``ExecCfg(linear_mode="binary_matmul")``
+9. ``bmm_serve``  full-width granite_8b at all 36 layers, its projection
+   weights rounded once to bf16 (``models/params.py::bf16_projections``;
+   prefill logits identical to the fp32 tree's on both paths, checked),
+   served through ``BatchingEngine`` under
+   ``ExecCfg(linear_mode="binary_matmul")``
    on the kernels (7 packs and 7 binary matmuls per layer and forward, no
    LUT kernel), then on the plain versions: every first token identical,
    prefill logits compared at several depths and held to BMM_LOGITS_TOL.
@@ -79,6 +83,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -140,6 +145,32 @@ REPLACES = {
     "binary_matmul": "src/repro/kernels/binary_matmul/binary_matmul.py:47",
     "bitplane_pack": "src/repro/kernels/bitplane_pack/bitplane_pack.py:56",
 }
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas -v's report per kernel: registers, static shared memory, stack
+    frame and spill bytes (dynamic shared memory is set at launch and
+    reported beside it)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        row = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            row["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            row["static_smem"] = int(sm.group(1)) if sm else 0
+    return {k: v for k, v in out.items() if "registers" in v}
 
 
 def emit(obj) -> None:
@@ -642,10 +673,11 @@ def int_mm_fn(codes, tables):
     return calls, calls[0]()[:B].reshape(B, G, p).permute(1, 0, 2)
 
 
-def run_tl1_case(name, acts, act_scale, tables, scale, bias, iters, plain_iters):
-    """Kernel vs plain on one case: the int path bit for bit (raw accumulate
-    and dequantized output), the fp32 path within TL1_TOL x max|plain|;
-    then the kernel's, the plain version's and ``_int_mm``'s times."""
+def run_tl1_case(name, acts, act_scale, tables, scale, bias, iters, plain_iters, plan):
+    """Kernel vs plain on one case under ``plan`` (which sets the kernel's
+    entry width): the int path bit for bit (raw accumulate and dequantized
+    output), the fp32 path within TL1_TOL x max|plain|; then the kernel's,
+    the plain version's and ``_int_mm``'s times."""
     import torch
 
     from repro_torch.kernels.lut_tl1 import ops
@@ -654,18 +686,18 @@ def run_tl1_case(name, acts, act_scale, tables, scale, bias, iters, plain_iters)
     G, kb, p = tables.shape
     exact = not acts.is_floating_point()
     if name == "lut_tl1":
-        got = ops.lut_tl1(acts, tables[0], act_scale, scale[0], bias=bias[0])[None]
+        got = ops.lut_tl1(acts, tables[0], act_scale, scale[0], bias=bias[0], plan=plan)[None]
         want = ops.lut_tl1(
             acts, tables[0], act_scale, scale[0], bias=bias[0], use_kernels=False
         )[None]
     else:
-        got = ops.lut_tl1_grouped(acts, tables, act_scale, scale, biases=bias)
+        got = ops.lut_tl1_grouped(acts, tables, act_scale, scale, biases=bias, plan=plan)
         want = ops.lut_tl1_grouped(
             acts, tables, act_scale, scale, biases=bias, use_kernels=False
         )
     flat = acts.reshape(-1, acts.shape[-1])
     B = flat.shape[0]
-    raw = ops._launch(name, flat, tables)
+    raw = ops._launch(name, flat, tables, plan)
     torch.cuda.synchronize()
     raw_plain = lut_tl1_grouped_ref(flat, tables)
     err = max((got - want).abs().max().item(), (raw - raw_plain).abs().max().item())
@@ -678,7 +710,7 @@ def run_tl1_case(name, acts, act_scale, tables, scale, bias, iters, plain_iters)
         raise AssertionError(f"{name} B={B} kb={kb} p={p}: _int_mm disagrees with the kernel")
     del got, want, raw, raw_plain, lib_out
     ms = device_ms(
-        [functools.partial(ops._launch, name, flat, t) for t in copies_of(tables)], iters
+        [functools.partial(ops._launch, name, flat, t, plan) for t in copies_of(tables)], iters
     )
     plain_ms = device_ms(
         [lambda: lut_tl1_grouped_ref(flat, tables)], plain_iters, warmup=1, hold=False
@@ -690,6 +722,7 @@ def run_tl1_case(name, acts, act_scale, tables, scale, bias, iters, plain_iters)
         "tol_reason": "int path: integer accumulate, bit for bit" if exact
         else f"{TL1_TOL} x max|plain|: fp32 sums in another order",
         "int_mm_agrees": None if lib is None else True,
+        "entry": ops.entry_format(plan, not exact),
         "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": lib_ms,
     }
@@ -717,7 +750,7 @@ def tl1_kernel_phase(iters: int, prefill_rows: int) -> dict:
                 x = torch.randn(rows, q, generator=gen, device=DEV)
                 codes, act_scale = quantize_acts(x, plan)
                 r = run_tl1_case(name, codes, act_scale, tables, scale, bias, iters,
-                                 5 if rows > 4 else 10)
+                                 5 if rows > 4 else 10, plan)
                 emit({"phase": "tl1_kernel", "kernel": name, "proj": proj, "rows": rows,
                       "G": G, "q": q, "kb": plan.packed_chunks, "p": p, "act_bits": 8, **r})
                 worst[name] = max(worst[name], r["max_abs_err"])
@@ -731,13 +764,18 @@ def tl1_kernel_phase(iters: int, prefill_rows: int) -> dict:
                 del tables, built, codes
                 torch.cuda.empty_cache()
     # grid: int8 / int4 / exact fp32 codes, ragged q (zero-padded tail),
-    # p off the 128-column tile and off 4, leading dims, few packed rows
+    # p off the 1024-column tile and off 4, leading dims, few packed rows,
+    # packed rows around the 64-row stage of the int16 entries, G = 3; the
+    # first token's codes at +-qa, where folded entries are largest
     grid = [
         # lead, kb, p, G
         ((2, 5), 77, 130, 2),
         ((3,), 50, 67, 2),
         ((40,), 9, 256, 2),
         ((1,), 300, 1000, 1),
+        ((4,), 63, 1030, 3),
+        ((9,), 65, 2100, 2),
+        ((4,), 129, 513, 3),
     ]
     for act_bits in (8, 4, None):
         for lead, kb, p, G in grid:
@@ -750,6 +788,8 @@ def tl1_kernel_phase(iters: int, prefill_rows: int) -> dict:
                 acts = torch.randint(-qa, qa + 1, lead + (4 * kb,), generator=gen,
                                      device=DEV, dtype=torch.int32)
                 act_scale = torch.rand(lead + (1,), generator=gen, device=DEV)
+                first = acts.view(-1, 4 * kb)[0]
+                first.copy_(torch.where(first < 0, -qa, qa))
             acts[..., q:] = 0
             nib = torch.randint(0, 9, (G, kb, p, 2), generator=gen, device=DEV)
             tables = (nib[..., 0] | (nib[..., 1] << 4)).to(torch.uint8)
@@ -758,7 +798,8 @@ def tl1_kernel_phase(iters: int, prefill_rows: int) -> dict:
             for name in ("lut_tl1", "lut_tl1_grouped"):
                 t, s, b = (tables[:1], scale[:1], bias[:1]) if name == "lut_tl1" \
                     else (tables, scale, bias)
-                r = run_tl1_case(name, acts, act_scale, t, s, b, iters, 5)
+                r = run_tl1_case(name, acts, act_scale, t, s, b, iters, 5,
+                                 TL1Plan(q, p, act_bits=act_bits))
                 emit({"phase": "tl1_kernel", "kernel": name, "grid": True,
                       "lead": list(lead), "G": t.shape[0], "q": q, "kb": kb, "p": p,
                       "act_bits": act_bits, **r})
@@ -1360,38 +1401,43 @@ def bmm_kernel_phase(iters: int, prefill_rows: int) -> dict:
             emit({"phase": "bmm_kernel", "kernel": "bitplane_pack", "proj": proj, "rows": rows,
                   "q": q, "n": bits, "fixed": [bits, frac], **rp})
             W = torch.randn(q, p, generator=gen, device=DEV) / q**0.5
-            err, tol = check_bmm(planes, W, scales)
-            worst["binary_matmul"] = max(worst["binary_matmul"], err)
-            ws = copies_of(W)
+            Wb = W.to(torch.bfloat16)  # the path's W (models/params.py::bf16_projections)
+            err, tol = check_bmm(planes, Wb, scales)
+            err32, tol32 = check_bmm(planes, W, scales)  # fp32 W: rounded by the wrapper
+            worst["binary_matmul"] = max(worst["binary_matmul"], err, err32)
+            wb = copies_of(Wb)
             ms = device_ms(
-                [functools.partial(bmm_ops.binary_matmul, planes, w, scales) for w in ws], iters
-            )
-            plain_ms = device_ms(
-                [lambda: bmm_ops.binary_matmul(planes, W, scales, use_kernels=False)],
-                10 if rows == SLOTS else 3, warmup=1, hold=False,
-            )
-            del ws
-            wb = copies_of(W.to(torch.bfloat16))
-            bf16_w_ms = device_ms(
                 [functools.partial(bmm_ops.binary_matmul, planes, w, scales) for w in wb], iters
             )
             folded = planes.reshape(rows * bits, q).to(torch.bfloat16)
             lib_ms = device_ms([functools.partial(torch.matmul, folded, w) for w in wb], iters)
+            plain_ms = device_ms(
+                [lambda: bmm_ops.binary_matmul(planes, Wb, scales, use_kernels=False)],
+                10 if rows == SLOTS else 3, warmup=1, hold=False,
+            )
             del wb, folded
-            bms, by = bmm_bound(planes, W, p)
+            ws = copies_of(W)
+            fp32_w_ms = device_ms(
+                [functools.partial(bmm_ops.binary_matmul, planes, w, scales) for w in ws], iters
+            )
+            del ws
+            bms, by = bmm_bound(planes, Wb, p)
             emit({"phase": "bmm_kernel", "kernel": "binary_matmul", "proj": proj, "rows": rows,
-                  "folded_rows": rows * bits, "q": q, "p": p, "w": "float32",
+                  "folded_rows": rows * bits, "q": q, "p": p, "w": "bfloat16",
                   "planes": str(planes.dtype).replace("torch.", ""),
-                  "max_abs_err": err, "tol": tol,
+                  "max_abs_err": err, "tol": tol, "fp32_w_max_abs_err": err32,
+                  "fp32_w_tol": tol32,
                   "tol_reason": f"{KERNEL_TOL} x max|plain|: exact bit x bf16 products, "
                                 "fp32 sums in another order",
                   "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                   "library_ms": lib_ms,
                   "library_how": "torch.matmul of the folded planes and W, both bf16 "
-                                 "(cuBLAS; W rounded once outside the timing, so it reads "
-                                 "half the path's bytes; no plane sum)",
-                  "kernel_bf16_w_ms": bf16_w_ms,
+                                 "(cuBLAS; the same W bytes as the kernel; no plane sum)",
+                  "kernel_fp32_w_ms": fp32_w_ms,
+                  "fp32_w_how": "an fp32 W, rounded to bf16 by the wrapper (one copy) "
+                                "before the same kernel; the serve path never takes it",
                   "dense_bf16_ms": dense_ms(rows, 1, q, p, iters),
+                  "tile": list(bmm_ops.tile(rows, bits)),
                   "splits": bmm_ops.k_splits(rows, bits, q, p,
                                              bmm_ops._sm_count(torch.device(DEV)))})
             if rows == SLOTS:
@@ -1403,11 +1449,12 @@ def bmm_kernel_phase(iters: int, prefill_rows: int) -> dict:
                         if key != "bound_by":
                             m[key] += calls * r[key]
                     m["bound_by"].add(by if name == "binary_matmul" else rp["bound_by"])
-            del W, planes, x
+            del W, Wb, planes, x
             torch.cuda.empty_cache()
 
     # grid, after tests/test_kernels.py: binary_matmul over n 1..16, ragged
-    # q and p, leading dims, bias, int8 / int32 planes, fp32 / bf16 W
+    # q and p, leading dims, bias, int8 / int32 planes, fp32 / bf16 W, 800
+    # folded rows (not a multiple of the tile), a W at an unaligned base
     for lead, n, q, p, wdt, pdt, bias in [
         ((1,), 1, 1, 1, torch.float32, torch.int8, False),
         ((4,), 8, 100, 30, torch.bfloat16, torch.int8, True),
@@ -1415,16 +1462,23 @@ def bmm_kernel_phase(iters: int, prefill_rows: int) -> dict:
         ((2,), 16, 513, 257, torch.bfloat16, torch.int32, True),
         ((2, 3), 8, 4096, 1024, torch.float32, torch.int32, True),
         ((5,), 3, 64, 64, torch.float32, torch.int8, False),
+        ((100,), 8, 4096, 1024, torch.bfloat16, torch.int32, False),
+        ((4,), 8, 1000, 600, "bf16_unaligned", torch.int32, True),
     ]:
         planes = (torch.rand(lead + (n, q), generator=gen, device=DEV) < 0.5).to(pdt)
-        W = (torch.randn(q, p, generator=gen, device=DEV) / q**0.5).to(wdt)
+        if wdt == "bf16_unaligned":  # a contiguous W at a 2-byte offset
+            buf = (torch.randn(q * p + 1, generator=gen, device=DEV) / q**0.5).to(torch.bfloat16)
+            W = buf[1:].view(q, p)
+        else:
+            W = (torch.randn(q, p, generator=gen, device=DEV) / q**0.5).to(wdt)
         scales = 0.5 ** np.arange(n)
         scales[-1] = -scales[-1]
         b = torch.randn(p, generator=gen, device=DEV) if bias else None
         err, tol = check_bmm(planes, W, scales, b)
         emit({"phase": "bmm_kernel", "kernel": "binary_matmul", "grid": True,
               "lead": list(lead), "n": n, "q": q, "p": p,
-              "w": str(wdt).replace("torch.", ""), "planes": str(pdt).replace("torch.", ""),
+              "w": str(W.dtype).replace("torch.", ""), "planes": str(pdt).replace("torch.", ""),
+              "w_aligned_16": W.data_ptr() % 16 == 0,
               "bias": bias, "max_abs_err": err, "tol": tol})
     # bitplane_pack: fixed bits 2..8, frac 0..4, both signs, m 1..4; fp16
     # with m 1..4, zeros, subnormals, negatives and overflow
@@ -1483,28 +1537,60 @@ def bmm_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.models.model import model_forward, model_specs
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import bf16_projections, init_params
     from repro_torch.serve import make_cache
 
     full = get_config("granite_8b")
     cfg = dataclasses.replace(full, num_layers=layers)
     bits, frac = BMM_FIXED
     mode = dict(linear_mode="binary_matmul", fixed_bits=bits, fixed_frac=frac)
+    prompts = serve_requests(cfg, requests)
+    inputs = prefill_inputs(prompts)
+
+    def prefill_logits(tree, depth: int, use_kernels: bool):
+        dcfg = dataclasses.replace(cfg, num_layers=depth)
+        dparams = dict(tree, blocks=first_layers(tree["blocks"], depth))
+        ctx = Ctx(dcfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels, **mode))
+        cache = make_cache(dcfg, SLOTS, MAX_LEN, ctx, device=DEV)
+        with torch.no_grad():
+            logits, _, _ = model_forward(dparams, inputs, ctx, cache=cache)
+        return logits[inputs["token_mask"]]
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEV).manual_seed(0)
     t0 = time.perf_counter()
-    params = init_params(model_specs(cfg), gen, device=DEV)
+    params32 = init_params(model_specs(cfg), gen, device=DEV)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the fp32 tree's prefill logits on both paths, before its projections
+    # are rounded once to bf16 (both paths round W to bf16 before the
+    # product, so the bf16 tree must give them bit for bit)
+    depth = BMM_DEPTHS[1]
+    ref32 = {uk: prefill_logits(params32, depth, uk) for uk in (True, False)}
+    t0 = time.perf_counter()
+    params = bf16_projections(params32)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    del params32
+    torch.cuda.empty_cache()
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     proj_bytes = sum(t.numel() * t.element_size() for t in _leaves(params["blocks"])
                      if t.ndim == 3)
-    emit({"phase": "bmm_serve", "step": "init", "seconds": time.perf_counter() - t0,
+    emit({"phase": "bmm_serve", "step": "init", "seconds": init_s, "round_seconds": round_s,
           "weight_gib": weight_bytes / 2**30, "projection_gib": proj_bytes / 2**30,
-          "depth": {"layers": layers, "published": full.num_layers},
-          "fixed": [bits, frac], "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30})
+          "projection_dtype": "bfloat16",
+          "depth": {"layers": layers, "published": full.num_layers}, "fixed": [bits, frac],
+          "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    same = {("kernels" if uk else "plain"): torch.equal(prefill_logits(params, depth, uk), ref)
+            for uk, ref in ref32.items()}
+    emit({"phase": "bmm_serve", "step": "bf16_tree", "layers": depth,
+          "logits_identical_to_fp32_tree": same})
+    if not all(same.values()):
+        raise AssertionError(f"the bf16-projection tree changed the prefill logits: {same}")
+    del ref32
 
-    prompts = serve_requests(cfg, requests)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reqs, eng, wall, decode_ms = run_engine(params, cfg, prompts, max_new, True, **mode)
@@ -1541,26 +1627,16 @@ def bmm_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     if not first_ok:
         raise AssertionError("kernel and plain paths disagree on a first token")
 
-    inputs = prefill_inputs(prompts)
-
-    def prefill_logits(depth: int, use_kernels: bool):
-        dcfg = dataclasses.replace(cfg, num_layers=depth)
-        dparams = dict(params, blocks=first_layers(params["blocks"], depth))
-        ctx = Ctx(dcfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels, **mode))
-        cache = make_cache(dcfg, SLOTS, MAX_LEN, ctx, device=DEV)
-        with torch.no_grad():
-            logits, _, _ = model_forward(dparams, inputs, ctx, cache=cache)
-        return logits[inputs["token_mask"]]
-
     for depth in BMM_DEPTHS:
         if depth < layers:
             emit({"phase": "bmm_serve", "step": "prefill_logits_by_depth", "layers": depth,
-                  **compare_logits(prefill_logits(depth, True), prefill_logits(depth, False))})
-    got, ref = prefill_logits(layers, True), prefill_logits(layers, False)
+                  **compare_logits(prefill_logits(params, depth, True),
+                                   prefill_logits(params, depth, False))})
+    got, ref = prefill_logits(params, layers, True), prefill_logits(params, layers, False)
     # noise floor: the plain path against itself with q cut in two (the
     # same function, another fp32 order)
     with plain_bmm_split(2):
-        floor = compare_logits(prefill_logits(layers, False), ref)
+        floor = compare_logits(prefill_logits(params, layers, False), ref)
     res = compare_logits(got, ref)
     finite = bool(torch.isfinite(got).all().item())
     tol = BMM_LOGITS_TOL * res["max_abs_ref"]
@@ -1691,14 +1767,17 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     built = build.build(force=True)
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in build.BUILD_LOG.items()}
+    ptxas = {name: ptxas_report(log) for name, log in build.BUILD_LOG.items()}
+    dynamic_smem = {
+        "binary_matmul": {tile: build.load("binary_matmul").binary_matmul_smem_bytes(i)
+                          for i, tile in enumerate(("decode", "prefill"))},
+        "lut_tl1": build.load("lut_tl1").lut_tl1_smem_bytes(),
+    }
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "tf32": {"matmul": False, "cudnn": False},
           "build_seconds": build.BUILD_SECONDS, "libraries": {k: str(v) for k, v in built.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "dynamic_smem_bytes": dynamic_smem})
     kern = kernel_phase(args.iters, 4 * 32) if "kernel" in phases else None
     srv = serve_phase(LAYERS, REQUESTS, MAX_NEW) if "serve" in phases else None
     torch.cuda.empty_cache()

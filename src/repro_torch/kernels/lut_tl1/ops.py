@@ -28,14 +28,23 @@ from repro_torch.kernels.lut_tl1.ref import lut_tl1_grouped_ref, lut_tl1_ref
 
 LAUNCHES = {"lut_tl1": 0, "lut_tl1_grouped": 0}
 
-MAX_SPLITS = 16
-# the kernel's output tile: tile_rows(B) batch rows x 128 columns per block
-_TILE_COLS = 128
-# the kernel's warps, each taking a share of a block's packed rows
-_WARPS = 8
+MAX_SPLITS = 96
+# packed rows a split keeps at least (its share of the LUT build and of the
+# second pass's partials grows as its rows shrink)
+_MIN_SPLIT_ROWS = 16
+# the kernel's output tile: tile_rows(B) batch rows x 1024 columns per block
+# (8 warps of 128 columns each)
+_TILE_COLS = 1024
+# blocks the kernel keeps on an SM (64 KB of staged LUTs each)
+_BLOCKS_PER_SM = 3
+# folded entries (one per packed byte: two pair-LUT values) stored as
+# uint16 biased by +512, two tokens to a 32-bit add: every |entry| <= 511
+_BIASED_MAX = 511
+# entry formats of the C entries
+ENTRY_CODES = {"int32": 0, "float32": 1, "int16": 2}
 _ARGS = (
     [ctypes.c_void_p] * 4  # acts, tables, out, k-split partials
-    + [ctypes.c_int] * 7  # is_float, B, kb, p, tile_rows, vec, splits
+    + [ctypes.c_int] * 7  # entry format, B, kb, p, tile_rows, vec, splits
     + [ctypes.c_void_p]  # stream
 )
 
@@ -64,12 +73,29 @@ def _sm_count(device: torch.device) -> int:
 
 
 def k_splits(G: int, B: int, kb: int, p: int, sms: int) -> int:
-    """How many packed-row ranges the launch cuts the work into: enough
-    blocks for about four per SM when the output tiles alone are fewer (a
-    decode batch), at most ``MAX_SPLITS``, and at least one packed row per
-    warp in each range."""
+    """How many packed-row ranges the launch cuts the work into: one wave
+    of blocks that fills the card's block slots as far as whole multiples
+    of the output tiles allow (a decode batch), at most ``MAX_SPLITS`` and
+    with at least ``_MIN_SPLIT_ROWS`` packed rows each; one when the output
+    tiles alone fill the slots."""
     tiles = G * -(-B // tile_rows(B)) * -(-p // _TILE_COLS)
-    return max(1, min(MAX_SPLITS, kb // _WARPS, -(-4 * sms // tiles)))
+    return max(1, min(MAX_SPLITS, kb // _MIN_SPLIT_ROWS, _BLOCKS_PER_SM * sms // tiles))
+
+
+def entry_format(plan, is_float: bool) -> str:
+    """How the kernel stores a folded entry (the sum of two pair-LUT values,
+    bounded by ``4 * qa`` in code units), decided from the plan alone,
+    never from the codes: ``"float32"`` on the exact path; ``"int16"``
+    (biased by +512, two tokens per 32-bit add) where the plan's
+    ``act_bits`` prove ``4 * qa <= 511``, as every TL1 plan's do
+    (``act_bits <= 8``); else ``"int32"`` (no plan, or a plan without
+    ``act_bits``)."""
+    if is_float:
+        return "float32"
+    bits = getattr(plan, "act_bits", None)
+    if bits is not None and 4 * (2 ** (int(bits) - 1) - 1) <= _BIASED_MAX:
+        return "int16"
+    return "int32"
 
 
 def _acc_dtype(acts: torch.Tensor) -> torch.dtype:
@@ -80,9 +106,10 @@ def _acc_dtype(acts: torch.Tensor) -> torch.dtype:
     raise TypeError(f"acts must be int32 codes or float32, got {acts.dtype}")
 
 
-def _launch(entry: str, acts: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+def _launch(entry: str, acts: torch.Tensor, tables: torch.Tensor, plan=None) -> torch.Tensor:
     """One launch of ``entry`` on ``acts (B, 4*kb)`` and ``tables (G, kb,
-    p)``; returns the raw accumulate ``(G, B, p)``."""
+    p)``, its entry width from ``plan`` (:func:`entry_format`); returns the
+    raw accumulate ``(G, B, p)``."""
     if tables.dtype != torch.uint8:
         raise TypeError(f"tables must be uint8 packed indices, got {tables.dtype}")
     if acts.device != tables.device:
@@ -110,7 +137,8 @@ def _launch(entry: str, acts: torch.Tensor, tables: torch.Tensor) -> torch.Tenso
     ]
     if entry == "lut_tl1_grouped":
         args.append(G)
-    args += [int(acc == torch.float32), B, kb, p, tile_rows(B), vec, splits]
+    fmt = entry_format(plan, acc == torch.float32)
+    args += [ENTRY_CODES[fmt], B, kb, p, tile_rows(B), vec, splits]
     stream = torch.cuda.current_stream(acts.device).cuda_stream
     lib = _lib()
     err = getattr(lib, f"{entry}_launch")(*args, stream)
@@ -160,7 +188,7 @@ def lut_tl1(
     kb, p = tables.shape
     acts2, lead = _flat(acts, kb)
     if use_kernels and acts2.is_cuda:
-        out = _launch("lut_tl1", acts2, tables[None])[0]
+        out = _launch("lut_tl1", acts2, tables[None], plan)[0]
     else:
         out = lut_tl1_ref(acts2, tables)
     out = out.reshape(*lead, p)
@@ -188,7 +216,7 @@ def lut_tl1_grouped(
     G, kb, p = tables.shape
     acts2, lead = _flat(acts, kb)
     if use_kernels and acts2.is_cuda:
-        out = _launch("lut_tl1_grouped", acts2, tables)
+        out = _launch("lut_tl1_grouped", acts2, tables, plan)
     else:
         out = lut_tl1_grouped_ref(acts2, tables)
     out = out.reshape(G, *lead, p)

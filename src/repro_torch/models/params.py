@@ -82,6 +82,26 @@ def init_params(
     return tree_map(one, tree)
 
 
+def bf16_projections(tree):
+    """``tree`` with every dense projection's weight (the ``w`` of a
+    ``{"w": ..., "b": ...}`` node) rounded once to bf16; the embedding, the
+    norms and the biases stay as they are (fp32).
+
+    For ``ExecCfg(linear_mode="binary_matmul")`` only: both packages round a
+    projection's W to bf16 before its bitplane product, so on this tree that
+    mode's outputs are identical to the fp32 tree's, on the kernel path and
+    on the plain path, with half the projection bytes to store and to read
+    per decode step.  The standard mode (``x @ w``) is not meant to run on
+    such a tree: its products would take bf16 weights."""
+    if isinstance(tree, dict):
+        return {
+            k: v.to(torch.bfloat16) if k == "w" and isinstance(v, torch.Tensor)
+            else bf16_projections(v)
+            for k, v in tree.items()
+        }
+    return tree
+
+
 def params_from_numpy(tree, device: str | torch.device = "cuda", plan=None):
     """Nested dict of numpy arrays (e.g. the JAX package's parameters via
     ``np.asarray``) -> the same tree of tensors on ``device``.

@@ -156,6 +156,88 @@ def test_binary_matmul_leading_dims_bias_and_int32_planes():
     assert bmm_ops.LAUNCHES["binary_matmul"] == before  # CPU: the plain version
 
 
+def test_kernel_tile_and_split_rules():
+    """The wrapper's pure launch decisions: the decode tile up to 64 folded
+    rows, one wave of blocks at decode (the granite_8b decode shapes), no
+    split once the output tiles fill the card, never more ranges than
+    64-deep steps."""
+    assert bmm_ops.tile(4, 8) == bmm_ops.tile(8, 8) == bmm_ops.DECODE_TILE
+    assert bmm_ops.tile(9, 8) == bmm_ops.tile(65, 1) == bmm_ops.PREFILL_TILE
+    decode = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+    assert [bmm_ops.k_splits(4, 8, q, p, 132) for q, p in decode] == [8, 16, 2, 8]
+    assert bmm_ops.k_splits(128, 8, 4096, 14336, 132) == 1
+    assert bmm_ops.k_splits(4, 8, 100, 30, 132) == 2  # two 64-deep steps
+    assert bmm_ops.k_splits(1, 1, 1, 1, 132) == 1
+
+
+@pytest.mark.parametrize(
+    "dtype,p,offset,copied",
+    [
+        (torch.bfloat16, 64, 0, False),  # the serve path's W: taken as it is
+        (torch.float32, 64, 0, True),  # rounded once to bf16
+        (torch.bfloat16, 30, 0, True),  # p % 8 != 0: padded to 32
+        (torch.bfloat16, 64, 3, True),  # base 6 bytes past alignment
+    ],
+)
+def test_w_operand_gives_the_tensor_map_an_aligned_bf16_w(dtype, p, offset, copied):
+    q = 5
+    W = torch.from_numpy(np.random.default_rng(p + offset).standard_normal((q, p)).astype(np.float32))
+    if offset:
+        buf = torch.zeros(q * p + 8, dtype=dtype)
+        start = next(i for i in range(8) if (buf.data_ptr() + 2 * i) % 16 == 2 * offset)
+        view = buf[start: start + q * p].view(q, p)
+        view.copy_(W.to(dtype))
+        W = view
+    else:
+        W = W.to(dtype)
+    Wk = bmm_ops.w_operand(W)
+    assert (Wk is not W) == copied
+    assert Wk.dtype == torch.bfloat16 and Wk.is_contiguous()
+    assert Wk.data_ptr() % 16 == 0 and Wk.shape[1] % 8 == 0
+    assert Wk.shape == (q, -(-p // 8) * 8)
+    assert torch.equal(Wk[:, :p], W.to(torch.bfloat16))
+    assert not Wk[:, p:].any()
+
+
+@pytest.mark.parametrize(
+    "dtype,q,offset,copied",
+    [
+        (torch.int32, 8, 0, False),  # bitplane_pack's output: taken as it is
+        (torch.int8, 8, 0, True),  # cast once to int32
+        (torch.int32, 7, 0, True),  # q % 4 != 0: depth padded to 8
+        (torch.int32, 8, 2, True),  # base 8 bytes past alignment
+    ],
+)
+def test_planes_operand_gives_the_tensor_map_aligned_int32_planes(dtype, q, offset, copied):
+    B, n = 3, 5
+    planes = torch.from_numpy(
+        (np.random.default_rng(q + offset).uniform(size=(B, n, q)) < 0.5).astype(np.int32))
+    if offset:
+        buf = torch.zeros(B * n * q + 4, dtype=dtype)
+        start = next(i for i in range(4) if (buf.data_ptr() + 4 * i) % 16 == 4 * offset)
+        view = buf[start: start + B * n * q].view(B, n, q)
+        view.copy_(planes)
+        planes = view
+    else:
+        planes = planes.to(dtype)
+    Ak = bmm_ops.planes_operand(planes)
+    assert (Ak is not planes) == copied
+    assert Ak.dtype == torch.int32 and Ak.is_contiguous()
+    assert Ak.data_ptr() % 16 == 0 and Ak.shape == (B, n, -(-q // 4) * 4)
+    assert torch.equal(Ak[..., :q], planes.to(torch.int32))
+    assert not Ak[..., q:].any()
+    # W's rows padded to the planes' depth: the product is unchanged
+    W = torch.from_numpy(np.random.default_rng(1).standard_normal((q, 12)).astype(np.float32))
+    Wk = bmm_ops.w_operand(W, Ak.shape[2])
+    assert Wk.shape == (Ak.shape[2], 16) and not Wk[q:].any() and not Wk[:, 12:].any()
+    assert torch.equal(Wk[:q, :12], W.to(torch.bfloat16))
+    scales = 2.0 ** -np.arange(n)
+    got = bmm_ops.binary_matmul(Ak, Wk, scales)[:, :12]
+    assert torch.equal(got, bmm_ops.binary_matmul(planes, W, scales))
+    with pytest.raises(ValueError, match="rows"):
+        bmm_ops.w_operand(W, q - 1)
+
+
 def test_binary_matmul_refuses_non_power_of_two_scales():
     planes, W, _ = _bmm_case(2, 3, 8, 4, 0)
     with pytest.raises(ValueError, match="not \\+-2\\*\\*e"):

@@ -3,7 +3,9 @@
 ``ExecCfg(linear_mode="binary_matmul", use_pallas=True)`` (its Pallas
 kernels in interpret mode): prefill logits agree on a dense tree and on a
 mixed tree (attention converted to tables, the MLP dense), and greedy
-``generate`` and ``BatchingEngine`` streams are identical."""
+``generate`` and ``BatchingEngine`` streams are identical.  The tree with
+its projections rounded once to bf16 (``bf16_projections``, what the mode
+serves on the card) gives the fp32 tree's outputs bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,7 @@ from repro_torch.core.convert import LUTGroup
 from repro_torch.core.planner import ModelPlan
 from repro_torch.models.layers import Ctx, ExecCfg
 from repro_torch.models.model import model_forward
-from repro_torch.models.params import params_from_numpy
+from repro_torch.models.params import bf16_projections, params_from_numpy
 from repro_torch.serve import BatchingEngine, Request, generate
 
 MAX_NEW, MAX_LEN, SLOTS = 8, 32, 3
@@ -164,3 +166,37 @@ def test_mixed_tree_logits_match_reference(world, grouped):
         assert list(cols) == list(range(cols[0], per_pos.shape[1])), per_pos / scale
     assert per_pos.max() <= FLIP_TOL * scale, per_pos / scale
     np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
+
+
+@pytest.fixture(scope="module")
+def bf16_tree(world):
+    tree = bf16_projections(world["tp"])
+    # only the projections' w changed: embedding, norms (and biases) stay fp32
+    assert tree["blocks"]["attn"]["wq"]["w"].dtype == torch.bfloat16
+    assert tree["blocks"]["ffn"]["w_down"]["w"].dtype == torch.bfloat16
+    assert tree["embed"].dtype == torch.float32
+    assert tree["blocks"]["ln1"]["scale"].dtype == torch.float32
+    assert tree["ln_f"]["scale"].dtype == torch.float32
+    return tree
+
+
+def test_bf16_projection_tree_prefill_logits_identical(world, bf16_tree):
+    tokens = {"tokens": torch.from_numpy(world["prompts"])}
+    want, _, _ = model_forward(world["tp"], tokens, _ctx(world["cfg"]))
+    got, _, _ = model_forward(bf16_tree, tokens, _ctx(world["cfg"]))
+    assert torch.equal(got, want)  # W is rounded to bf16 before the product either way
+    _assert_logits(got, world["ref"]["logits"])
+
+
+def test_bf16_projection_tree_generate_identical(world, bf16_tree):
+    want = generate(world["tp"], _ctx(world["cfg"]), world["prompts"], MAX_NEW, device="cpu")
+    got = generate(bf16_tree, _ctx(world["cfg"]), world["prompts"], MAX_NEW, device="cpu")
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), world["ref"]["generate"])
+
+
+@pytest.mark.parametrize("admit", ["batched", "per-slot"])
+def test_bf16_projection_tree_engine_streams_identical(world, bf16_tree, admit):
+    want = _engine_streams(world["tp"], _ctx(world["cfg"]), _prompts(), admit=admit, device="cpu")
+    got = _engine_streams(bf16_tree, _ctx(world["cfg"]), _prompts(), admit=admit, device="cpu")
+    assert got == want == world["ref"]["engine"]

@@ -277,3 +277,115 @@ def test_binary_matmul_takes_leading_dims_bias_and_packed_codes(cuda_device):
     want = bmm_ops.binary_matmul(planes, W, scales, bias=bias, use_kernels=False)
     assert tuple(got.shape) == (2, 3, 72)
     _close(got, want)
+
+
+# The redesigned binary matmul (TMA + wgmma): folded rows off the 64- and
+# 128-row tiles for n in {1, 8, 11, 16}, q off the 64-deep stage, W that the
+# tensor map cannot take as it is (p % 8 != 0, an unaligned base, fp32)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8, 11, 16])
+@pytest.mark.parametrize("B", [5, 13])
+@pytest.mark.parametrize("plane_dtype", [torch.int8, torch.int32])
+def test_binary_matmul_tiles_off_the_row_tile_on_card(cuda_device, n, B, plane_dtype):
+    q, p = 1000, 264  # q off the 64-deep stage, p off the 128/256-column tiles
+    planes, W, scales = _bmm_case(7 * n + B, B, n, q, p)
+    planes = planes.to(plane_dtype).to(cuda_device)
+    W = W.to(torch.bfloat16).to(cuda_device)
+    got = bmm_ops.binary_matmul(planes, W, scales)
+    torch.cuda.synchronize()
+    assert bmm_ops.tile(B, n) == (bmm_ops.DECODE_TILE if B * n <= 64 else bmm_ops.PREFILL_TILE)
+    _close(got, bmm_ops.binary_matmul(planes, W, scales, use_kernels=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [30, 257, 1000])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_binary_matmul_takes_w_the_tensor_map_cannot_describe(cuda_device, p, offset):
+    """bf16 W with p % 8 != 0 and W at a base 2 or 6 bytes past alignment
+    (a contiguous view into a larger buffer): the wrapper copies it into an
+    aligned buffer and the kernel runs; the result is unchanged."""
+    q = 300
+    planes, W, scales = _bmm_case(p + offset, 4, 8, q, p)
+    buf = torch.zeros(q * p + offset, dtype=torch.bfloat16)
+    buf[offset:] = W.reshape(-1).to(torch.bfloat16)
+    Wd = buf.to(cuda_device)[offset:].view(q, p)
+    assert (Wd.data_ptr() % 16 == 0) == (offset == 0)
+    Wk = bmm_ops.w_operand(Wd)
+    assert (Wk is not Wd) == (offset != 0 or p % 8 != 0)
+    assert Wk.data_ptr() % 16 == 0 and Wk.shape[1] % 8 == 0
+    before = bmm_ops.LAUNCHES["binary_matmul"]
+    got = bmm_ops.binary_matmul(planes.to(cuda_device), Wd, scales)
+    torch.cuda.synchronize()
+    assert bmm_ops.LAUNCHES["binary_matmul"] == before + 1
+    assert tuple(got.shape) == (4, p)
+    _close(got, bmm_ops.binary_matmul(planes.to(cuda_device), Wd, scales, use_kernels=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [301, 300])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_binary_matmul_takes_planes_the_tensor_map_cannot_describe(cuda_device, q, offset):
+    """int32 planes with q % 4 != 0 or at a base 4 or 12 bytes past
+    alignment: the wrapper copies them (and pads W's rows to their depth)
+    and the kernel runs; the result is unchanged."""
+    B, n, p = 4, 8, 96
+    planes, W, scales = _bmm_case(q + offset, B, n, q, p)
+    buf = torch.zeros(B * n * q + offset, dtype=torch.int32)
+    buf[offset:] = planes.reshape(-1).to(torch.int32)
+    Pd = buf.to(cuda_device)[offset:].view(B, n, q)
+    assert (Pd.data_ptr() % 16 == 0) == (offset == 0)
+    assert (bmm_ops.planes_operand(Pd) is not Pd) == (offset != 0 or q % 4 != 0)
+    Wd = W.to(torch.bfloat16).to(cuda_device)
+    before = bmm_ops.LAUNCHES["binary_matmul"]
+    got = bmm_ops.binary_matmul(Pd, Wd, scales)
+    torch.cuda.synchronize()
+    assert bmm_ops.LAUNCHES["binary_matmul"] == before + 1
+    _close(got, bmm_ops.binary_matmul(Pd, Wd, scales, use_kernels=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_binary_matmul_q_split_and_fp32_w_on_card(cuda_device, w_dtype):
+    """A decode call that cuts q across blocks (splits > 1, the partials
+    added in split order), with an fp32 W (rounded by the wrapper) and a
+    bf16 W: the same bits either way."""
+    B, n, q, p = 4, 8, 4096, 1024
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert bmm_ops.k_splits(B, n, q, p, sms) > 1
+    planes, W, scales = _bmm_case(11, B, n, q, p)
+    planes = planes.to(torch.int32).to(cuda_device)
+    got = bmm_ops.binary_matmul(planes, W.to(w_dtype).to(cuda_device), scales)
+    same = bmm_ops.binary_matmul(planes, W.to(torch.bfloat16).to(cuda_device), scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+    _close(got, bmm_ops.binary_matmul(planes, W.to(cuda_device), scales, use_kernels=False))
+
+
+# The redesigned TL1 template (one folded-LUT lookup per packed byte):
+# int8 / int4 / exact codes, codes at +-qa (the largest folded entries),
+# packed rows around the 64-row stage of the int16 entries, G = 1, 2, 3,
+# p off the 1024-column tile, with the plan (int16 entries where it proves
+# them) and without (int32 entries)
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_bits", [8, 4, None])
+@pytest.mark.parametrize("kb", [63, 64, 65, 129])
+@pytest.mark.parametrize("G,p", [(1, 1030), (2, 513), (3, 2100)])
+@pytest.mark.parametrize("with_plan", [True, False])
+def test_tl1_folded_lut_edges_on_card(cuda_device, act_bits, kb, G, p, with_plan):
+    from repro_torch.core.lut_tl1 import TL1Plan
+
+    acts, act_scale, tables, scale, bias = _tl1_case(kb + p, (4,), kb, p, G, act_bits)
+    if act_bits is not None:  # token 0 at +-qa
+        qa = 2 ** (act_bits - 1) - 1
+        acts[0, : 4 * kb - 3] = torch.where(acts[0, : 4 * kb - 3] < 0, -qa, qa)
+    plan = TL1Plan(4 * kb - 3, p, act_bits=act_bits) if with_plan else None
+    fmt = tl1_ops.entry_format(plan, act_bits is None)
+    assert fmt == ("float32" if act_bits is None else "int16" if with_plan else "int32")
+    acts, tables = acts.to(cuda_device), tables.to(cuda_device)
+    got = tl1_ops.lut_tl1_grouped(acts, tables, plan=plan)
+    one = tl1_ops.lut_tl1(acts, tables[G - 1], plan=plan)
+    torch.cuda.synchronize()
+    want = tl1_ops.lut_tl1_grouped(acts, tables, plan=plan, use_kernels=False)
+    exact = act_bits is not None
+    _tl1_same(got, want, exact)
+    _tl1_same(one, want[G - 1], exact)

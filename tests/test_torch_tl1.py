@@ -9,6 +9,8 @@ must match bit for bit; the exact fp32 path sums in another order and is
 held to 1e-5 relative."""
 import jax
 import jax.numpy as jnp
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -37,7 +39,13 @@ from repro_torch.core.quantize import (
     ternary_quantize,
 )
 from repro_torch.kernels.lut_tl1 import ops
-from repro_torch.kernels.lut_tl1.ref import lut_tl1_grouped_ref, lut_tl1_ref
+from repro_torch.kernels.lut_tl1.ref import (
+    fold_act_lut,
+    lut_tl1_biased_ref,
+    lut_tl1_folded_ref,
+    lut_tl1_grouped_ref,
+    lut_tl1_ref,
+)
 from repro_torch.models.layers import Ctx, ExecCfg, fused_linears
 from repro_torch.models.params import params_from_numpy
 
@@ -262,6 +270,116 @@ def test_plain_lut_tl1_grouped_matches_reference_kernel(act_bits):
         np.testing.assert_array_equal(one.numpy(), got[g].numpy())
     raw = lut_tl1_grouped_ref(_t(codes.reshape(-1, codes.shape[-1])), _t(tables))
     assert tuple(raw.shape) == (G, 4, p)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's folded byte LUT (one lookup per packed byte), in plain form
+# ---------------------------------------------------------------------------
+
+
+def _jraw(codes: np.ndarray, tables: np.ndarray) -> np.ndarray:
+    """The reference's oracle of the raw accumulate, (B, p)."""
+    kb = tables.shape[0]
+    return np.asarray(jref.lut_tl1_ref(
+        jnp.swapaxes(jnp.asarray(codes).reshape(-1, kb, 4), 1, 2), jnp.asarray(tables)
+    ))
+
+
+@pytest.mark.parametrize("act_bits", [8, 4, None])
+@pytest.mark.parametrize("lead,q,p", [((5,), 38, 19), ((2, 3), 30, 12), ((1,), 2, 1)])
+def test_folded_byte_lut_matches_reference_oracle(act_bits, lead, q, p):
+    codes, tables, _, _, _ = _kernel_case(7, lead, q, p, act_bits)
+    flat = codes.reshape(-1, codes.shape[-1])
+    got = lut_tl1_folded_ref(_t(flat), _t(tables))
+    want = _jraw(flat, tables)
+    if act_bits is None:
+        _exact_close(got, want)
+        return
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, lut_tl1_ref(_t(flat), _t(tables)))
+    # the kernel's int16 arithmetic: biased entries, two tokens per word
+    assert torch.equal(lut_tl1_biased_ref(_t(flat), _t(tables)), got)
+
+
+def test_folded_byte_lut_grouped_and_sliced():
+    codes, tables, _, _, _ = _kernel_case(8, (2, 2), 38, 19, 8, G=3)
+    flat = _t(codes.reshape(-1, codes.shape[-1]))
+    want = lut_tl1_grouped_ref(flat, _t(tables))
+    for g in range(3):
+        for nbytes in (1 << 30, 64):
+            got = lut_tl1_folded_ref(flat, _t(tables[g]), max_gather_bytes=nbytes)
+            assert torch.equal(got, want[g])
+        assert torch.equal(lut_tl1_biased_ref(flat, _t(tables[g])), want[g])
+
+
+def test_fold_act_lut_is_the_sum_of_the_pair_luts():
+    """81 slots (both nibbles <= 8) hold lo-pair + hi-pair entries, built
+    with adds only; the other 175 are 0."""
+    rng = np.random.default_rng(9)
+    acts = torch.from_numpy(rng.integers(-127, 128, (3, 8)).astype(np.int32))
+    folded = fold_act_lut(acts)
+    assert tuple(folded.shape) == (3, 2, 256) and folded.dtype == torch.int32
+    pair = tl1.build_act_lut(acts).to(torch.int32).reshape(3, 2, 2, 9)
+    for byte in range(256):
+        lo, hi = byte & 15, byte >> 4
+        want = pair[:, :, 0, lo] + pair[:, :, 1, hi] if lo <= 8 and hi <= 8 else 0
+        assert torch.equal(folded[:, :, byte], torch.as_tensor(want).expand(3, 2))
+
+
+@pytest.mark.parametrize("kb", [63, 64, 65, 129])
+@pytest.mark.parametrize("B", [1, 4, 5])
+def test_biased_flush_boundary_at_extreme_codes(kb, B):
+    """Codes at +-127, where folded entries reach +-508 (biased 4..1020):
+    64 rows fit a 16-bit half exactly, so a flush every 64 rows is exact
+    around the boundary; 65 rows of the largest entry overflow a half."""
+    rng = np.random.default_rng(kb + B)
+    acts = torch.from_numpy((127 * rng.choice([-1, 1], (B, 4 * kb))).astype(np.int32))
+    nib = rng.integers(0, 9, (kb, 33, 2))
+    tables = torch.from_numpy((nib[..., 0] | (nib[..., 1] << 4)).astype(np.uint8))
+    want = lut_tl1_ref(acts, tables)
+    assert torch.equal(lut_tl1_biased_ref(acts, tables), want)
+    if kb <= 64:  # one flush for all rows
+        assert torch.equal(lut_tl1_biased_ref(acts, tables, flush_rows=kb), want)
+    # every entry at +508: byte 0x88 of a token whose codes are all +127
+    top = torch.full((2, 4 * kb), 127, dtype=torch.int32)
+    full = torch.full((kb, 3), 0x88, dtype=torch.uint8)
+    assert torch.equal(lut_tl1_biased_ref(top, full), lut_tl1_ref(top, full))
+    if kb > 64:
+        with pytest.raises(AssertionError, match="16-bit half"):
+            lut_tl1_biased_ref(top, full, flush_rows=65)
+
+
+def test_biased_form_refuses_entries_past_511():
+    acts = torch.full((1, 8), 200, dtype=torch.int32)  # entries up to 800
+    tables = torch.zeros((2, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="511"):
+        lut_tl1_biased_ref(acts, tables)
+
+
+def test_entry_format_is_decided_from_the_plan():
+    # every TL1 plan proves 4 * qa <= 508: int16 entries, biased, two tokens
+    # to a 32-bit add; no plan (or no act_bits): int32; the exact path fp32
+    for bits in (2, 4, 8):
+        assert ops.entry_format(tl1.TL1Plan(16, 8, act_bits=bits), False) == "int16"
+    assert ops.entry_format(None, False) == "int32"
+    assert ops.entry_format(types.SimpleNamespace(act_bits=None), False) == "int32"
+    assert ops.entry_format(types.SimpleNamespace(act_bits=9), False) == "int32"  # 4*255
+    assert ops.entry_format(tl1.TL1Plan(16, 8, act_bits=None), True) == "float32"
+    assert ops.entry_format(None, True) == "float32"
+
+
+def test_launch_split_and_tile_rules():
+    # decode: one wave of 3 blocks per SM, whole multiples of the output tiles
+    assert ops.tile_rows(4) == 4 and ops.tile_rows(5) == 8
+    assert ops.k_splits(2, 4, 1024, 14336, 132) == 14  # 28 tiles of 1024 columns
+    assert ops.k_splits(1, 4, 1024, 4096, 132) == 64  # 4 tiles, 16 rows each
+    assert ops.k_splits(1, 4, 3584, 4096, 132) == ops.MAX_SPLITS  # w_down
+    assert ops.k_splits(2, 4, 1024, 1024, 132) == 64  # wk+wv
+    assert ops.k_splits(2, 128, 1024, 14336, 132) == 1  # prefill fills the card
+    assert ops.k_splits(1, 1, 40, 1024, 132) == 2  # at least 16 rows a range
+    assert ops.k_splits(1, 1, 5, 1024, 132) == 1
+    assert ops.k_splits(1, 1, 1, 1, 132) == 1
 
 
 def test_wrappers_check_the_acc_contract():
