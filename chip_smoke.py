@@ -16,7 +16,8 @@ Phases, one JSON object per line:
    on a grid of table types, shift_bits and ragged edges; with the
    kernel's time, the plain version's, the least time the card could take
    (``bound_ms``) and, for context, the dense bf16 matmul the tables
-   replace.
+   replace; repeated split launches checked bit-identical, and ptxas's
+   report of the dense kernels.
 3. ``serve``   full-width granite_8b, depth cut to 4 layers, planned
    with the serving recipe, converted to i8 tables and served through
    ``BatchingEngine`` on the kernels; then the same requests on the plain
@@ -173,6 +174,37 @@ def ptxas_report(log: str) -> dict:
     return {k: v for k, v in out.items() if "registers" in v}
 
 
+def sass_loops(lib_path, kernels=("decode_kernel", "prefill_kernel")) -> dict:
+    """Per named kernel of a built library (cuobjdump -sass): the innermost
+    loop holding byte permutes (the span of a backward branch) -- its
+    instructions, PRMTs and FADDs, and instructions per PRMT, which on the
+    integer magic path is instructions per gathered entry."""
+    from repro_torch.kernels import build
+
+    exe = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    text = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for func, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", text, re.S):
+        if not any(k in func for k in kernels):
+            continue
+        ins = [(int(a, 16), t.strip())
+               for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        best = None
+        for a, t in ins:
+            m = re.search(r"\bBRA\b[^0-9]*(0x[0-9a-f]+)", t)
+            if not m or int(m.group(1), 16) > a:
+                continue
+            span = [x[1] for x in ins if int(m.group(1), 16) <= x[0] <= a]
+            prmt = sum(" PRMT " in f" {x} " or x.startswith("PRMT") for x in span)
+            if prmt and (best is None or len(span) < best["instructions"]):
+                fadd = sum(re.search(r"(^|\s)FADD", x) is not None for x in span)
+                best = {"instructions": len(span), "prmt": prmt, "fadd": fadd,
+                        "per_prmt": len(span) / prmt}
+        out[func] = best
+    return out
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -318,7 +350,9 @@ def run_case(name, codes, tables, scales, shift_bits, iters, plain_iters, lib_fn
     calls = 1 if name == "lut_affine" else G
     bms, by = bound(codes, calls, E, p, tables.element_size(), shift_bits)
     lib_ms = device_ms([lib_fn], iters) if lib_fn is not None else None
+    t = lut_tiling(name, codes, tables)
     return {
+        "regime": t.regime, "splits": t.splits,
         "max_abs_err": err, "tol": tol,
         "tol_reason": f"{KERNEL_TOL} x max|plain|: fp32 sums in another order",
         "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -364,6 +398,8 @@ def kernel_phase(iters: int, prefill_rows: int) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import build
+
     from repro_torch.core.lut import LUTPlan, pack_codes, plane_scales
     from repro_torch.core.quantize import Float16Format
 
@@ -390,14 +426,20 @@ def kernel_phase(iters: int, prefill_rows: int) -> dict:
                       "G": G, "n": plan.num_planes, "k": k, "E": plan.num_entries, "p": p,
                       "table": "i8", "shift_bits": plan.shift_bits, **r})
                 worst[name] = max(worst[name], r["max_abs_err"])
+                m = main.setdefault(
+                    name,
+                    {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set(),
+                     "prefill_ms": 0.0, "prefill_bound_ms": 0.0},
+                )
                 if rows == 4:
-                    m = main.setdefault(
-                        name,
-                        {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set()},
-                    )
                     for key in ("kernel_ms", "plain_ms", "bound_ms"):
                         m[key] += r[key]
                     m["bound_by"].add(r["bound_by"])
+                else:  # the engine's prefill: per call, summed over the layer's calls
+                    m["prefill_ms"] += r["kernel_ms"]
+                    m["prefill_bound_ms"] += r["bound_ms"]
+                if rows == 4 and proj in ("wq", "w_gate+w_up"):
+                    determinism(name, c, t, s, plan.shift_bits)
                 del c, t
                 torch.cuda.empty_cache()
     # grid: table types, shift_bits 0/5, ragged k/p/B, negative plane scales
@@ -411,9 +453,17 @@ def kernel_phase(iters: int, prefill_rows: int) -> dict:
         (17, 8, 45, 16, 131, 1, torch.int8, 0, [2.0**j for j in range(7)] + [-128.0]),
         (33, 6, 29, 64, 1000, 2, torch.int16, 0, [4.0**j for j in range(6)]),
         (2, 1, 20, 1024, 96, 1, torch.bfloat16, 0, [1.0]),
+        # the prefill kernel: a ragged 64-row tile, ragged slabs, i16 / f32
+        (129, 3, 40, 32, 1000, 2, torch.int8, 5, [2.0**-6, 2.0**-4, -(2.0**-2)]),
+        (70, 1, 24, 64, 4100, 1, torch.int16, 5, [2.0**-3]),
+        (65, 3, 17, 16, 513, 3, torch.float32, 0, [1.0, 2.0, -4.0]),
     ]
     for B, n, k, E, p, G, dtype, shift, scales in grid:
         c, t, s = make_case(gen, B, n, k, E, p, G, dtype, shift, np.asarray(scales, np.float32))
+        if p == 4100:  # tables at an odd base, which the wrapper copies first
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=DEV)
+            flat[1:] = t.reshape(-1)
+            t = flat[1:].reshape(t.shape)
         for name in ("lut_affine", "lut_affine_grouped"):
             lib = embedding_bag_fn(c, t[:1] if name == "lut_affine" else t, s, shift) \
                 if dtype == torch.float32 else None
@@ -421,7 +471,47 @@ def kernel_phase(iters: int, prefill_rows: int) -> dict:
             emit({"phase": "kernel", "kernel": name, "grid": True, "rows": B,
                   "G": G if name != "lut_affine" else 1, "n": n, "k": k, "E": E, "p": p,
                   "table": str(dtype).replace("torch.", ""), "shift_bits": shift, **r})
+    emit({"phase": "kernel", "step": "ptxas",
+          "kernels": {k: v for k, v in ptxas_report(build.BUILD_LOG.get("lut_affine", "")).items()
+                      if "decode" in k or "prefill" in k}})
     return {"worst": worst, "main": main}
+
+
+def lut_tiling(name, codes, tables):
+    """The dense launch's kernel and grid for these operands (ops.tiling on
+    the row pitch the kernels read)."""
+    import torch
+
+    from repro_torch.kernels.lut_affine import ops
+
+    G, k, E, p = tables.shape
+    B, n, _ = codes.shape
+    vec = ops.ROW_ALIGN // tables.element_size()
+    row_bytes = -(-p // vec) * vec * tables.element_size()
+    return ops.tiling(1 if name == "lut_affine" else G, B, n, k, E, row_bytes,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def determinism(name, codes, tables, scales, shift_bits, repeats: int = 4) -> None:
+    """Repeated launches of one case give equal bits (the split sums run in
+    a fixed order)."""
+    import torch
+
+    from repro_torch.kernels.lut_affine import ops
+
+    def call():
+        if name == "lut_affine":
+            return ops.lut_affine(codes, tables[0], scales, shift_bits=shift_bits)
+        return ops.lut_affine_grouped(codes, tables, scales, shift_bits=shift_bits)
+
+    outs = [call() for _ in range(repeats)]
+    same = all(torch.equal(o, outs[0]) for o in outs[1:])
+    emit({"phase": "kernel", "step": "determinism", "kernel": name, "rows": codes.shape[0],
+          "k": codes.shape[2], "p": tables.shape[3],
+          "splits": lut_tiling(name, codes, tables).splits, "repeats": repeats,
+          "bit_identical": same})
+    if not same:
+        raise AssertionError(f"{name}: repeated launches differ")
 
 
 # ---------------------------------------------------------------------------
@@ -1762,6 +1852,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
+    from repro_torch.kernels.lut_affine import ops as lut_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1772,12 +1863,16 @@ def main(argv=None) -> int:
         "binary_matmul": {tile: build.load("binary_matmul").binary_matmul_smem_bytes(i)
                           for i, tile in enumerate(("decode", "prefill"))},
         "lut_tl1": build.load("lut_tl1").lut_tl1_smem_bytes(),
+        # the main path's n = 3 planes, 32 entries
+        "lut_affine": {regime: lut_ops._lib().lut_affine_smem_bytes(i, 3, 32)
+                       for i, regime in enumerate(lut_ops.REGIMES)},
     }
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "tf32": {"matmul": False, "cudnn": False},
           "build_seconds": build.BUILD_SECONDS, "libraries": {k: str(v) for k, v in built.items()},
-          "ptxas": ptxas, "dynamic_smem_bytes": dynamic_smem})
+          "ptxas": ptxas, "dynamic_smem_bytes": dynamic_smem,
+          "lut_affine_sass_loops": sass_loops(built["lut_affine"])})
     kern = kernel_phase(args.iters, 4 * 32) if "kernel" in phases else None
     srv = serve_phase(LAYERS, REQUESTS, MAX_NEW) if "serve" in phases else None
     torch.cuda.empty_cache()
@@ -1805,6 +1900,8 @@ def main(argv=None) -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": "/".join(sorted(m["bound_by"])),
                 "library_ms": m.get("library_ms"),
+                **({"prefill_ms": m["prefill_ms"], "prefill_bound_ms": m["prefill_bound_ms"]}
+                   if "prefill_ms" in m else {}),
             })
     if rows:
         emit({"kernels": rows})

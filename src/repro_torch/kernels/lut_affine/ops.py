@@ -14,10 +14,19 @@ counts its launches in :data:`LAUNCHES`, right where it launches.
 kernels take each plane scale as an integer exponent and a sign, passed
 with the launch, so they must be powers of two -- every plane scale and
 narrow-table dequant scale the planner produces is one.
+
+The dense entries pick their kernel and grid from the shapes alone
+(:func:`tiling`): a decode batch, whose chunk codes touch few table rows,
+runs the kernel that reads only those rows, each as whole lines; anything
+larger the kernel that brings whole chunk tiles into shared memory; k is
+split into enough ranges for one wave of blocks.  The kernels read tables whose base is
+16-byte aligned and whose rows are a multiple of 16 bytes; any other table
+is first copied into such a buffer (:func:`table_operand`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -35,16 +44,22 @@ from repro_torch.kernels.lut_affine.ref import (
 LAUNCHES = {"lut_affine": 0, "lut_affine_grouped": 0, "lut_affine_experts": 0}
 
 MAX_PLANES = 32
-MAX_SPLITS = 8
-# the kernel's output tile: 4 batch rows x 32 columns per block
-_TILE_ROWS, _TILE_COLS = 4, 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
-_ARGS = (
+# the dense kernels' tiles (csrc/lut_affine.cu): every block owns a 512-byte
+# slab of each table row; a decode block up to 4 batch rows (4 * n <= 32
+# references a chunk), a prefill block 64, and only tables of E <= 64 rows
+# a chunk take the prefill kernel (a chunk's E x 512-byte tile is one stage)
+SLAB_BYTES = 512
+DECODE_ROWS, DECODE_REFS = 4, 32
+PREFILL_ROWS, PREFILL_MAX_E = 64, 64
+ROW_ALIGN = 16  # bytes: table base and row pitch
+REGIMES = ("decode", "prefill")
+_HEAD = (
     [ctypes.c_void_p] * 4  # codes, tables, out, k-split partials
     + [ctypes.c_void_p, ctypes.c_uint]  # plane exponents (host), sign mask
     + [ctypes.c_int]  # dtype code
 )
-_DIMS = [ctypes.c_int] * 8  # B, n, k, E, p, shift_bits, vec, splits
+_DIMS = [ctypes.c_int] * 9  # B, n, k, E, p, ldt, shift_bits, regime, splits
 
 
 def host_scales(scales) -> np.ndarray:
@@ -81,9 +96,9 @@ def plane_shifts(scales) -> tuple[list[int], int]:
 def _lib() -> ctypes.CDLL:
     lib = build.load("lut_affine")
     if not getattr(lib, "_bound", False):
-        lib.lut_affine_launch.argtypes = _ARGS + _DIMS + [ctypes.c_void_p]
+        lib.lut_affine_launch.argtypes = _HEAD + _DIMS + [ctypes.c_void_p]
         lib.lut_affine_grouped_launch.argtypes = (
-            _ARGS + [ctypes.c_int] + _DIMS + [ctypes.c_void_p]
+            _HEAD + [ctypes.c_int] + _DIMS + [ctypes.c_void_p]
         )
         # codes, tables, offsets, out, plane exponents, sign mask, dtype,
         # experts, G, T, n, k, En, p, shift_bits, vec, stream
@@ -94,6 +109,8 @@ def _lib() -> ctypes.CDLL:
         lib.lut_affine_launch.restype = ctypes.c_int
         lib.lut_affine_grouped_launch.restype = ctypes.c_int
         lib.lut_affine_experts_launch.restype = ctypes.c_int
+        lib.lut_affine_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.lut_affine_smem_bytes.restype = ctypes.c_int
         lib.lut_affine_error_string.argtypes = [ctypes.c_int]
         lib.lut_affine_error_string.restype = ctypes.c_char_p
         lib._bound = True
@@ -119,31 +136,66 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def k_splits(G: int, B: int, k: int, p: int, sms: int) -> int:
-    """How many k ranges the launch cuts the work into: enough blocks for
-    about four per SM when the output tiles alone are fewer (a decode
-    batch), at most ``MAX_SPLITS`` and never more than the chunks."""
-    tiles = G * -(-B // _TILE_ROWS) * -(-p // _TILE_COLS)
-    return max(1, min(MAX_SPLITS, k, -(-4 * sms // tiles)))
+@dataclasses.dataclass(frozen=True)
+class Tiling:
+    """One dense launch's kernel and grid (see :func:`tiling`)."""
+
+    regime: str  # "decode" or "prefill"
+    rows: int  # batch rows per block
+    slabs: int  # 512-byte column slabs per table row
+    tiles: int  # output tiles: G x batch tiles x slabs
+    splits: int  # k ranges, each its own blocks
+
+
+# blocks an SM holds at once; at decode two measured fastest on an H100 (one
+# 18 % slower, three even, four more than one wave)
+BLOCKS_PER_SM = {"decode": 2, "prefill": 1}
+
+
+def tiling(G: int, B: int, n: int, k: int, E: int, row_bytes: int, sms: int) -> Tiling:
+    """The dense kernels' grid, from the shapes alone.  Decode when a
+    chunk's ``B * n`` codes are fewer than its ``E`` rows (or its tile would
+    not fit a stage), prefill otherwise.  ``splits`` cuts k into as many
+    ranges as one wave of blocks holds beside the output tiles (never more
+    blocks than ``BLOCKS_PER_SM`` per SM, never more ranges than chunks)."""
+    regime = "prefill" if B * n >= E and E <= PREFILL_MAX_E else "decode"
+    rows = PREFILL_ROWS if regime == "prefill" else min(DECODE_ROWS, DECODE_REFS // n)
+    slabs = -(-row_bytes // SLAB_BYTES)
+    tiles = G * -(-B // rows) * slabs
+    slots = BLOCKS_PER_SM[regime] * sms
+    return Tiling(regime, rows, slabs, tiles, max(1, min(k, slots // tiles)))
+
+
+def table_operand(tables: torch.Tensor) -> torch.Tensor:
+    """``tables`` as the dense kernels read them: a 16-byte aligned base and
+    rows of a multiple of 16 bytes.  Other tables (a view at an odd offset,
+    ``p * itemsize % 16 != 0``) are copied into a fresh buffer with their
+    rows zero-padded: one extra pass over the tables, every call."""
+    vec = ROW_ALIGN // tables.element_size()
+    p = tables.shape[-1]
+    pad = -p % vec
+    if tables.data_ptr() % ROW_ALIGN == 0 and not pad:
+        return tables
+    return torch.nn.functional.pad(tables, (0, pad)) if pad else tables.clone()
 
 
 def _operands(codes, tables, scales, shift_bits):
-    """Shared launch arguments: (out, k-split partials or None, ctypes args
-    before the dims, dims).  The partials live until the caller drops them,
-    after the launch; the caching allocator orders any reuse on the stream."""
+    """Shared launch arguments: (out, the buffers the launch reads that the
+    caller must hold until it has launched, ctypes args before the dims,
+    dims).  The caching allocator orders any later reuse on the stream."""
     _check_operands(codes, tables, shift_bits)
     B, n, k = codes.shape
     G, _, E, p = tables.shape
     exps, neg = plane_shifts(scales)
     if len(exps) != n:
         raise ValueError(f"{len(exps)} scales for {n} planes")
+    tables = table_operand(tables)
+    ldt = tables.shape[-1]
+    t = tiling(G, B, n, k, E, ldt * tables.element_size(), _sm_count(codes.device))
     out = torch.empty((G, B, p), dtype=torch.float32, device=codes.device)
-    splits = k_splits(G, B, k, p, _sm_count(codes.device))
-    part = (
-        torch.empty((splits, G, B, p), dtype=torch.float32, device=codes.device)
-        if splits > 1 else None
-    )
-    vec = p % 4 == 0 and tables.data_ptr() % (4 * tables.element_size()) == 0
+    part = None
+    if t.splits > 1:
+        part = torch.empty((t.splits, G, B, p), dtype=torch.float32, device=codes.device)
     head = (
         codes.data_ptr(),
         tables.data_ptr(),
@@ -153,8 +205,8 @@ def _operands(codes, tables, scales, shift_bits):
         neg,
         _DTYPE_CODE[tables.dtype],
     )
-    dims = (B, n, k, E, p, shift_bits, int(vec), splits)
-    return out, part, head, dims
+    dims = (B, n, k, E, p, ldt, shift_bits, REGIMES.index(t.regime), t.splits)
+    return out, (tables, part), head, dims
 
 
 def _raise_on(err: int, op: str):
@@ -187,7 +239,7 @@ def lut_affine(
         raise ValueError(f"codes have {k} chunks, tables {k2}")
     codes2 = codes.reshape(-1, n, k)
     if use_kernels and codes2.is_cuda:
-        out, part, head, dims = _operands(
+        out, held, head, dims = _operands(
             codes2.contiguous(), tables[None], scales, shift_bits
         )
         err = _lib().lut_affine_launch(*head, *dims, _stream(codes2))
@@ -223,7 +275,7 @@ def lut_affine_grouped(
     codes2 = codes.reshape(-1, n, k)
     if use_kernels and codes2.is_cuda:
         codes2 = codes2.contiguous()
-        out, part, head, dims = _operands(codes2, tables, scales, shift_bits)
+        out, held, head, dims = _operands(codes2, tables, scales, shift_bits)
         err = _lib().lut_affine_grouped_launch(*head, G, *dims, _stream(codes2))
         _raise_on(err, "lut_affine_grouped")
         LAUNCHES["lut_affine_grouped"] += 1

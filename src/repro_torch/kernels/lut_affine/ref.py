@@ -110,3 +110,88 @@ def lut_affine_experts_ref(
             per_plane[t0:t1] += rows.sum(dim=-2)
     out = torch.einsum("tgnp,n->gtp", per_plane, scales.to(torch.float32))
     return torch.where(live[None, :, None], out, torch.zeros((), device=dev))
+
+
+# The dense kernels' form of the same accumulate (see csrc/lut_affine.cu):
+# each reference (b, j, c) contributes its gathered row times
+# (-1)**sign_j * 2**e, e the plane exponent plus the code's sigma exponent,
+# as an exact fp32 term; the terms are summed in fp32.  Integer tables whose
+# exponents all lie in MAGIC's range take the magic-word path; the rest take
+# the general path (an exact shift of the converted entry).
+
+# table type -> (exponent-field bias, bit offset of the biased entry, entry
+# bias, least and greatest total exponent of the magic path)
+MAGIC = {
+    torch.int8: (142, 8, 128, -141, 112),
+    torch.int16: (150, 0, 32768, -149, 104),
+}
+
+
+def _as_f32(words: torch.Tensor) -> torch.Tensor:
+    """int64 holding 32-bit patterns -> the fp32 values of those bits."""
+    w = words & 0xFFFFFFFF
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).view(torch.float32)
+
+
+def magic_terms(
+    entries: torch.Tensor,  # integer entries of an i8 / i16 table
+    e: torch.Tensor,  # total exponents, broadcast against entries
+    sign: torch.Tensor,  # 0 / 1, broadcast against entries
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """``(-1)**sign * entries * 2**e`` in fp32 as the kernels compute it on
+    the integer fast path, with adds and bit operations only: the magic
+    word ``K = sign << 31 | (e + bias) << 23`` takes the biased entry into
+    its mantissa (``K | (x + half) << off``), and the fp32 value of that word
+    less the value of ``K | 0x8000`` (entry 0) is the term, exactly.
+    Raises if an exponent leaves K's exponent field outside [1, 254]."""
+    bias, off, half, lo, hi = MAGIC[dtype]
+    e = e.to(torch.int64)
+    if bool((e < lo).any()) or bool((e > hi).any()):
+        raise ValueError(f"exponents outside [{lo}, {hi}]: no magic path for {dtype}")
+    K = (sign.to(torch.int64) << 31) | ((e + bias) << 23)
+    word = K | ((entries.to(torch.int64) + half) << off)
+    return _as_f32(word) - _as_f32(K | 0x8000)
+
+
+def magic_path(dtype: torch.dtype, lo: int, hi: int) -> bool:
+    """Whether a launch whose total exponents lie in [lo, hi] takes the
+    magic path (the host's range proof, once per launch)."""
+    return dtype in MAGIC and MAGIC[dtype][3] <= lo and hi <= MAGIC[dtype][4]
+
+
+def exponent_bounds(plane_exps, shift_bits: int) -> tuple[int, int]:
+    """Least and greatest total exponent a launch can meet: a plane
+    exponent plus, with ``shift_bits``, a sigma exponent in [-24, 6]."""
+    lo, hi = min(plane_exps), max(plane_exps)
+    return (lo - 24, hi + 6) if shift_bits else (lo, hi)
+
+
+def lut_affine_kernel_ref(
+    codes: torch.Tensor,  # (B, n, k) int32
+    tables: torch.Tensor,  # (k, E, p)
+    plane_exps,  # n ints: plane j's scale is (-1)**sign_j * 2**plane_exps[j]
+    plane_neg: int,  # bit j set: plane j's scale is negative
+    shift_bits: int = 0,
+) -> torch.Tensor:
+    """(B, p) fp32 by the dense kernels' arithmetic, one exact term per
+    reference, for small test shapes (the whole ``(B, n, k, p)`` gather is
+    held at once)."""
+    B, n, k = codes.shape
+    k2, E, p = tables.shape
+    assert k == k2 and len(plane_exps) == n, (codes.shape, tables.shape, plane_exps)
+    dev = tables.device
+    idx = codes & (E - 1) if shift_bits else codes
+    e = torch.tensor(list(plane_exps), dtype=torch.int64, device=dev)[None, :, None]
+    if shift_bits:
+        e = e + torch.clamp(codes.to(torch.int64) >> shift_bits, min=1) - 25
+    else:
+        e = e.expand(B, n, k)
+    sign = torch.tensor([(plane_neg >> j) & 1 for j in range(n)], device=dev)[None, :, None]
+    rows = tables[torch.arange(k, device=dev), idx]  # (B, n, k, p)
+    if magic_path(tables.dtype, *exponent_bounds(plane_exps, shift_bits)):
+        terms = magic_terms(rows, e[..., None], sign[..., None], tables.dtype)
+    else:  # converted, shifted exactly (in fp64, then one exact rounding), signed
+        val = rows.to(torch.float32).to(torch.float64) * torch.exp2(e[..., None].to(torch.float64))
+        terms = torch.where(sign[..., None].bool(), -val, val).to(torch.float32)
+    return terms.sum(dim=(1, 2))

@@ -132,10 +132,15 @@ def test_plane_shifts_accept_only_signed_powers_of_two():
 
 def test_k_splits_fill_the_card_only_when_tiles_are_few():
     sms = 132
-    assert ops.k_splits(1, 4, 4096, 4096, sms) == 5  # decode wq: 128 tiles
-    assert ops.k_splits(2, 4, 4096, 1024, sms) == 8  # decode wk+wv: capped
-    assert ops.k_splits(1, 128, 4096, 4096, sms) == 1  # prefill: 4096 tiles
-    assert ops.k_splits(1, 3, 5, 130, sms) == 5  # never more than the chunks
+
+    def splits(G, B, k, p):  # n = 3 planes, 32 entries, i8 tables
+        return ops.tiling(G, B, 3, k, 32, p, sms).splits
+
+    assert splits(1, 4, 4096, 4096) == 33  # decode wq: 8 tiles, 2 blocks an SM
+    assert splits(2, 4, 4096, 1024) == 66  # decode wk+wv: 4 tiles
+    assert splits(1, 128, 4096, 4096) == 8  # prefill wq: 16 tiles
+    assert splits(1, 640, 4096, 65536) == 1  # prefill, tiles enough: 1280
+    assert splits(1, 3, 5, 144) == 5  # never more than the chunks
 
 
 def test_wrappers_check_the_accumulator_contract():

@@ -1,5 +1,5 @@
-"""The Hopper kernels (weight family: ``lut_affine`` and its ragged MoE
-form ``lut_affine_experts``; TL1: ``lut_tl1``; the binary-matmul mode:
+"""The Hopper kernels (weight family: ``lut_affine`` in both its decode
+and prefill kernels, and its ragged MoE form ``lut_affine_experts``; TL1: ``lut_tl1``; the binary-matmul mode:
 ``bitplane_pack`` and ``binary_matmul``) against their plain PyTorch
 versions, on the card.  The
 kernels have no CPU mode, so every test here is marked ``cuda`` and skips
@@ -84,6 +84,116 @@ def test_kernels_take_bias_and_one_row(cuda_device):
     _close(got, want)
     got1 = ops.lut_affine(c, t[1], scales, bias=bias[1], shift_bits=5)
     _close(got1, want[1])
+
+
+def _dense_matches_plain(codes, tables, scales, shift_bits, device):
+    """Both dense entries (the lone one on each table set, the grouped one on
+    all of them) against the plain version, within 1e-5 x max|plain|."""
+    c = torch.from_numpy(codes).to(device)
+    t = tables.to(device)
+    before = dict(ops.LAUNCHES)
+    grouped = ops.lut_affine_grouped(c, t, scales, shift_bits=shift_bits)
+    lone = [ops.lut_affine(c, t[g], scales, shift_bits=shift_bits) for g in range(t.shape[0])]
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lut_affine_grouped"] == before["lut_affine_grouped"] + 1
+    assert ops.LAUNCHES["lut_affine"] == before["lut_affine"] + t.shape[0]
+    want = ops.lut_affine_grouped(c, t, scales, shift_bits=shift_bits, use_kernels=False)
+    _close(grouped, want)
+    for g, got in enumerate(lone):
+        _close(got, want[g])
+
+
+def _regime(B, n, k, E, tables):
+    G, _, _, p = tables.shape
+    vec = 16 // tables.element_size()
+    row_bytes = -(-p // vec) * vec * tables.element_size()
+    return ops.tiling(G, B, n, k, E, row_bytes, torch.cuda.get_device_properties(0)
+                      .multi_processor_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("B", [1, 4, 16, 17, 64, 128, 129])
+def test_dense_rows_across_the_regimes_on_card(cuda_device, n, B):
+    # n = 3: decode below 11 rows; n = 1: below 32; 64-row prefill tiles
+    codes, tables, scales = _case(30 + B, B, n, 40, 32, 1000, 2, "i8", 5)
+    t = _regime(B, n, 40, 32, tables)
+    assert t.regime == ("decode" if B * n < 32 else "prefill")
+    _dense_matches_plain(codes, tables, scales, 5, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["i8", "f32"])
+@pytest.mark.parametrize("B", [3, 70])
+@pytest.mark.parametrize("p", [130, 513, 1000, 4100])
+def test_dense_ragged_slabs_on_card(cuda_device, dtype, B, p):
+    # p ragged to the 512-byte slab; i8 rows of 130 / 513 / 1000 / 4100
+    # bytes are not 16-byte multiples, so the wrapper pads a copy
+    codes, tables, scales = _case(40 + p, B, 3, 24, 32, p, 1, dtype, 5)
+    _dense_matches_plain(codes, tables, scales, 5, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["i8", "i16"])
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("B", [4, 80])
+def test_dense_takes_an_unaligned_table_base_on_card(cuda_device, dtype, offset, B):
+    codes, tables, scales = _case(50 + offset, B, 3, 20, 32, 256, 2, dtype, 5)
+    flat = torch.zeros(offset + tables.numel(), dtype=tables.dtype, device=cuda_device)
+    flat[offset:] = tables.reshape(-1).to(cuda_device)
+    view = flat[offset:].reshape(tables.shape)
+    assert view.data_ptr() % 16 != 0
+    _dense_matches_plain(codes, view, scales, 5, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3, 11, 32])
+@pytest.mark.parametrize("B", [2, 40])
+def test_dense_groups_and_planes_on_card(cuda_device, G, n, B):
+    codes, tables, scales = _case(60 + n, B, n, 30, 32, 300, G, "i8", 5)
+    _dense_matches_plain(codes, tables, scales, 5, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shift_bits", [0, 5])
+@pytest.mark.parametrize("B", [5, 90])
+def test_dense_table_types_and_shifts_on_card(cuda_device, dtype, shift_bits, B):
+    codes, tables, scales = _case(70 + B, B, 3, 33, 32, 520, 2, dtype, shift_bits)
+    _dense_matches_plain(codes, tables, scales, shift_bits, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["i8", "i16"])
+@pytest.mark.parametrize("edge", ["lo", "hi"])
+@pytest.mark.parametrize("B", [4, 80])
+def test_dense_integer_tables_off_the_magic_range_on_card(cuda_device, dtype, edge, B):
+    # total exponents past the magic word's range (i8 [-141, 112], i16
+    # [-149, 104]) take the general path: -150 (subnormal terms) and 113
+    # (one chunk a row at sigma +6, the rest at -24, so sums stay finite)
+    codes, tables, _ = _case(90 + B, B, 1, 4, 32, 200, 2, dtype, 5)
+    codes &= 31
+    if edge == "hi":
+        codes[:, :, 1] |= 31 << 5
+        scales = np.array([2.0**107], np.float32)
+    else:
+        codes[:, :, 1] |= 29 << 5
+        scales = np.array([-(2.0**-126)], np.float32)
+    _dense_matches_plain(codes, tables, scales, 5, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,k,p", [(4, 512, 4096), (128, 256, 1024)])
+def test_dense_split_sums_are_deterministic_on_card(cuda_device, B, k, p):
+    codes, tables, scales = _case(80 + B, B, 3, k, 32, p, 1, "i8", 5)
+    assert _regime(B, 3, k, 32, tables).splits > 1
+    c, t = torch.from_numpy(codes).to(cuda_device), tables[0].to(cuda_device)
+    first = ops.lut_affine(c, t, scales, shift_bits=5)
+    for _ in range(3):
+        assert torch.equal(ops.lut_affine(c, t, scales, shift_bits=5), first)
+    want = ops.lut_affine(c, t, scales, shift_bits=5, use_kernels=False)
+    _close(first, want)
 
 
 def _tl1_case(seed, lead, kb, p, G, act_bits):
