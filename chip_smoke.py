@@ -37,10 +37,13 @@ Phases, one JSON object per line:
 6. ``moe_kernel``  the ragged MoE kernel (``lut_affine_experts``) against
    its plain version at full-width qwen2_moe_a2_7b expert shapes (60
    experts, top-4, expert width 1408; decode 4 tokens = 16 expert rows and
-   prefill 128 tokens = 512 rows, routed by a seeded router) and on a grid
-   of table types, shift_bits, empty experts, ragged T and p, G 1/2/3 and a
-   zero tail; then one decode-shaped ``moe_ffn`` on the kernels under
-   ``torch.cuda.set_sync_debug_mode("error")``: no read-back may happen.
+   prefill 128 tokens = 512 rows, routed by a seeded router; each line
+   with the k ``splits`` the wrapper chose, the decode split launch
+   repeated and checked bit-identical) and on a grid of table types,
+   shift_bits, empty experts, ragged T and p, G 1/2/3 and a zero tail;
+   then one decode-shaped ``moe_ffn`` on the kernels under
+   ``torch.cuda.set_sync_debug_mode("error")``: no read-back may happen;
+   last ptxas's report of the ragged kernel.
 7. ``moe_serve``  full-width qwen2_moe_a2_7b, depth set by the card's
    memory (2 of 24 layers), planned by the serving recipe with
    ``convert_experts=True``, converted to i8 tables and served through
@@ -174,7 +177,7 @@ def ptxas_report(log: str) -> dict:
     return {k: v for k, v in out.items() if "registers" in v}
 
 
-def sass_loops(lib_path, kernels=("decode_kernel", "prefill_kernel")) -> dict:
+def sass_loops(lib_path, kernels=("decode_kernel", "prefill_kernel", "experts_kernel")) -> dict:
     """Per named kernel of a built library (cuobjdump -sass): the innermost
     loop holding byte permutes (the span of a backward branch) -- its
     instructions, PRMTs and FADDs, and instructions per PRMT, which on the
@@ -398,10 +401,10 @@ def kernel_phase(iters: int, prefill_rows: int) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import build
-
     from repro_torch.core.lut import LUTPlan, pack_codes, plane_scales
     from repro_torch.core.quantize import Float16Format
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lut_affine import ops
 
     gen = torch.Generator(device=DEV).manual_seed(1)
     # worst error at the main path's shapes (the grid's values span other
@@ -439,7 +442,11 @@ def kernel_phase(iters: int, prefill_rows: int) -> dict:
                     m["prefill_ms"] += r["kernel_ms"]
                     m["prefill_bound_ms"] += r["bound_ms"]
                 if rows == 4 and proj in ("wq", "w_gate+w_up"):
-                    determinism(name, c, t, s, plan.shift_bits)
+                    fn = ops.lut_affine if name == "lut_affine" else ops.lut_affine_grouped
+                    determinism("kernel", name, functools.partial(
+                        fn, c, t[0] if name == "lut_affine" else t, s,
+                        shift_bits=plan.shift_bits),
+                        {"rows": rows, "k": k, "p": p, "splits": r["splits"]})
                 del c, t
                 torch.cuda.empty_cache()
     # grid: table types, shift_bits 0/5, ragged k/p/B, negative plane scales
@@ -492,23 +499,14 @@ def lut_tiling(name, codes, tables):
                       torch.cuda.get_device_properties(0).multi_processor_count)
 
 
-def determinism(name, codes, tables, scales, shift_bits, repeats: int = 4) -> None:
+def determinism(phase, name, call, fields, repeats: int = 4) -> None:
     """Repeated launches of one case give equal bits (the split sums run in
     a fixed order)."""
     import torch
 
-    from repro_torch.kernels.lut_affine import ops
-
-    def call():
-        if name == "lut_affine":
-            return ops.lut_affine(codes, tables[0], scales, shift_bits=shift_bits)
-        return ops.lut_affine_grouped(codes, tables, scales, shift_bits=shift_bits)
-
     outs = [call() for _ in range(repeats)]
     same = all(torch.equal(o, outs[0]) for o in outs[1:])
-    emit({"phase": "kernel", "step": "determinism", "kernel": name, "rows": codes.shape[0],
-          "k": codes.shape[2], "p": tables.shape[3],
-          "splits": lut_tiling(name, codes, tables).splits, "repeats": repeats,
+    emit({"phase": phase, "step": "determinism", "kernel": name, **fields, "repeats": repeats,
           "bit_identical": same})
     if not same:
         raise AssertionError(f"{name}: repeated launches differ")
@@ -1058,8 +1056,11 @@ def run_experts_case(codes, tables, scales, gs, shift_bits, iters, plain_iters):
     plain_ms = device_ms([plain], plain_iters, warmup=1, hold=False)
     eot = sorted_expert_of(gs, live)
     bms, by = bound(codes[:live], G, En, p, tables.element_size(), shift_bits, expert_of=eot)
+    vec = ops.ROW_ALIGN // tables.element_size()
+    t = ops.experts_tiling(G, T, k, -(-p // vec) * vec * tables.element_size(),
+                           torch.cuda.get_device_properties(0).multi_processor_count)
     return {
-        "max_abs_err": err, "tol": tol,
+        "splits": t.splits, "max_abs_err": err, "tol": tol,
         "tol_reason": f"{KERNEL_TOL} x max|plain|: fp32 sums in another order",
         "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": None,
@@ -1100,6 +1101,7 @@ def moe_kernel_phase(iters: int, prefill_tokens: int) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import LUTGroup, LUTLinear
     from repro_torch.core.lut import pack_codes, plane_scales
+    from repro_torch.kernels import build
     from repro_torch.kernels.lut_affine import ops
     from repro_torch.models import moe
     from repro_torch.models.layers import Ctx, ExecCfg
@@ -1117,7 +1119,7 @@ def moe_kernel_phase(iters: int, prefill_tokens: int) -> dict:
     }
     dequant = 2.0**-6
     worst, main = 0.0, {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                        "bound_by": set()}
+                        "bound_by": set(), "prefill_ms": 0.0, "prefill_bound_ms": 0.0}
     for tokens in (SLOTS, prefill_tokens):
         # real routing of seeded activations through a seeded router
         x = torch.randn(tokens, d, generator=gen, device=DEV)
@@ -1143,6 +1145,15 @@ def moe_kernel_phase(iters: int, prefill_tokens: int) -> dict:
                 for key in ("kernel_ms", "plain_ms", "bound_ms"):
                     main[key] += r[key]
                 main["bound_by"].add(r["bound_by"])
+            else:  # the engine's prefill: summed over the layer's calls
+                main["prefill_ms"] += r["kernel_ms"]
+                main["prefill_bound_ms"] += r["bound_ms"]
+            if tokens == SLOTS and name == "w_gate+w_up":  # a split launch
+                determinism("moe_kernel", "lut_affine_experts", functools.partial(
+                    ops.lut_affine_experts, codes, tables[name], scales, gs,
+                    shift_bits=plan.shift_bits),
+                    {"proj": name, "rows": T, "k": plan.num_chunks, "p": plan.out_features,
+                     "splits": r["splits"]})
         torch.cuda.empty_cache()
 
     # grid: table types x shift_bits, empty experts, every row on one
@@ -1216,6 +1227,9 @@ def moe_kernel_phase(iters: int, prefill_tokens: int) -> dict:
         raise AssertionError(f"moe_ffn kernel vs plain: {err} > {LOGITS_TOL * scale}")
     del tables, params, sh
     torch.cuda.empty_cache()
+    emit({"phase": "moe_kernel", "step": "ptxas",
+          "kernels": {k: v for k, v in ptxas_report(build.BUILD_LOG.get("lut_affine", "")).items()
+                      if "experts" in k}})
     return {"worst": {"lut_affine_experts": worst}, "main": {"lut_affine_experts": main}}
 
 

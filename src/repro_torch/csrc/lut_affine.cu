@@ -21,11 +21,9 @@
 //   wrapper from the shapes alone (kernels/lut_affine/ops.py::tiling):
 //   prefill when a chunk's B * n codes are at least its E rows and E <= 64,
 //   decode otherwise.
-// * lut_affine_experts_launch runs the first design's tile (lut_tile: 4
-//   batch rows x 32 columns a block, 16 warps splitting k), unchanged: each
-//   block owns one segment of at most 4 rows of ONE expert, found on the
-//   device from the expert offsets (no read-back), so empty experts cost
-//   nothing and no row is masked.
+// * lut_affine_experts_launch (the ragged MoE form: codes sorted by expert,
+//   tables (E, G, k, En, p)) runs experts_kernel at every shape, its grid
+//   picked by kernels/lut_affine/ops.py::experts_tiling.
 //
 // Bound on an H100 (3.35 TB/s; 67 TFLOP/s fp32 outside the tensor cores,
 // one fp32 add per lane per clock).  At decode (B = 4, n = 3 planes,
@@ -70,6 +68,20 @@
 //   subtract, add) and issues at ~64 % of one instruction a cycle on an
 //   H100.
 //
+// experts_kernel (bytes-bound at decode and prefill):
+// * decode_kernel's block and access pattern, on 4 consecutive expert-sorted
+//   rows whatever their experts (a block of one expert's rows held one live
+//   row at decode: 16 rows on ~15 experts).  Each warp finds its row's expert
+//   on the device from the offsets (a ballot over 32 experts a step), so
+//   nothing is read back; its table set's base is a 64-bit offset (a
+//   full-width expert stack passes 2**31 bytes).  The row tile varies
+//   fastest, so the blocks on one expert's rows run together and share its
+//   rows in L2 at prefill.  k splits as at decode, summed by sum_splits.
+// * No TMA ring at prefill: 512 rows on 60 experts give an expert ~8.5 rows,
+//   so its chunk tile of 32 rows feeds ~25 references, fewer than its rows;
+//   prefill_kernel's ring pays where each row feeds ~12.  Gathering only the
+//   referenced rows moves fewer bytes.
+//
 // The accumulate: gathers, fp32 adds, and power-of-two shifts as exponent-
 // field adds with the plane sign as the sign bit; no multiply instruction.
 // * Integer tables (the main path, i8): each reference's total exponent e
@@ -86,7 +98,8 @@
 //   entry is converted, shifted by an exponent-field add where the value
 //   and the result are normal (ldexpf, exact too, where not), and its sign
 //   bit flipped (shift_f).
-// kernels/lut_affine/ref.py::lut_affine_kernel_ref mirrors both paths.
+// kernels/lut_affine/ref.py::lut_affine_kernel_ref mirrors both paths;
+// experts_kernel_ref also experts_kernel's grid and order of sums.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -98,52 +111,12 @@
 
 namespace {
 
-constexpr int kCols = 4;                // output columns per lane
-constexpr int kQuads = 8;               // column quads per batch row
-constexpr int kRows = 32 / kQuads;      // batch rows per block
-constexpr int kTileP = kQuads * kCols;  // output columns per block
-constexpr int kWarps = 16;              // warps per block, splitting k
 constexpr int kMaxPlanes = 32;
-constexpr int kCodeSmemBytes = 32 * 1024;
 
 struct PlaneShift {
   int exp[kMaxPlanes];  // plane j scale = (bit j of neg ? -1 : 1) * 2**exp[j]
   unsigned neg;
 };
-
-template <typename T> struct Vec4;
-template <> struct Vec4<float> { using type = float4; };
-template <> struct Vec4<uint16_t> { using type = ushort4; };  // bf16 bits
-template <> struct Vec4<int8_t> { using type = char4; };
-template <> struct Vec4<int16_t> { using type = short4; };
-
-template <typename T> struct IsInt { static constexpr bool value = false; };
-template <> struct IsInt<int8_t> { static constexpr bool value = true; };
-template <> struct IsInt<int16_t> { static constexpr bool value = true; };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(uint16_t x) {
-  return __uint_as_float(static_cast<unsigned>(x) << 16);
-}
-__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-__device__ __forceinline__ float to_f(int16_t x) { return static_cast<float>(x); }
-
-// 4 consecutive entries as fp32; `full` = aligned and in range.
-template <typename T>
-__device__ __forceinline__ void load4(const T* __restrict__ src, float v[kCols],
-                                      bool full, int valid) {
-  if (full) {
-    const typename Vec4<T>::type w =
-        __ldg(reinterpret_cast<const typename Vec4<T>::type*>(src));
-    v[0] = to_f(w.x);
-    v[1] = to_f(w.y);
-    v[2] = to_f(w.z);
-    v[3] = to_f(w.w);
-  } else {
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) v[q] = q < valid ? to_f(src[q]) : 0.f;
-  }
-}
 
 // x * 2**e by an add to the exponent field when x and the result are
 // normal; exact in every case.
@@ -157,206 +130,8 @@ __device__ __forceinline__ float shift_f(float x, int e) {
   return x == 0.f ? x : ldexpf(x, e);
 }
 
-// The general step: acc += (-1)**neg * 2**e * v for any table type and
-// exponent, one row slice at a time.
-template <typename T>
-__device__ __forceinline__ void accumulate_general(float acc[kCols], const int2* run,
-                                                   int t0, int t1, const T* tcol, int p,
-                                                   bool full, int valid) {
-#pragma unroll 4
-  for (int t = t0; t < t1; ++t) {
-    const int2 ie = run[t];
-    float v[kCols];
-    load4(tcol + static_cast<size_t>(ie.x) * p, v, full, valid);
-    const unsigned sign = static_cast<unsigned>(ie.y & 1) << 31;
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      acc[q] += __uint_as_float(__float_as_uint(shift_f(v[q], ie.y >> 1)) ^ sign);
-    }
-  }
-}
-
-// The main path's step, for integer tables whose every exponent the host
-// proved in [-126, 113]: |v| <= 32767 has an exponent field <= 141, so each
-// nonzero 2**e * v is normal and the shift is one integer add, the sign one
-// xor -- no branch in the loop, so the unrolled body issues all its row
-// loads before it needs the first.
-template <typename T>
-__device__ __forceinline__ void accumulate_int(float acc[kCols], const int2* run, int t0,
-                                               int t1, const T* tcol, int p) {
-#pragma unroll 8
-  for (int t = t0; t < t1; ++t) {
-    const int2 ie = run[t];
-    const typename Vec4<T>::type w = __ldg(
-        reinterpret_cast<const typename Vec4<T>::type*>(tcol + static_cast<size_t>(ie.x) * p));
-    const unsigned e23 = static_cast<unsigned>(ie.y >> 1) << 23;
-    const unsigned sign = static_cast<unsigned>(ie.y & 1) << 31;
-    const float v[kCols] = {to_f(w.x), to_f(w.y), to_f(w.z), to_f(w.w)};
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      acc[q] += v[q] == 0.f ? 0.f : __uint_as_float((__float_as_uint(v[q]) + e23) ^ sign);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The first design's tile, kept for the ragged MoE entry
-// ---------------------------------------------------------------------------
-
-// One block's output tile: rows [b0, b0 + nb) x the 32 columns of column
-// tile `ct`, accumulated over chunks [k0, k1) of one table set `tset`
-// (k, E, p) and written to `out` (rows of p fp32).  An empty chunk range
-// writes zeros.
-template <typename T>
-__device__ __forceinline__ void lut_tile(const int32_t* __restrict__ codes,  // (B, n, k)
-                                         const T* __restrict__ tset,
-                                         float* __restrict__ out, const PlaneShift& ps,
-                                         const int b0, const int nb, const int ct,
-                                         const int n, const int k, const int k0,
-                                         const int k1, const int E, const int p,
-                                         const int shift_bits, const int kt_max,
-                                         const int vec, const int fast_int) {
-  // staged codes, [row][chunk][plane] of {table row, (exponent << 1) | sign};
-  // reused for the warp partials at the end
-  extern __shared__ int2 smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rb = lane / kQuads;
-  const int col = ct * kTileP + (lane % kQuads) * kCols;
-  const int valid = min(kCols, p - col);
-  const bool live = rb < nb && valid > 0;
-  const bool full = vec && valid == kCols;
-  const T* __restrict__ tcol = tset + col;
-  const int per_chunk = kRows * n;
-
-  float acc[kCols];
-#pragma unroll
-  for (int q = 0; q < kCols; ++q) acc[q] = 0.f;
-
-  for (int c0 = k0; c0 < k1; c0 += kt_max) {
-    const int kt = min(kt_max, k1 - c0);
-    // stage: consecutive threads read consecutive chunks of one code row
-    for (int i = threadIdx.x; i < kt * per_chunk; i += blockDim.x) {
-      const int r = i / kt;
-      const int c = i - r * kt;
-      const int br = r / n;
-      const int j = r - br * n;
-      int row = 0, ye = 0;
-      if (br < nb) {
-        const int code = codes[(static_cast<size_t>(b0 + br) * n + j) * k + c0 + c];
-        int idx = code, e = ps.exp[j];
-        if (shift_bits) {
-          idx = code & (E - 1);
-          e += max(code >> shift_bits, 1) - 25;
-        }
-        row = (c0 + c) * E + idx;
-        ye = e * 2 + static_cast<int>((ps.neg >> j) & 1u);
-      }
-      smem[(br * kt + c) * n + j] = make_int2(row, ye);
-    }
-    __syncthreads();
-    if (live) {
-      const int2* run = smem + rb * kt * n;
-      const int t0 = (kt * warp) / kWarps * n;
-      const int t1 = (kt * (warp + 1)) / kWarps * n;
-      if (IsInt<T>::value && fast_int && full) {
-        accumulate_int<T>(acc, run, t0, t1, tcol, p);
-      } else {
-        accumulate_general<T>(acc, run, t0, t1, tcol, p, full, valid);
-      }
-    }
-    __syncthreads();
-  }
-
-  // fixed-order reduction of the warps' partial sums
-  float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int q = 0; q < kCols; ++q) red[warp * 32 * kCols + lane * kCols + q] = acc[q];
-  __syncthreads();
-  for (int t = threadIdx.x; t < 32 * kCols; t += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w * 32 * kCols + t];
-    const int l = t / kCols;
-    const int br = l / kQuads;
-    const int cc = ct * kTileP + (l % kQuads) * kCols + t % kCols;
-    if (br < nb && cc < p) out[static_cast<size_t>(b0 + br) * p + cc] = s;
-  }
-}
-
-// The ragged MoE form.  Rows arrive sorted by expert: expert e owns rows
-// [offsets[e], offsets[e+1]), and the rows past offsets[E] (a ragged
-// tail) are a last pseudo-expert whose output is zero.  Each expert's rows
-// are cut into segments of at most kRows, so a segment never crosses an
-// expert boundary; blockIdx.x numbers the segments in expert order and
-// varies fastest, so the blocks in flight share a column tile and a
-// prefill's segments of one expert re-read its tables from L2.  Each
-// block finds its segment from the offsets itself (warp 0: a prefix sum
-// of the segment counts over 32 experts at a time), with no read-back to
-// the host; blocks past the last segment exit at once, and an empty
-// expert costs nothing.
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-lut_affine_experts_kernel(const int32_t* __restrict__ codes,   // (T, n, k)
-                          const T* __restrict__ tables,        // (E, G, k, En, p)
-                          const int32_t* __restrict__ offsets, // (E + 1,)
-                          float* __restrict__ out,             // (G, T, p)
-                          const PlaneShift ps, const int num_experts, const int G,
-                          const int T_rows, const int n, const int k, const int En,
-                          const int p, const int shift_bits, const int kt_max,
-                          const int vec, const int fast_int) {
-  __shared__ int seg[3];  // expert (num_experts = the zero tail), first row, rows
-  const int s = blockIdx.x;
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int carry = 0;
-    bool found = false;
-    for (int base = 0; base <= num_experts && !found; base += 32) {
-      const int e = base + lane;
-      int start = T_rows, end = T_rows;
-      if (e < num_experts) {
-        start = min(offsets[e], T_rows);
-        end = min(offsets[e + 1], T_rows);
-      } else if (e == num_experts) {
-        start = min(offsets[num_experts], T_rows);
-      }
-      const int cnt = max(end - start, 0) / kRows + (max(end - start, 0) % kRows != 0);
-      int inc = cnt;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, inc, d);
-        if (lane >= d) inc += v;
-      }
-      const int lo = carry + inc - cnt;
-      const unsigned hit = __ballot_sync(0xffffffffu, cnt > 0 && s >= lo && s < lo + cnt);
-      if (hit) {
-        found = true;
-        if (lane == __ffs(hit) - 1) {
-          const int row0 = start + (s - lo) * kRows;
-          seg[0] = e;
-          seg[1] = row0;
-          seg[2] = min(kRows, end - row0);
-        }
-      }
-      carry += __shfl_sync(0xffffffffu, inc, 31);
-    }
-    if (!found && lane == 0) seg[2] = 0;
-  }
-  __syncthreads();
-  const int nb = seg[2];
-  if (nb <= 0) return;  // past the last segment: uniform over the block
-  const int e = seg[0];
-  const int ptiles = (p + kTileP - 1) / kTileP;
-  const int g = blockIdx.y / ptiles;
-  const int ct = blockIdx.y - g * ptiles;
-  const bool tail = e == num_experts;
-  // the tail's rows have no expert: an empty chunk range writes zeros
-  lut_tile<T>(codes, tables + (static_cast<size_t>(tail ? 0 : e) * G + g) * k * En * p,
-              out + static_cast<size_t>(g) * T_rows * p, ps, seg[1], nb, ct, n, k, 0,
-              tail ? 0 : k, En, p, shift_bits, kt_max, vec, fast_int);
-}
-
-// ---------------------------------------------------------------------------
-// The dense entries: decode_kernel and prefill_kernel
+// The kernels: decode_kernel, prefill_kernel and experts_kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kSlab = 512;          // bytes of every table row a block owns
@@ -745,6 +520,105 @@ prefill_kernel(const __grid_constant__ CUtensorMap tmap,  // tables, (G*k*E, row
   }
 }
 
+// The ragged MoE form: decode_kernel's block (4 rows x one 512-byte slab
+// of one table set over a k range, warp (r, h) on row r and half the
+// chunks, lane l on bytes [16 l, 16 l + 16) of each referenced row slab,
+// eight loads in flight) on 4 consecutive expert-sorted rows, whatever
+// their experts.  Expert e owns rows [offsets[e], offsets[e + 1]); each warp
+// counts the experts whose rows end at or before its row, 32 a ballot, and
+// reads that expert's table set.  Rows at or past offsets[num_experts] have
+// no expert: they stage nothing, read no table and write 0.  A loop of its
+// own, so that decode_kernel's code stays as it was.
+template <typename T, bool kFast>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+experts_kernel(const int32_t* __restrict__ codes,         // (T, n, k)
+               const unsigned char* __restrict__ tables,  // (num_experts, G, k, En, row_bytes)
+               const int32_t* __restrict__ offsets,       // (num_experts + 1,)
+               float* __restrict__ out,                   // (G, T, p)
+               float* __restrict__ part,                  // (splits, G, T, p)
+               const PlaneShift ps, const int num_experts, const int T_rows, const int n,
+               const int k, const int En, const int p, const int row_bytes,
+               const int shift_bits, const int splits, const int kt_max) {
+  constexpr int kEl = kLaneBytes / sizeof(T);
+  extern __shared__ __align__(128) unsigned char dyn[];
+  int2* run = reinterpret_cast<int2*>(dyn);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const Tile t(kDecodeRows, T_rows, k, p, row_bytes, splits, static_cast<int>(sizeof(T)));
+  const int rb = warp % kDecodeRows;
+  const int h = warp / kDecodeRows;
+  // the tile's rows that have an expert: a prefix, as the rows are sorted
+  const int nlive = min(t.nb, max(0, __ldg(offsets + num_experts) - t.b0));
+  int e = 0;
+  for (int base = 0; base < num_experts; base += 32) {
+    const int x = base + lane;
+    e += __popc(__ballot_sync(0xffffffffu,
+                              x < num_experts && __ldg(offsets + x + 1) <= t.b0 + rb));
+  }
+  const bool live = rb < nlive && e < num_experts && lane * kLaneBytes < t.slab_bytes;
+  // an expert stack of full width passes 2**31 bytes: 64-bit offsets
+  const unsigned char* tcol =
+      tables + (static_cast<size_t>(live ? e : 0) * t.G + t.g) * k * En * row_bytes +
+      t.col_byte + lane * kLaneBytes;
+  float acc[kEl];
+#pragma unroll
+  for (int q = 0; q < kEl; ++q) acc[q] = 0.f;
+  const int nk = nlive > 0 ? t.nk : 0;
+  for (int c0 = 0; c0 < nk; c0 += kt_max) {
+    const int kt = min(kt_max, nk - c0);
+    for (int i = threadIdx.x; i < kt * nlive * n; i += blockDim.x) {
+      const int r = i / kt;  // b * n + j
+      const int c = i - r * kt;
+      const int br = r / n;
+      const int j = r - br * n;
+      const int code = __ldg(codes + static_cast<size_t>(t.b0 * n + r) * k + t.k0 + c0 + c);
+      int idx = code, ex = ps.exp[j];
+      if (shift_bits) {
+        idx = code & (En - 1);
+        ex += max(code >> shift_bits, 1) - 25;
+      }
+      run[(br * kt + c) * n + j] = make_int2((t.k0 + c0 + c) * En + idx,
+                                             shift_word<T, kFast>(ex, (ps.neg >> j) & 1u));
+    }
+    __syncthreads();
+    if (live) {
+      const int2* my = run + rb * kt * n;
+      const int t0 = (kt * h) / kDecodeHalves * n;
+      const int t1 = (kt * (h + 1)) / kDecodeHalves * n;
+      for (int i = t0; i < t1; i += 8) {
+        uint4 v[8];
+        int sw[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int2 mm = my[min(i + u, t1 - 1)];
+          sw[u] = mm.y;
+          v[u] = __ldg(reinterpret_cast<const uint4*>(tcol + static_cast<size_t>(mm.x) * row_bytes));
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (i + u < t1) add_row<T, kFast>(acc, v[u], sw[u]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // the halves' sum; rows without an expert write their zeros
+  float* red = reinterpret_cast<float*>(dyn) + (rb * 32 + lane) * kEl;
+  const bool rows_live = rb < t.nb;
+  if (rows_live && h == 1) {
+#pragma unroll
+    for (int q = 0; q < kEl; ++q) red[q] = acc[q];
+  }
+  __syncthreads();
+  float* dst = splits > 1 ? part + (static_cast<size_t>(t.split) * t.G + t.g) * T_rows * p
+                          : out + static_cast<size_t>(t.g) * T_rows * p;
+  if (rows_live && h == 0) {
+#pragma unroll
+    for (int q = 0; q < kEl; ++q) acc[q] += red[q];
+    store_row<T>(acc, dst, t, rb, lane, p);
+  }
+}
+
 // out[i] = sum of the k-splits' partials, in split order (deterministic);
 // eight partials' loads in flight at a time
 __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ out,
@@ -768,22 +642,6 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ o
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// Staged chunks per pass: as many as kCodeSmemBytes holds (at most 512 and
-// at most the chunks of the largest k range), a multiple of the warps.
-int staged_chunks(int n, int ks) {
-  int kt = kCodeSmemBytes / (kRows * n * static_cast<int>(sizeof(int2)));
-  kt = kt < 512 ? kt : 512;
-  kt = kt < ks ? kt : ks;
-  if (kt >= kWarps) kt -= kt % kWarps;
-  return kt > 1 ? kt : 1;
-}
-
-size_t smem_bytes(int n, int kt) {
-  const size_t code_bytes = static_cast<size_t>(kt) * kRows * n * sizeof(int2);
-  const size_t red_bytes = static_cast<size_t>(kWarps) * 32 * kCols * sizeof(float);
-  return code_bytes > red_bytes ? code_bytes : red_bytes;
-}
 
 // Every total exponent is a plane exponent plus, with shift_bits, a sigma
 // exponent max(e, 1) - 25 in [-24, 6].
@@ -994,50 +852,78 @@ int run_dense(const Dense& a, const int* plane_exp, unsigned plane_neg, int dtyp
   }
 }
 
-// The ragged MoE form: `E` experts' tables (E, G, k, En, p) over B
-// expert-sorted rows, on the first design's tile.
+// The ragged form's staged chunks per pass (4 rows a block at every n), and
+// the block's shared memory
+int experts_chunks(int n) {
+  const int kt = kMetaBytes / (kDecodeRows * n * 8);
+  return kt < 512 ? kt : 512;
+}
+
+int experts_smem(int n) {
+  const int meta = experts_chunks(n) * kDecodeRows * n * 8;
+  return meta > kRedBytes ? meta : kRedBytes;
+}
+
+// One ragged launch: `E` experts' tables (E, G, k, En, ldt) over B
+// expert-sorted rows, aligned as the dense launch's.
 struct Experts {
   const void* codes;
   const void* tables;
   const void* offsets;
   void* out;
-  int E, G, B, n, k, En, p, shift_bits, vec;
+  void* part;
+  int E, G, B, n, k, En, p, ldt, shift_bits, splits;
 };
 
-template <typename T>
-void launch_experts(const Experts& a, const PlaneShift& ps, int fast_int, cudaStream_t stream) {
-  const int ptiles = (a.p + kTileP - 1) / kTileP;
-  const int kt = staged_chunks(a.n, a.k);
-  // at most ceil(rows / kRows) + 1 segments per expert, the tail included
-  const unsigned segs = static_cast<unsigned>(a.E + 1 + (a.B + kRows - 1) / kRows);
-  lut_affine_experts_kernel<T><<<dim3(segs, a.G * ptiles), kWarps * 32,
-                                 smem_bytes(a.n, kt), stream>>>(
-      static_cast<const int32_t*>(a.codes), static_cast<const T*>(a.tables),
-      static_cast<const int32_t*>(a.offsets), static_cast<float*>(a.out), ps, a.E, a.G, a.B,
-      a.n, a.k, a.En, a.p, a.shift_bits, kt, a.vec, fast_int);
+template <typename T, bool kFast>
+int launch_experts(const Experts& a, const PlaneShift& ps, cudaStream_t st) {
+  const int row_bytes = a.ldt * static_cast<int>(sizeof(T));
+  const dim3 grid((a.B + kDecodeRows - 1) / kDecodeRows, (row_bytes + kSlab - 1) / kSlab,
+                  a.G * a.splits);
+  experts_kernel<T, kFast><<<grid, kDecodeWarps * 32, experts_smem(a.n), st>>>(
+      static_cast<const int32_t*>(a.codes), static_cast<const unsigned char*>(a.tables),
+      static_cast<const int32_t*>(a.offsets), static_cast<float*>(a.out),
+      static_cast<float*>(a.part), ps, a.E, a.B, a.n, a.k, a.En, a.p, row_bytes, a.shift_bits,
+      a.splits, experts_chunks(a.n));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.splits > 1) {
+    const size_t count = static_cast<size_t>(a.G) * a.B * a.p;
+    sum_splits<<<static_cast<unsigned>((count + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(a.part), static_cast<float*>(a.out), count, a.splits);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 int run_experts(const Experts& a, const int* plane_exp, unsigned plane_neg, int dtype,
                 void* stream) {
-  const int ptiles = (a.p + kTileP - 1) / kTileP;
-  if (a.n < 1 || a.n > kMaxPlanes || a.G < 1 || a.B < 1 || a.k < 1 || a.En < 1 ||
-      a.p < 1 || static_cast<long long>(a.k) * a.En > INT_MAX || a.E < 1 ||
-      static_cast<long long>(a.G) * ptiles > 65535) {
+  static const int kSize[4] = {4, 2, 1, 2};
+  if (dtype < 0 || dtype > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const long long row_bytes = static_cast<long long>(a.ldt) * kSize[dtype];
+  if (a.n < 1 || a.n > kMaxPlanes || a.E < 1 || a.G < 1 || a.B < 1 || a.k < 1 || a.En < 1 ||
+      a.p < 1 || a.ldt < a.p || row_bytes % 16 != 0 || row_bytes > 65535LL * kSlab ||
+      reinterpret_cast<uintptr_t>(a.tables) % 16 != 0 || a.splits < 1 || a.splits > a.k ||
+      (a.splits > 1 && a.part == nullptr) || static_cast<long long>(a.G) * a.splits > 65535 ||
+      static_cast<long long>(a.k) * a.En > INT_MAX ||
+      static_cast<long long>(a.B) * a.n > INT_MAX || (a.shift_bits && (a.En & (a.En - 1)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PlaneShift ps = plane_shift(plane_exp, plane_neg, a.n);
   int lo, hi;
   exponent_range(plane_exp, a.n, a.shift_bits, &lo, &hi);
-  const int fast_int = lo >= -126 && hi <= 113;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: launch_experts<float>(a, ps, fast_int, s); break;
-    case 1: launch_experts<uint16_t>(a, ps, fast_int, s); break;
-    case 2: launch_experts<int8_t>(a, ps, fast_int, s); break;
-    case 3: launch_experts<int16_t>(a, ps, fast_int, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return launch_experts<float, false>(a, ps, s);
+    case 1: return launch_experts<uint16_t, false>(a, ps, s);
+    case 2:
+      return lo >= Magic<int8_t>::kLo && hi <= Magic<int8_t>::kHi
+                 ? launch_experts<int8_t, true>(a, ps, s)
+                 : launch_experts<int8_t, false>(a, ps, s);
+    default:
+      return lo >= Magic<int16_t>::kLo && hi <= Magic<int16_t>::kHi
+                 ? launch_experts<int16_t, true>(a, ps, s)
+                 : launch_experts<int16_t, false>(a, ps, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1070,16 +956,19 @@ extern "C" int lut_affine_grouped_launch(const void* codes, const void* tables, 
 }
 
 // The ragged MoE form: codes (T, n, k) sorted by expert, tables
-// (num_experts, G, k, En, p), offsets (num_experts + 1,) int32 on the
-// device (offsets[0] = 0, offsets[e + 1] = rows of experts 0..e), out
-// (G, T, p) fp32; rows past offsets[num_experts] come out 0.  No k-split.
+// (num_experts, G, k, En, ldt) aligned as lut_affine_launch's, offsets
+// (num_experts + 1,) int32 on the device (offsets[0] = 0, offsets[e + 1] =
+// rows of experts 0..e), out (G, T, p) fp32; rows past
+// offsets[num_experts] come out 0.  splits as lut_affine_launch's, with
+// (splits, G, T, p) partials.
 extern "C" int lut_affine_experts_launch(const void* codes, const void* tables,
-                                         const void* offsets, void* out,
+                                         const void* offsets, void* out, void* part,
                                          const int* plane_exp, unsigned plane_neg,
                                          int dtype, int num_experts, int G, int T, int n,
-                                         int k, int En, int p, int shift_bits, int vec,
-                                         void* stream) {
-  const Experts a{codes, tables, offsets, out, num_experts, G, T, n, k, En, p, shift_bits, vec};
+                                         int k, int En, int p, int ldt, int shift_bits,
+                                         int splits, void* stream) {
+  const Experts a{codes, tables, offsets, out, part, num_experts, G, T, n, k, En, p, ldt,
+                  shift_bits, splits};
   return run_experts(a, plane_exp, plane_neg, dtype, stream);
 }
 

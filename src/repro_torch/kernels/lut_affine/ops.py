@@ -19,7 +19,9 @@ The dense entries pick their kernel and grid from the shapes alone
 (:func:`tiling`): a decode batch, whose chunk codes touch few table rows,
 runs the kernel that reads only those rows, each as whole lines; anything
 larger the kernel that brings whole chunk tiles into shared memory; k is
-split into enough ranges for one wave of blocks.  The kernels read tables whose base is
+split into enough ranges for one wave of blocks.  The ragged entry runs one
+kernel at every shape, on blocks of 4 expert-sorted rows whatever their
+experts (:func:`experts_tiling`).  The kernels read tables whose base is
 16-byte aligned and whose rows are a multiple of 16 bytes; any other table
 is first copied into such a buffer (:func:`table_operand`).
 """
@@ -36,6 +38,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import check_acc_contract
 from repro_torch.kernels.lut_affine.ref import (
+    EXPERT_ROWS,
     lut_affine_experts_ref,
     lut_affine_grouped_ref,
     lut_affine_ref,
@@ -100,10 +103,11 @@ def _lib() -> ctypes.CDLL:
         lib.lut_affine_grouped_launch.argtypes = (
             _HEAD + [ctypes.c_int] + _DIMS + [ctypes.c_void_p]
         )
-        # codes, tables, offsets, out, plane exponents, sign mask, dtype,
-        # experts, G, T, n, k, En, p, shift_bits, vec, stream
+        # codes, tables, offsets, out, k-split partials, plane exponents,
+        # sign mask, dtype, experts, G, T, n, k, En, p, ldt, shift_bits,
+        # splits, stream
         lib.lut_affine_experts_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_uint] + [ctypes.c_int] * 10
+            [ctypes.c_void_p] * 6 + [ctypes.c_uint] + [ctypes.c_int] * 11
             + [ctypes.c_void_p]
         )
         lib.lut_affine_launch.restype = ctypes.c_int
@@ -138,9 +142,9 @@ def _sm_count(device: torch.device) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Tiling:
-    """One dense launch's kernel and grid (see :func:`tiling`)."""
+    """One launch's kernel and grid (see :func:`tiling`, :func:`experts_tiling`)."""
 
-    regime: str  # "decode" or "prefill"
+    regime: str  # "decode" or "prefill" (dense), "experts" (ragged)
     rows: int  # batch rows per block
     slabs: int  # 512-byte column slabs per table row
     tiles: int  # output tiles: G x batch tiles x slabs
@@ -164,6 +168,18 @@ def tiling(G: int, B: int, n: int, k: int, E: int, row_bytes: int, sms: int) -> 
     tiles = G * -(-B // rows) * slabs
     slots = BLOCKS_PER_SM[regime] * sms
     return Tiling(regime, rows, slabs, tiles, max(1, min(k, slots // tiles)))
+
+
+def experts_tiling(G: int, T: int, k: int, row_bytes: int, sms: int) -> Tiling:
+    """The ragged kernel's grid, from the shapes alone: blocks of
+    ``EXPERT_ROWS`` consecutive expert-sorted rows, whatever their experts,
+    x a 512-byte slab x one table set, with k cut as at decode into as many
+    ranges as one wave of ``BLOCKS_PER_SM["decode"]`` blocks per SM holds
+    beside the output tiles (never more ranges than chunks)."""
+    slabs = -(-row_bytes // SLAB_BYTES)
+    tiles = G * -(-T // EXPERT_ROWS) * slabs
+    slots = BLOCKS_PER_SM["decode"] * sms
+    return Tiling("experts", EXPERT_ROWS, slabs, tiles, max(1, min(k, slots // tiles)))
 
 
 def table_operand(tables: torch.Tensor) -> torch.Tensor:
@@ -324,13 +340,19 @@ def lut_affine_experts(
     out = torch.empty((G, T, p), dtype=torch.float32, device=codes.device)
     if T == 0:
         return out
+    tables = table_operand(tables)
+    ldt = tables.shape[-1]
+    t = experts_tiling(G, T, k, ldt * tables.element_size(), _sm_count(codes.device))
+    part = None
+    if t.splits > 1:
+        part = torch.empty((t.splits, G, T, p), dtype=torch.float32, device=codes.device)
     offsets = torch.zeros(E + 1, dtype=torch.int32, device=codes.device)
     torch.cumsum(group_sizes, 0, dtype=torch.int32, out=offsets[1:])
-    vec = p % 4 == 0 and tables.data_ptr() % (4 * tables.element_size()) == 0
     err = _lib().lut_affine_experts_launch(
         codes.data_ptr(), tables.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None,
         (ctypes.c_int * n)(*exps), neg, _DTYPE_CODE[tables.dtype],
-        E, G, T, n, k, En, p, shift_bits, int(vec), _stream(codes),
+        E, G, T, n, k, En, p, ldt, shift_bits, t.splits, _stream(codes),
     )
     _raise_on(err, "lut_affine_experts")
     LAUNCHES["lut_affine_experts"] += 1

@@ -195,3 +195,76 @@ def lut_affine_kernel_ref(
         val = rows.to(torch.float32).to(torch.float64) * torch.exp2(e[..., None].to(torch.float64))
         terms = torch.where(sign[..., None].bool(), -val, val).to(torch.float32)
     return terms.sum(dim=(1, 2))
+
+
+# the ragged kernel's grid (csrc/lut_affine.cu::experts_kernel): blocks of
+# EXPERT_ROWS expert-sorted rows (ops.py::experts_tiling), two halves of warps
+# taking alternate halves of each staged pass of chunks, the pass as many
+# chunks as 24 KiB of references hold (8 bytes each, at most 512)
+EXPERT_ROWS = 4
+_META_BYTES = 24 * 1024
+
+
+def experts_kernel_ref(
+    codes: torch.Tensor,  # (T, n, k) int32, rows sorted by expert
+    tables: torch.Tensor,  # (E, G, k, En, p)
+    plane_exps,  # n ints, as in lut_affine_kernel_ref
+    plane_neg: int,
+    group_sizes: torch.Tensor,  # (E,) rows per expert
+    shift_bits: int = 0,
+    splits: int = 1,
+) -> torch.Tensor:
+    """(G, T, p) fp32 by the ragged kernel's grid and arithmetic, for small
+    test shapes: blocks of ``EXPERT_ROWS`` consecutive rows whose experts may
+    differ, each row's expert the count of experts whose rows end at or
+    before it, rows with no expert (at or past ``sum(group_sizes)``) 0.  In
+    each of ``splits`` k ranges the two halves of every staged pass of
+    chunks are summed apart, one exact term a reference in chunk-then-plane
+    order, then added; the ranges' partials are added in split order.  Those
+    are the kernel's fp32 sums, in the kernel's order."""
+    T, n, k = codes.shape
+    E, G, k2, En, p = tables.shape
+    assert k == k2 and len(plane_exps) == n, (codes.shape, tables.shape, plane_exps)
+    dev = tables.device
+    ends = torch.cumsum(group_sizes.to(torch.int64).to(dev), 0)
+    idx = codes & (En - 1) if shift_bits else codes
+    e = torch.tensor(list(plane_exps), dtype=torch.int64, device=dev)[None, :, None]
+    if shift_bits:
+        e = e + torch.clamp(codes.to(torch.int64) >> shift_bits, min=1) - 25
+    else:
+        e = e.expand(T, n, k)
+    sign = torch.tensor([(plane_neg >> j) & 1 for j in range(n)], device=dev)[None, :, None]
+    fast = magic_path(tables.dtype, *exponent_bounds(plane_exps, shift_bits))
+    kt_max = min(512, _META_BYTES // (EXPERT_ROWS * n * 8))
+    out = torch.zeros((G, T, p), dtype=torch.float32, device=dev)
+    for b0 in range(0, T, EXPERT_ROWS):
+        rows = torch.arange(b0, min(T, b0 + EXPERT_ROWS), device=dev)
+        expert = (ends[None, :] <= rows[:, None]).sum(-1)
+        rows, expert = rows[expert < E], expert[expert < E]
+        if not rows.numel():
+            continue
+        ar = torch.arange(k, device=dev)
+        for g in range(G):
+            ent = tables[expert[:, None, None], g, ar, idx[rows]]  # (r, n, k, p)
+            if fast:
+                terms = magic_terms(ent, e[rows][..., None], sign[..., None], tables.dtype)
+            else:  # converted, shifted exactly (fp64, one exact rounding), signed
+                val = ent.to(torch.float64) * torch.exp2(e[rows][..., None].to(torch.float64))
+                terms = torch.where(sign[..., None].bool(), -val, val).to(torch.float32)
+            total = None
+            for s in range(splits):
+                k0, k1 = k * s // splits, k * (s + 1) // splits
+                halves = torch.zeros((2, rows.numel(), p), dtype=torch.float32, device=dev)
+                for c0 in range(k0, k1, kt_max):
+                    kt = min(kt_max, k1 - c0)
+                    for h in range(2):
+                        for c in range(c0 + kt * h // 2, c0 + kt * (h + 1) // 2):
+                            for j in range(n):
+                                halves[h] += terms[:, j, c]
+                partial = halves[0] + halves[1]
+                if splits == 1:
+                    total = partial
+                else:  # sum_splits: 0 + part[0] + part[1] + ...
+                    total = (torch.zeros_like(partial) if total is None else total) + partial
+            out[g, rows] = total
+    return out

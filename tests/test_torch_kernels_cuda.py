@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels.binary_matmul import ops as bmm_ops
 from repro_torch.kernels.bitplane_pack import ops as pack_ops
 from repro_torch.kernels.lut_affine import ops
+from repro_torch.kernels.lut_affine.ref import experts_kernel_ref
 from repro_torch.kernels.lut_tl1 import ops as tl1_ops
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8, "i16": torch.int16}
@@ -288,6 +289,121 @@ def test_experts_kernel_matches_plain_on_card(cuda_device, dtype, shift_bits, ca
     assert tuple(got.shape) == (G, T, p)
     _close(got, want)
     assert not got[:, sum(sizes):].any()
+
+
+def _experts_splits(G, T, k, t):
+    """The ragged launch's k ranges for tables ``t`` (ops.experts_tiling on
+    the row pitch the kernel reads)."""
+    vec = 16 // t.element_size()
+    row_bytes = -(-t.shape[-1] // vec) * vec * t.element_size()
+    return ops.experts_tiling(G, T, k, row_bytes, torch.cuda.get_device_properties(0)
+                              .multi_processor_count).splits
+
+
+# group sizes whose 4-row blocks hold rows of two to four experts (the
+# first block: experts 0, 1, 1, 2; then blocks of four, three and two)
+SPANNING = [(1, 2, 1, 1, 1, 1, 3, 2, 0, 2), (2, 2, 1, 1, 1, 1, 4, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shift_bits", [0, 5])
+@pytest.mark.parametrize("sizes", SPANNING, ids=["with_tail", "no_tail"])
+def test_experts_blocks_span_experts_on_card(cuda_device, dtype, shift_bits, sizes):
+    """Blocks whose rows belong to different experts: within 1e-5 x
+    max|plain|, and bit for bit the CPU mirror of the kernel's grid and sum
+    order (``experts_kernel_ref``), tail rows 0."""
+    E, G, T, n, k, En, p = len(sizes), 2, 16, 3, 45, 32, 100
+    codes, tables, scales = _case(21 + E, T, n, k, En, p, E * G, dtype, shift_bits)
+    tables = tables.reshape(E, G, k, En, p)
+    c, t = torch.from_numpy(codes).to(cuda_device), tables.to(cuda_device)
+    gs = torch.tensor(sizes, dtype=torch.int64)
+    got = ops.lut_affine_experts(c, t, scales, gs.to(cuda_device), shift_bits=shift_bits)
+    want = ops.lut_affine_experts(c, t, scales, gs.to(cuda_device), shift_bits=shift_bits,
+                                  use_kernels=False)
+    _close(got, want)
+    assert not got[:, sum(sizes):].any()
+    exps, neg = ops.plane_shifts(scales)
+    mirror = experts_kernel_ref(torch.from_numpy(codes), tables, exps, neg, gs, shift_bits,
+                                _experts_splits(G, T, k, tables))
+    assert torch.equal(got.cpu(), mirror)
+
+
+def _routed_sizes(rng, E, rows, live):
+    """Rows per expert of ``live`` top-4 routed rows (4 distinct experts a
+    token) over ``E`` experts, padded with a zero tail to ``rows``."""
+    ex = np.concatenate([rng.choice(E, 4, replace=False) for _ in range(live // 4)])
+    sizes = np.bincount(ex, minlength=E)
+    assert sizes.sum() == live <= rows
+    return tuple(int(v) for v in sizes)
+
+
+def _full_width_case(device, seed, G, T, k, p, sizes):
+    """qwen2_moe_a2_7b's 60 experts at full width (i8, radix-4 bitplane
+    codes with shift bits 5, 32 entries), made on the card from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    E, n, En = len(sizes), 3, 32
+    idx = torch.randint(0, En, (T, n, k), generator=gen, device=device, dtype=torch.int32)
+    exp = torch.randint(0, 31, (T, 1, k), generator=gen, device=device, dtype=torch.int32)
+    tables = torch.randint(-127, 128, (E, G, k, En, p), generator=gen, device=device,
+                           dtype=torch.int8)
+    scales = np.array([2.0**-6, 2.0**-4, -(2.0**-2)], np.float32) * np.float32(2.0**-6)
+    gs = torch.tensor(sizes, dtype=torch.int64, device=device)
+    return idx + (exp << 5), tables, scales, gs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,k,p", [(2, 2048, 1408), (1, 1408, 2048)], ids=["gate_up", "down"])
+def test_experts_full_width_decode_splits_are_deterministic_on_card(cuda_device, G, k, p):
+    """16 routed rows on 60 experts, k cut into ranges (11 for w_gate+w_up,
+    16 for w_down on 132 SMs); the w_gate+w_up stack is 11 GB, so expert
+    bases pass 2**31 bytes.  Four launches give the same bits."""
+    sizes = _routed_sizes(np.random.default_rng(G), 60, 16, 16)
+    c, t, scales, gs = _full_width_case(cuda_device, G, G, 16, k, p, sizes)
+    assert _experts_splits(G, 16, k, t) > 1
+    first = ops.lut_affine_experts(c, t, scales, gs, shift_bits=5)
+    for _ in range(3):
+        assert torch.equal(ops.lut_affine_experts(c, t, scales, gs, shift_bits=5), first)
+    _close(first, ops.lut_affine_experts(c, t, scales, gs, shift_bits=5, use_kernels=False))
+
+
+@pytest.mark.cuda
+def test_experts_prefill_shape_on_card(cuda_device):
+    """512 rows (125 routed tokens and a 12-row zero tail) on 60 experts at
+    w_down's full width: one k range."""
+    sizes = _routed_sizes(np.random.default_rng(5), 60, 512, 500)
+    c, t, scales, gs = _full_width_case(cuda_device, 5, 1, 512, 1408, 2048, sizes)
+    assert _experts_splits(1, 512, 1408, t) == 1
+    got = ops.lut_affine_experts(c, t, scales, gs, shift_bits=5)
+    _close(got, ops.lut_affine_experts(c, t, scales, gs, shift_bits=5, use_kernels=False))
+    assert not got[:, 500:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,offset", [("i8", 67, 0), ("f32", 130, 0), ("i8", 64, 3),
+                                            ("i16", 96, 1)])
+def test_experts_take_tables_the_kernel_cannot_read_directly_on_card(cuda_device, dtype, p,
+                                                                     offset):
+    """A row pitch that is not a multiple of 16 bytes, or a base off 16
+    bytes: the wrapper copies such tables (``table_operand``) first."""
+    sizes = (3, 0, 5, 2)
+    E, G, T, n, k, En = len(sizes), 2, 12, 3, 30, 32
+    codes, tables, scales = _case(31 + p, T, n, k, En, p, E * G, dtype, 5)
+    tables = tables.reshape(E, G, k, En, p)
+    flat = torch.zeros(offset + tables.numel(), dtype=tables.dtype, device=cuda_device)
+    flat[offset:] = tables.reshape(-1).to(cuda_device)
+    t = flat[offset:].reshape(tables.shape)
+    assert t.data_ptr() % 16 != 0 or p * t.element_size() % 16 != 0
+    c = torch.from_numpy(codes).to(cuda_device)
+    gs = torch.tensor(sizes, dtype=torch.int64)
+    got = ops.lut_affine_experts(c, t, scales, gs.to(cuda_device), shift_bits=5)
+    _close(got, ops.lut_affine_experts(c, t, scales, gs.to(cuda_device), shift_bits=5,
+                                       use_kernels=False))
+    assert not got[:, sum(sizes):].any()
+    exps, neg = ops.plane_shifts(scales)
+    mirror = experts_kernel_ref(torch.from_numpy(codes), tables, exps, neg, gs, 5,
+                                _experts_splits(G, T, k, tables))
+    assert torch.equal(got.cpu(), mirror)
 
 
 # (B, q, m, bits, frac, signed): the binary path's 8/6 signed m = 1 at a
