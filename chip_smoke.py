@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
-    python3 chip_smoke.py [--phases device,kernel,serve,tl1_kernel,tl1_serve,
-                                    moe_kernel,moe_serve,bmm_kernel,bmm_serve]
+    python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,tl1_kernel,
+                                    tl1_serve,moe_kernel,moe_serve,bmm_kernel,
+                                    bmm_serve]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -10,6 +11,17 @@ Phases, one JSON object per line:
 1. ``device``  the card, torch/CUDA versions, and the build of every
    kernel from ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per
    source, all started together).
+1b. ``pack_kernel``  the packing kernel (``bitplane_pack``) against its
+   plain version, bit for bit, in each of its three kinds: ``shift`` at
+   the inputs of the weight cell (granite_8b) and the MoE cell
+   (qwen2_moe_a2_7b), ``fixed`` 8/6 at the binary cell's, ``float16`` (off
+   every served path) at granite_8b's widths; decode and prefill rows, fp32
+   (the paths' dtype) and bf16 input.  Each with the kernel's time, the
+   plain version's and the bound, beside the launch floor (a one-row,
+   4-element pack of the same kind) and the ratio to it; per layer, the
+   sum over the cell's packs.  Then a grid of every kind and radix, both
+   dtypes, ragged ``q``, a base one element off, leading dims, rows past
+   the grid's y limit and fp16 rounding's edge values.
 2. ``kernel``  each weight-family kernel (``lut_affine``) against its
    plain PyTorch version on the card, at the main path's full-width
    granite_8b shapes (decode B = 4 and prefill B = 4 slots x 32 tokens) and
@@ -20,9 +32,13 @@ Phases, one JSON object per line:
    report of the dense kernels.
 3. ``serve``   full-width granite_8b, depth cut to 4 layers, planned
    with the serving recipe, converted to i8 tables and served through
-   ``BatchingEngine`` on the kernels; then the same requests on the plain
-   versions, the prefill logits of both compared and every request's
-   first token held equal.
+   ``BatchingEngine`` on the kernels (every projection's input packed by
+   ``bitplane_pack``: ``plain_pack_codes_calls`` must be 0); then the same
+   requests on the plain versions, whose ``pack_codes`` calls must equal
+   the kernel run's packs, the prefill logits of both compared and every
+   request's first token held equal.  The decode profile counts device
+   kernels per step, beside a second profile with the pack sites on the
+   eager ``pack_codes`` (the packing before the kernel took it).
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -48,7 +64,7 @@ Phases, one JSON object per line:
    memory (2 of 24 layers), planned by the serving recipe with
    ``convert_experts=True``, converted to i8 tables and served through
    ``BatchingEngine`` on the kernels, then on the plain versions: every
-   first token identical, prefill logits held as in ``serve``.
+   first token identical, packs and prefill logits held as in ``serve``.
 8. ``bmm_kernel``  the binary-matmul mode's two kernels against their
    plain versions at full-width granite_8b shapes (decode 4 rows x 8
    planes = 32 folded rows, prefill 128 rows = 1024 folded rows; W in bf16
@@ -73,9 +89,11 @@ copy of the tables so that it reads them from HBM as serving does, held
 behind a spin kernel until the host has enqueued them all.
 
 Every path is driven with the kernels' launch counts set to 0 just before
-it and read just after.  Then one ``kernels`` summary line, the card's
-name and power limit as nvidia-smi prints them, and last ``{"ok": true,
-"device": {...}}``.  Any failure raises: the script exits non-zero
+it and read just after.  Then one ``kernels`` summary line (the row of
+``bitplane_pack`` sums its launches over the three paths that pack,
+``launches_by_path``, and times one binary-cell decode layer's 7 packs),
+the card's name and power limit as nvidia-smi prints them, and last
+``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero
 without that last line.  It exits non-zero at once when no CUDA device is
 present.
 """
@@ -86,6 +104,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -124,6 +143,27 @@ BMM_DEPTHS = (1, 4, 12, 36)
 BMM_LOGITS_TOL = 1e-1  # x max|plain|
 BMM_LOGITS_FRO_TOL = 1e-1
 BMM_FIXED = (8, 6)  # ExecCfg.fixed_bits / fixed_frac: signed 8/6 fixed point
+
+# the pack_kernel phase: per cell, the model, the kind of its packs and
+# its packed inputs: (input, width, rows at decode, rows at prefill, packs
+# per layer); the float16 kind is on no served path
+PACK_SERVED = {
+    "weight": ("granite_8b", dict(kind="shift", m=1, signed=True, radix=4),
+               [("d_model", 4096, 4, 128, 4), ("d_ff", 14336, 4, 128, 1)]),
+    "moe": ("qwen2_moe_a2_7b", dict(kind="shift", m=1, signed=True, radix=4),
+            [("d_model", 2048, 4, 128, 4), ("moe_d_ff", 1408, 16, 512, 1),
+             ("shared_d_ff", 5632, 4, 128, 1)]),
+    "binary": ("granite_8b", dict(kind="fixed", m=1, bits=BMM_FIXED[0], frac=BMM_FIXED[1],
+                                  signed=True),
+               [("d_model", 4096, 4, 128, 6), ("d_ff", 14336, 4, 128, 1)]),
+    "float16": ("granite_8b", dict(kind="float16", m=1),
+                [("d_model", 4096, 4, 128, 1), ("d_ff", 14336, 4, 128, 1)]),
+}
+# fp16 rounding's edges: +-0, subnormals (the smallest, ties to 0 and up),
+# the smallest normal, RNE ties at 1, 65504, the overflow tie, +-inf
+PACK_EDGES = [0.0, -0.0, 2.0**-24, -(2.0**-24), 2.0**-25, 3 * 2.0**-26, 2.0**-26,
+              2.0**-14 - 2.0**-24, 2.0**-14, 1 + 2.0**-11, 1 + 3 * 2.0**-11, 65504.0,
+              65519.996, 65520.0, -65520.0, 1e6, float("inf"), float("-inf"), -3.0, 0.5]
 
 # main-path shapes of full-width granite_8b: name -> (G, k, p)
 LONE = {"wq": (1, 4096, 4096), "wo": (1, 4096, 4096), "w_down": (1, 14336, 4096)}
@@ -566,35 +606,43 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
     prompts = serve_requests(cfg, requests)
     reset_launches()
     reqs, eng, wall, decode_ms = run_engine(lut, cfg, prompts, max_new, True)
-    launches = read_launches()
+    launches, uncovered = read_launches(), plain_pack_codes_calls()
     forwards = eng.readbacks
-    expect = {**no_launches(), "lut_affine": 3 * layers * forwards,
-              "lut_affine_grouped": 2 * layers * forwards}
+    # one pack per lone projection and group: wq, wk+wv, wo, w_gate+w_up, w_down
+    per_forward = {"lut_affine": 3 * layers, "lut_affine_grouped": 2 * layers,
+                   "bitplane_pack": 5 * layers}
+    expect = {**no_launches(), **{k: v * forwards for k, v in per_forward.items()}}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
           "tok_per_s": tokens / wall, "wall_s": wall,
           "median_decode_step_ms": statistics.median(decode_ms),
           "forwards": forwards, "launches": launches, "expected_launches": expect,
-          "per_forward": {"lut_affine": 3 * layers, "lut_affine_grouped": 2 * layers},
+          "per_forward": per_forward, "plain_pack_codes_calls": uncovered,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
-    if launches != expect or forwards <= 0:
-        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if launches != expect or forwards <= 0 or uncovered:
+        raise AssertionError(f"launch counts {launches} != expected {expect}, "
+                             f"or {uncovered} packs off the kernel")
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
 
-    emit({"phase": "serve", "step": "decode_profile",
-          **profile_decode(lut, cfg, prompts[:SLOTS], max_new)})
+    profile_with_eager_pack("serve", lut, cfg, prompts[:SLOTS], max_new)
 
-    plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new, False)
+    with count_plain_packs() as packs:
+        plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
+                                                             False)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
     )
     emit({"phase": "serve", "step": "plain", "tok_per_s": tokens / plain_wall,
           "median_decode_step_ms": statistics.median(plain_decode),
-          "first_tokens_identical": first_ok, "identical_token_share": same / tokens})
+          "first_tokens_identical": first_ok, "identical_token_share": same / tokens,
+          "pack_codes_calls": packs["calls"]})
     if not first_ok:
         raise AssertionError("kernel and plain paths disagree on a first token")
+    if packs["calls"] != launches["bitplane_pack"]:
+        raise AssertionError(f"the plain run packed {packs['calls']} times, the kernel run "
+                             f"{launches['bitplane_pack']}")
 
     # one prefill batch, both paths, fresh caches; first at every depth up to
     # the served one, to show how the paths' difference grows layer by layer
@@ -649,10 +697,77 @@ def _launch_counts() -> tuple:
 
 
 def reset_launches() -> None:
-    """Every kernel's launch count to 0."""
-    for counts in _launch_counts():
+    """Every kernel's launch count, and the count of packs off the kernel,
+    to 0."""
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+
+    for counts in _launch_counts() + (pack_ops.PLAIN_CALLS,):
         for key in counts:
             counts[key] = 0
+
+
+def plain_pack_codes_calls() -> int:
+    """Packs since :func:`reset_launches` of plans the packing kernel does
+    not implement (``pack_codes`` on the card)."""
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+
+    return pack_ops.PLAIN_CALLS["pack_codes"]
+
+
+@contextlib.contextmanager
+def count_plain_packs():
+    """Count, inside a ``with`` block, the packs the plain versions make
+    (``ref.py``'s, and ``pack_codes`` for the plans the kernel does not
+    implement)."""
+    from repro_torch.kernels.bitplane_pack import ops
+
+    n = {"calls": 0}
+    saved = ops.bitplane_pack_ref, ops.pack_codes
+
+    def counted(fn):
+        def call(*args, **kw):
+            n["calls"] += 1
+            return fn(*args, **kw)
+
+        return call
+
+    ops.bitplane_pack_ref, ops.pack_codes = (counted(fn) for fn in saved)
+    try:
+        yield n
+    finally:
+        ops.bitplane_pack_ref, ops.pack_codes = saved
+
+
+@contextlib.contextmanager
+def eager_pack():
+    """The model's pack sites on the eager ``core/lut.py::pack_codes`` (the
+    packing before the kernel took it) inside a ``with`` block."""
+    from repro_torch.core.lut import pack_codes
+    from repro_torch.models import layers, moe
+
+    saved = layers.pack, moe.pack
+
+    def plain(x, plan, use_kernels=True):
+        return pack_codes(x, plan)
+
+    layers.pack = moe.pack = plain
+    try:
+        yield
+    finally:
+        layers.pack, moe.pack = saved
+
+
+def profile_with_eager_pack(phase, lut, cfg, prompts, max_new) -> None:
+    """The decode profile as served, then with the eager packing, and what
+    the kernel's packs removed per step."""
+    served = profile_decode(lut, cfg, prompts, max_new)
+    emit({"phase": phase, "step": "decode_profile", **served})
+    with eager_pack():
+        eager = profile_decode(lut, cfg, prompts, max_new)
+    emit({"phase": phase, "step": "decode_profile_eager_pack", **eager,
+          "device_kernels_removed_per_step": eager["device_kernels_per_step"]
+          - served["device_kernels_per_step"],
+          "busy_ms_saved_per_step": eager["busy_ms_per_step"] - served["busy_ms_per_step"]})
 
 
 def read_launches() -> dict:
@@ -1353,36 +1468,45 @@ def moe_serve_phase(requests: int, max_new: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     reqs, eng, wall, decode_ms = run_engine(lut, cfg, prompts, max_new, True)
-    launches = read_launches()
+    launches, uncovered = read_launches(), plain_pack_codes_calls()
     forwards = eng.readbacks
+    # packs: the attention group, wo, the routed gate+up (once per token)
+    # and w_down, the shared expert's gate+up and w_down, and lm_head
     per_forward = {"lut_affine": 2 * layers + 1, "lut_affine_grouped": 2 * layers,
-                   "lut_affine_experts": 2 * layers}
+                   "lut_affine_experts": 2 * layers, "bitplane_pack": 6 * layers + 1}
     expect = {**no_launches(), **{k: v * forwards for k, v in per_forward.items()}}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "moe_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
           "tok_per_s": tokens / wall, "wall_s": wall,
           "median_decode_step_ms": statistics.median(decode_ms),
           "forwards": forwards, "launches": launches, "expected_launches": expect,
-          "per_forward": per_forward, "table_mib": report.table_bytes / 2**20,
+          "per_forward": per_forward, "plain_pack_codes_calls": uncovered,
+          "table_mib": report.table_bytes / 2**20,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
-    if launches != expect or forwards <= 0:
-        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if launches != expect or forwards <= 0 or uncovered:
+        raise AssertionError(f"launch counts {launches} != expected {expect}, "
+                             f"or {uncovered} packs off the kernel")
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
 
-    emit({"phase": "moe_serve", "step": "decode_profile",
-          **profile_decode(lut, cfg, prompts[:SLOTS], max_new)})
+    profile_with_eager_pack("moe_serve", lut, cfg, prompts[:SLOTS], max_new)
 
-    plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new, False)
+    with count_plain_packs() as packs:
+        plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
+                                                             False)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
     )
     emit({"phase": "moe_serve", "step": "plain", "tok_per_s": tokens / plain_wall,
           "wall_s": plain_wall, "median_decode_step_ms": statistics.median(plain_decode),
-          "first_tokens_identical": first_ok, "identical_token_share": same / tokens})
+          "first_tokens_identical": first_ok, "identical_token_share": same / tokens,
+          "pack_codes_calls": packs["calls"]})
     if not first_ok:
         raise AssertionError("kernel and plain paths disagree on a first token")
+    if packs["calls"] != launches["bitplane_pack"]:
+        raise AssertionError(f"the plain run packed {packs['calls']} times, the kernel run "
+                             f"{launches['bitplane_pack']}")
 
     inputs = prefill_inputs(prompts)
 
@@ -1493,10 +1617,9 @@ def bmm_kernel_phase(iters: int, prefill_rows: int) -> dict:
     bits, frac = BMM_FIXED
     scales = FixedPointFormat(bits, frac, signed=True).plane_scales()
     pack_kw = dict(kind="fixed", m=1, bits=bits, frac=frac, signed=True)
-    worst = {"binary_matmul": 0.0, "bitplane_pack": 0}
-    keys = ("kernel_ms", "plain_ms", "bound_ms")
-    main = {"binary_matmul": {**dict.fromkeys(keys + ("library_ms",), 0.0), "bound_by": set()},
-            "bitplane_pack": {**dict.fromkeys(keys, 0.0), "bound_by": set()}}
+    worst = {"binary_matmul": 0.0}
+    keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms")
+    main = {"binary_matmul": {**dict.fromkeys(keys, 0.0), "bound_by": set()}}
     for rows in (SLOTS, prefill_rows):
         for proj, (q, p, calls) in BMM_SHAPES.items():
             # a normed activation's scale: the 8/6 range [-2, 2) clips its tails
@@ -1545,14 +1668,10 @@ def bmm_kernel_phase(iters: int, prefill_rows: int) -> dict:
                   "splits": bmm_ops.k_splits(rows, bits, q, p,
                                              bmm_ops._sm_count(torch.device(DEV)))})
             if rows == SLOTS:
-                for name, r in (("binary_matmul", {"kernel_ms": ms, "plain_ms": plain_ms,
-                                                   "bound_ms": bms, "library_ms": lib_ms}),
-                                ("bitplane_pack", rp)):
-                    m = main[name]
-                    for key in m:
-                        if key != "bound_by":
-                            m[key] += calls * r[key]
-                    m["bound_by"].add(by if name == "binary_matmul" else rp["bound_by"])
+                m = main["binary_matmul"]
+                for key, v in zip(keys, (ms, plain_ms, bms, lib_ms)):
+                    m[key] += calls * v
+                m["bound_by"].add(by)
             del W, Wb, planes, x
             torch.cuda.empty_cache()
 
@@ -1604,6 +1723,92 @@ def bmm_kernel_phase(iters: int, prefill_rows: int) -> dict:
         emit({"phase": "bmm_kernel", "kernel": "bitplane_pack", "grid": True,
               "x": list(x.shape), **kw, "codes": list(out.shape), "max_abs_err": 0})
     return {"worst": worst, "main": main}
+
+
+# ---------------------------------------------------------------------------
+# packing kernel phase
+# ---------------------------------------------------------------------------
+
+
+def pack_kernel_phase(iters: int) -> dict:
+    import torch
+
+    from repro_torch.kernels.bitplane_pack import ops
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    floor = {}
+    for _, kw, _ in PACK_SERVED.values():
+        x = torch.randn(1, 4, generator=gen, device=DEV)
+        floor[kw["kind"]] = device_ms([functools.partial(ops.bitplane_pack, x, **kw)],
+                                      10 * iters)
+    emit({"phase": "pack_kernel", "step": "launch_floor", "ms": floor,
+          "how": "a one-row, 4-element fp32 pack of each kind (one thread of the "
+                 "4-element path) back to back under device_ms"})
+    layers = {}
+    for cell, (model, kw, inputs) in PACK_SERVED.items():
+        kind = kw["kind"]
+        layer = {**dict.fromkeys(("kernel_ms", "plain_ms", "bound_ms", "prefill_ms",
+                                  "prefill_bound_ms"), 0.0), "bound_by": set()}
+        ratios = []
+        for name, q, decode_rows, prefill_rows, calls in inputs:
+            for regime, rows in (("decode", decode_rows), ("prefill", prefill_rows)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    # a normed activation's scale
+                    x = torch.randn(rows, q, generator=gen, device=DEV).to(dtype)
+                    r, _ = run_pack_case(x, iters, 10 if regime == "decode" else 5, **kw)
+                    ratio = r["kernel_ms"] / floor[kind]
+                    emit({"phase": "pack_kernel", "kernel": "bitplane_pack", "cell": cell,
+                          "model": model, "input": name, "regime": regime, "rows": rows,
+                          "q": q, **kw, "dtype": str(dtype).replace("torch.", ""),
+                          "packs_per_layer": calls,
+                          "vectorized": ops.vectorized(q, kw["m"], x.data_ptr(),
+                                                       x.element_size()),
+                          **r, "launch_floor_ms": floor[kind], "over_launch_floor": ratio})
+                    if dtype != torch.float32:  # the served paths hand in fp32
+                        continue
+                    if regime == "decode":
+                        for key in ("kernel_ms", "plain_ms", "bound_ms"):
+                            layer[key] += calls * r[key]
+                        layer["bound_by"].add(r["bound_by"])
+                        ratios.append(ratio)
+                    else:
+                        layer["prefill_ms"] += calls * r["kernel_ms"]
+                        layer["prefill_bound_ms"] += calls * r["bound_ms"]
+        layers[cell] = layer
+        emit({"phase": "pack_kernel", "step": "layer", "cell": cell, "model": model,
+              **kw, "served": cell != "float16", "calls": sum(c for *_, c in inputs),
+              **{k: v for k, v in layer.items() if k != "bound_by"},
+              "max_decode_over_launch_floor": max(ratios)})
+
+    # grid: every kind and radix, both dtypes; the launch floor's shape,
+    # q % 4 != 0, a base one element off, leading dims, rows past the
+    # grid's y limit; values over fp16's range, its edges first
+    kinds = [dict(kind="fixed", m=1, bits=8, frac=6, signed=True),
+             dict(kind="fixed", m=2, bits=12, frac=3, signed=True),
+             dict(kind="fixed", m=4, bits=3, frac=0, signed=False),
+             dict(kind="float16", m=1), dict(kind="float16", m=3)]
+    kinds += [dict(kind="shift", m=1, signed=sg, radix=r)
+              for r in (1, 2, 3, 4, 5, 11) for sg in (False, True)]
+    shapes = [((1,), 4, 0), ((3,), 37, 0), ((2,), 4096, 1), ((2, 3), 1408, 0),
+              ((1,), 4098, 0), ((70000,), 8, 0)]
+    edges = torch.tensor(PACK_EDGES, device=DEV)
+    for kw in kinds:
+        for dtype in (torch.float32, torch.bfloat16):
+            for lead, q, off in shapes:
+                n = math.prod(lead) * q
+                flat = torch.randn(n + off, generator=gen, device=DEV) * torch.exp2(
+                    torch.randint(-26, 18, (n + off,), generator=gen, device=DEV).float())
+                flat[off: off + len(PACK_EDGES)] = edges[: n]
+                x = flat.to(dtype)[off:].view(*lead, q)
+                got = ops.bitplane_pack(x, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ops.bitplane_pack(x, use_kernels=False, **kw)):
+                    raise AssertionError(f"bitplane_pack {kw} {dtype} x{[*lead, q]}+{off}: "
+                                         "codes differ")
+            emit({"phase": "pack_kernel", "kernel": "bitplane_pack", "grid": True, **kw,
+                  "dtype": str(dtype).replace("torch.", ""),
+                  "shapes": [[*lead, q, off] for lead, q, off in shapes], "max_abs_err": 0})
+    return {"worst": {"bitplane_pack": 0}, "layers": layers}
 
 
 # ---------------------------------------------------------------------------
@@ -1805,10 +2010,14 @@ def profile_decode(lut, cfg, prompts, max_new, steps=4, **ex):
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    packs = [e for e in kernels if "pack_kernel" in e.key]
     return {
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "busy_ms_per_step": busy / steps,
         "idle_share": 1.0 - busy / wall_ms if busy > 0 else None,
+        "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+        "pack_kernels_per_step": sum(e.count for e in packs) / steps,
+        "pack_ms_per_step": sum(e.self_device_time_total for e in packs) / 1e3 / steps,
         "top_kernels_ms_per_step": {
             e.key[:60]: e.self_device_time_total / 1e3 / steps for e in top
         },
@@ -1851,8 +2060,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases",
-        default="device,kernel,serve,tl1_kernel,tl1_serve,moe_kernel,moe_serve,"
-                "bmm_kernel,bmm_serve",
+        default="device,pack_kernel,kernel,serve,tl1_kernel,tl1_serve,moe_kernel,"
+                "moe_serve,bmm_kernel,bmm_serve",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -1887,6 +2096,7 @@ def main(argv=None) -> int:
           "build_seconds": build.BUILD_SECONDS, "libraries": {k: str(v) for k, v in built.items()},
           "ptxas": ptxas, "dynamic_smem_bytes": dynamic_smem,
           "lut_affine_sass_loops": sass_loops(built["lut_affine"])})
+    pkern = pack_kernel_phase(args.iters) if "pack_kernel" in phases else None
     kern = kernel_phase(args.iters, 4 * 32) if "kernel" in phases else None
     srv = serve_phase(LAYERS, REQUESTS, MAX_NEW) if "serve" in phases else None
     torch.cuda.empty_cache()
@@ -1902,7 +2112,7 @@ def main(argv=None) -> int:
     for k, s, names in ((kern, srv, ("lut_affine", "lut_affine_grouped")),
                         (tkern, tsrv, ("lut_tl1", "lut_tl1_grouped")),
                         (mkern, msrv, ("lut_affine_experts",)),
-                        (bkern, bsrv, ("binary_matmul", "bitplane_pack"))):
+                        (bkern, bsrv, ("binary_matmul",))):
         if k is None or s is None:
             continue
         for name in names:
@@ -1917,6 +2127,22 @@ def main(argv=None) -> int:
                 **({"prefill_ms": m["prefill_ms"], "prefill_bound_ms": m["prefill_bound_ms"]}
                    if "prefill_ms" in m else {}),
             })
+    # the packing kernel runs on three paths; its times are one binary-cell
+    # decode layer's 7 packs (layer_ms: each cell's layer)
+    paths = {name: s for name, s in (("serve", srv), ("moe_serve", msrv), ("bmm_serve", bsrv))
+             if s is not None}
+    if pkern is not None and paths:
+        m = pkern["layers"]["binary"]
+        by_path = {name: s["launches"]["bitplane_pack"] for name, s in paths.items()}
+        rows.append({
+            "name": "bitplane_pack", "route": "cuda", "source": SOURCES["bitplane_pack"],
+            "replaces": REPLACES["bitplane_pack"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": pkern["worst"]["bitplane_pack"],
+            "ms": m["kernel_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": "/".join(sorted(m["bound_by"])), "library_ms": None,
+            "prefill_ms": m["prefill_ms"], "prefill_bound_ms": m["prefill_bound_ms"],
+            "layer_ms": {cell: c["kernel_ms"] for cell, c in pkern["layers"].items()},
+        })
     if rows:
         emit({"kernels": rows})
     print(smi, flush=True)

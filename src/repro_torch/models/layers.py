@@ -6,9 +6,11 @@ Every projection goes through :func:`linear` (or :func:`fused_linears` for
 sibling projections over one input).  Converted trees carry
 ``core.convert`` :class:`LUTLinear` / pre-stacked :class:`LUTGroup`
 nodes, which run on the Hopper kernels by their plan's table family:
-weight-side tables through ``kernels.lut_affine.ops``, TL1 activation-side
-tables through ``kernels.lut_tl1.ops`` (``ExecCfg.use_kernels``; on CPU
-tensors the wrappers run the plain versions).  Under
+weight-side tables through ``kernels.lut_affine.ops``, their input packed
+into the plan's LUT codes by ``kernels.bitplane_pack.ops.pack`` (one
+launch per pack); TL1 activation-side tables through
+``kernels.lut_tl1.ops`` (``ExecCfg.use_kernels``; on CPU tensors the
+wrappers run the plain versions).  Under
 ``ExecCfg(linear_mode="binary_matmul")`` the unconverted projections run
 the beyond-paper bitplane path against their original weights: the input
 is packed into 8/6 fixed-point bitplanes (``kernels.bitplane_pack``) and
@@ -26,11 +28,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.convert import LUTGroup, LUTLinear
-from repro_torch.core.lut import LUTPlan, pack_codes, plane_scales
+from repro_torch.core.lut import LUTPlan, plane_scales
 from repro_torch.core.lut_tl1 import TL1Plan, quantize_acts
 from repro_torch.core.quantize import FixedPointFormat
 from repro_torch.kernels.binary_matmul.ops import binary_matmul
-from repro_torch.kernels.bitplane_pack.ops import bitplane_pack
+from repro_torch.kernels.bitplane_pack.ops import bitplane_pack, pack
 from repro_torch.kernels.lut_affine.ops import lut_affine, lut_affine_grouped
 from repro_torch.kernels.lut_tl1.ops import lut_tl1, lut_tl1_grouped
 from repro_torch.models.params import PSpec
@@ -185,7 +187,7 @@ def _lut_apply(
     """One converted projection under the plan stored at conversion time."""
     assert x.shape[-1] == plan.in_features, (x.shape, plan)
     if codes is None:
-        codes = pack_codes(x, plan)
+        codes = pack(x, plan, use_kernels=ctx.ex.use_kernels)
     if scales is None:
         scales = _host_scales(plan, scale)
     y = lut_affine(
@@ -305,7 +307,7 @@ def _group_apply(
     runs the per-projection path on its ``tables[g]`` view."""
     plan = node.plan
     if codes is None:
-        codes = pack_codes(x, plan)
+        codes = pack(x, plan, use_kernels=ctx.ex.use_kernels)
     scales = _host_scales(plan, node.scale)
     outs: dict[str, torch.Tensor] = {}
     if len(wanted) == len(node.members) and ctx.ex.lut_grouped:
@@ -359,7 +361,7 @@ def fused_linears(
                 continue
             key = ("weight", p.in_features, p.chunk_size, p.mode, p.fmt)
             if key not in packed:
-                packed[key] = pack_codes(x, p)
+                packed[key] = pack(x, p, use_kernels=ctx.ex.use_kernels)
             outs.update(_group_apply(node, wanted, x, ctx, codes=packed[key]))
     for name in names:
         if name not in outs:

@@ -33,13 +33,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.convert import LUTGroup, LUTLinear
-from repro_torch.core.lut import LUTPlan, pack_codes, plane_scales
+from repro_torch.core.lut import LUTPlan, plane_scales
 from repro_torch.core.lut_tl1 import (
     TL1Plan,
     build_act_lut,
     quantize_acts,
     unpack_indices,
 )
+from repro_torch.kernels.bitplane_pack.ops import pack
 from repro_torch.kernels.common import check_acc_contract
 from repro_torch.kernels.lut_affine.ops import lut_affine_experts
 from repro_torch.models.layers import Ctx, ExecCfg, mlp, mlp_specs
@@ -190,9 +191,10 @@ def _moe_local(x: torch.Tensor, experts: dict, cfg: ModelConfig, ex: ExecCfg):
     def sorted_codes(plan: LUTPlan, src: torch.Tensor, gather: bool) -> torch.Tensor:
         if gather:  # src is (T, d): pack per token, gather to (T*k, n, kc)
             if plan not in pack_cache:
-                pack_cache[plan] = pack_codes(src, plan)
+                pack_cache[plan] = pack(src, plan, use_kernels=ex.use_kernels)
             return pack_cache[plan][token_of]
-        return pack_codes(src, plan)  # src already expert-sorted (h)
+        # src already expert-sorted (h)
+        return pack(src, plan, use_kernels=ex.use_kernels)
 
     def sorted_tl1(plan: TL1Plan, src: torch.Tensor, gather: bool):
         if gather:

@@ -615,3 +615,141 @@ def test_tl1_folded_lut_edges_on_card(cuda_device, act_bits, kb, G, p, with_plan
     exact = act_bits is not None
     _tl1_same(got, want, exact)
     _tl1_same(one, want[G - 1], exact)
+
+
+# ---------------------------------------------------------------------------
+# bitplane_pack, redesigned: every kind, fp32 and bf16 input
+# ---------------------------------------------------------------------------
+
+PACK_KINDS = {
+    "fixed-8-6-signed": dict(kind="fixed", m=1, bits=8, frac=6, signed=True),
+    "fixed-12-3-signed-c2": dict(kind="fixed", m=2, bits=12, frac=3, signed=True),
+    "fixed-5-1-c1": dict(kind="fixed", m=1, bits=5, frac=1, signed=False),
+    "float16": dict(kind="float16", m=1),
+    "float16-c3": dict(kind="float16", m=3),
+    "shift-r4-signed": dict(kind="shift", m=1, signed=True, radix=4),
+    "shift-r1": dict(kind="shift", m=1, radix=1),
+    "shift-r11-signed": dict(kind="shift", m=1, signed=True, radix=11),
+}
+PACK_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# (lead, q, offset): the one-row launch floor, q % 4 != 0, a base one
+# element off, leading dims, granite_8b's decode (4 x 4096) and prefill
+# (128 x 14336) rows, the MoE widths (2048, 1408 at 16 expert rows, 5632)
+PACK_SHAPES = [
+    ((1,), 4, 0),
+    ((3,), 37, 0),
+    ((2,), 4096, 1),
+    ((1,), 4098, 0),
+    ((2, 3), 1408, 0),
+    ((4,), 4096, 0),
+    ((128,), 14336, 0),
+    ((4,), 2048, 0),
+    ((16,), 1408, 0),
+    ((4,), 5632, 0),
+]
+# fp16 rounding's edges: +-0, subnormals (the smallest, ties to 0 and up),
+# the smallest normal, RNE ties at 1, 65504, the overflow tie, +-inf
+PACK_EDGES = [0.0, -0.0, 2.0**-24, -(2.0**-24), 2.0**-25, 3 * 2.0**-26, 2.0**-26,
+              2.0**-14 - 2.0**-24, 2.0**-14, 1 + 2.0**-11, 1 + 3 * 2.0**-11, 65504.0,
+              65519.996, 65520.0, -65520.0, 1e6, float("inf"), float("-inf"), -3.0, 0.5]
+
+
+def _pack_input(device, lead, q, offset, dtype, seed):
+    """Seeded values over many magnitudes (fp16 subnormals to overflow,
+    both signs, fixed-point ties and saturation), the edges first, as a
+    contiguous tensor whose base sits ``offset`` elements into a buffer."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(lead)) * q
+    x = rng.standard_normal(n) * 2.0 ** rng.integers(-26, 18, n)
+    x[::3] = rng.uniform(-3.0, 3.0, x[::3].shape)
+    x[: min(n, len(PACK_EDGES))] = PACK_EDGES[: min(n, len(PACK_EDGES))]
+    flat = torch.from_numpy(np.concatenate([np.zeros(offset), x]).astype(np.float32))
+    flat = flat.to(PACK_DTYPES[dtype]).to(device)
+    return flat[offset:].view(*lead, q)
+
+
+def _pack_once(xs, kw):
+    """One kernel call, counted once, against the plain version on the card."""
+    before = pack_ops.LAUNCHES["bitplane_pack"]
+    got = pack_ops.bitplane_pack(xs, **kw)
+    torch.cuda.synchronize()
+    assert pack_ops.LAUNCHES["bitplane_pack"] == before + 1
+    want = pack_ops.bitplane_pack(xs, use_kernels=False, **kw)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert got.shape[:-2] == xs.shape[:-1]
+    assert torch.equal(got, want)  # bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,q,offset", PACK_SHAPES)
+@pytest.mark.parametrize("dtype", list(PACK_DTYPES))
+@pytest.mark.parametrize("kind", list(PACK_KINDS))
+def test_pack_every_kind_and_dtype_matches_plain_on_card(cuda_device, kind, dtype, lead, q,
+                                                         offset):
+    xs = _pack_input(cuda_device, lead, q, offset, dtype, q + offset)
+    _pack_once(xs, PACK_KINDS[kind])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(PACK_DTYPES))
+@pytest.mark.parametrize("kind", ["fixed-8-6-signed", "float16", "shift-r4-signed",
+                                  "shift-r11-signed"])
+def test_pack_rows_past_the_grid_limit_on_card(cuda_device, kind, dtype):
+    # 70000 rows: more than gridDim.y holds, so blocks loop over rows
+    _pack_once(_pack_input(cuda_device, (70000,), 8, 0, dtype, 7), PACK_KINDS[kind])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(PACK_DTYPES))
+@pytest.mark.parametrize("kind", ["float16", "shift-r4-signed", "shift-r1", "shift-r11-signed"])
+def test_pack_fp16_edges_on_card(cuda_device, kind, dtype):
+    x = torch.tensor([PACK_EDGES * 2], dtype=torch.float32)  # q = 40: the 4-element path
+    xs = x.to(PACK_DTYPES[dtype]).to(cuda_device)
+    _pack_once(xs, PACK_KINDS[kind])
+    _pack_once(xs[:, 1:], PACK_KINDS[kind])  # q = 39 from a base one element off
+
+
+@pytest.mark.cuda
+def test_pack_covered_plans_never_run_the_plain_version_on_card(cuda_device, monkeypatch):
+    from repro_torch.core.lut import LUTPlan
+    from repro_torch.core.quantize import FixedPointFormat, Float16Format
+
+    def refuse(*a, **k):
+        raise AssertionError("a covered plan ran the plain version")
+
+    monkeypatch.setattr(pack_ops, "bitplane_pack_ref", refuse)
+    monkeypatch.setattr(pack_ops, "pack_codes", refuse)
+    x = _pack_input(cuda_device, (4,), 4096, 0, "f32", 3)
+    plans = [
+        LUTPlan(4096, 8, 1, Float16Format(True, 4), mode="bitplane_shift", table_format="i8"),
+        LUTPlan(4096, 8, 1, FixedPointFormat(8, 6, True)),
+        LUTPlan(4096, 8, 2, Float16Format()),
+    ]
+    for plan in plans:
+        before = pack_ops.LAUNCHES["bitplane_pack"]
+        codes = pack_ops.pack(x, plan)
+        assert pack_ops.LAUNCHES["bitplane_pack"] == before + 1
+        assert codes.shape == (4, plan.num_planes, plan.num_chunks) and codes.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kw",
+    [
+        # the 4-element path asked for on a base one element off
+        dict(kind="shift", m=1, bits=16, frac=0, signed=True, radix=4, vec=True, off=1),
+        dict(kind="shift", m=1, bits=16, frac=0, signed=True, radix=12, vec=False, off=0),
+        dict(kind="fixed", m=1, bits=25, frac=0, signed=True, radix=1, vec=False, off=0),
+        dict(kind="float16", m=5, bits=16, frac=0, signed=False, radix=1, vec=False, off=0),
+    ],
+    ids=["unaligned_vec", "radix_12", "bits_25", "fp16_chunk_5"],
+)
+def test_pack_invalid_argument_raises_from_the_c_entry(cuda_device, kw):
+    kw = dict(kw)
+    off = kw.pop("off")
+    x2 = torch.zeros(4 * 16 + off, device=cuda_device)[off:].view(4, 16)
+    out = torch.empty((4, 25, 16), dtype=torch.int32, device=cuda_device)
+    before = pack_ops.LAUNCHES["bitplane_pack"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pack_ops.launch(x2, out, **kw)
+    assert pack_ops.LAUNCHES["bitplane_pack"] == before
