@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,tl1_kernel,
                                     tl1_serve,moe_kernel,moe_serve,bmm_kernel,
-                                    bmm_serve]
+                                    bmm_serve,paper]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -82,6 +82,27 @@ Phases, one JSON object per line:
    on the kernels (7 packs and 7 binary matmuls per layer and forward, no
    LUT kernel), then on the plain versions: every first token identical,
    prefill logits compared at several depths and held to BMM_LOGITS_TOL.
+10. ``paper``  the paper's own networks at their published widths (the
+   linear classifier, the 784-1024-512-10 MLP, LeNet by im2col), each
+   trained on the card with the reference's recipe
+   (``repro_torch.examples.tablenet_mnist.train``: 300 SGD steps of 128
+   images at lr 0.3; LeNet, unstable there, also at lr 0.1, which is the
+   one converted), its dense accuracy over 1500 held-out images and at input bits
+   1..8; converted to unsigned fp16 bitplane tables (chunk 1 for all
+   three, chunk 2 for the classifier and the MLP) and run over the same
+   images on the kernels (one ``bitplane_pack`` and one ``lut_affine``
+   launch per converted layer and forward, ``plain_pack_codes_calls`` 0)
+   and on the plain versions: every layer within 1e-5 x max|plain| of its
+   plain version on the same input, at least 499 of 500 argmaxes equal per
+   batch, accuracies beside the dense model's on fp16-rounded inputs,
+   table bytes, peak memory, the table copies of the 10-column heads (and
+   the head's time with and without a pre-padded operand), and device ms
+   and images/s at B = 500 of the kernel path, the plain path and the
+   dense fp32 forward.  Then the classifier at the Fig. 5 fixed 3/3 plan,
+   chunks 1 / 2 / 7 / 14, whose accuracy on 3-bit inputs must equal the
+   dense model's on the same inputs within one image; then the TL1 rows of
+   ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
+   plain version.
 
 Kernel and library times are device times (:func:`device_ms`): many
 calls back to back between one pair of CUDA events, each call on its own
@@ -90,8 +111,10 @@ behind a spin kernel until the host has enqueued them all.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  Then one ``kernels`` summary line (the row of
-``bitplane_pack`` sums its launches over the three paths that pack,
-``launches_by_path``, and times one binary-cell decode layer's 7 packs),
+``bitplane_pack`` sums its launches over the four paths that pack,
+``launches_by_path``, and times one binary-cell decode layer's 7 packs;
+``lut_affine`` and ``lut_tl1`` add the paper networks' launches to their
+serve phase's),
 the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero
 without that last line.  It exits non-zero at once when no CUDA device is
@@ -147,6 +170,22 @@ BMM_FIXED = (8, 6)  # ExecCfg.fixed_bits / fixed_frac: signed 8/6 fixed point
 # the pack_kernel phase: per cell, the model, the kind of its packs and
 # its packed inputs: (input, width, rows at decode, rows at prefill, packs
 # per layer); the float16 kind is on no served path
+# the paper phase: each network's chunks (unsigned fp16 bitplane tables;
+# LeNet's fc1 alone would take 26 GB of tables at chunk 2), the held-out
+# batches of tablenet_mnist.accuracy, the least argmax agreement of the
+# kernel path with the plain one per batch, the Fig. 5 plan's input bits
+# and chunks, the TL1 rows' activation widths
+PAPER_CHUNKS = {"linear": (1, 2), "mlp": (1, 2), "lenet": (1,)}
+# each network's learning rates, the recipe's first; the last one's weights
+# are converted.  LeNet's 0.3 is at the edge of stability: on the same seeds
+# it collapsed to chance in the JAX package (CPU) and in the port on the
+# card, and reached 0.82 in the port on the CPU; at 0.1 it trains in all three
+PAPER_LR = {"linear": (0.3,), "mlp": (0.3,), "lenet": (0.3, 0.1)}
+PAPER_BATCHES, PAPER_ROWS = 3, 500
+PAPER_AGREE = 499
+TL1_BATCHES = 4  # accuracy_vs_bits' 2000 held-out images, batches of 500
+FIG5_BITS, FIG5_CHUNKS = 3, (1, 2, 7, 14)
+TL1_ACT_BITS = (None, 8, 4, 2)
 PACK_SERVED = {
     "weight": ("granite_8b", dict(kind="shift", m=1, signed=True, radix=4),
                [("d_model", 4096, 4, 128, 4), ("d_ff", 14336, 4, 128, 1)]),
@@ -697,11 +736,12 @@ def _launch_counts() -> tuple:
 
 
 def reset_launches() -> None:
-    """Every kernel's launch count, and the count of packs off the kernel,
-    to 0."""
+    """Every kernel's launch count, the count of packs off the kernel and
+    the count of table copies before a launch, to 0."""
     from repro_torch.kernels.bitplane_pack import ops as pack_ops
+    from repro_torch.kernels.lut_affine import ops
 
-    for counts in _launch_counts() + (pack_ops.PLAIN_CALLS,):
+    for counts in _launch_counts() + (pack_ops.PLAIN_CALLS, ops.TABLE_COPIES):
         for key in counts:
             counts[key] = 0
 
@@ -2056,12 +2096,326 @@ def plain_gather_bytes(nbytes: int):
             setattr(ops, name, fn)
 
 
+# ---------------------------------------------------------------------------
+# paper phase: the paper's own networks, trained, converted and evaluated
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def paper_layer_spy(fn):
+    """Inside a ``with`` block, every ``linear`` call of the paper models
+    (``models/paper_models.py`` imports it by name) also calls ``fn(p, x,
+    y)`` with its parameters, input and output."""
+    from repro_torch.models import paper_models
+
+    saved = paper_models.linear
+
+    def spy(p, x, ctx):
+        y = saved(p, x, ctx)
+        fn(p, x, y)
+        return y
+
+    paper_models.linear = spy
+    try:
+        yield
+    finally:
+        paper_models.linear = saved
+
+
+def head_copy_ms(node, x, iters: int) -> dict:
+    """One converted head's ``lut_affine`` call on its B = 500 input, as
+    served (10 fp32 columns, 40-byte rows: ``table_operand`` copies the
+    tables into 48-byte rows first) and on tables padded once to 12
+    columns (no copy); with the served call's bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bitplane_pack.ops import pack
+    from repro_torch.kernels.lut_affine import ops
+    from repro_torch.models.layers import _host_scales
+
+    codes = pack(x, node.plan)
+    scales = _host_scales(node.plan, node.scale)
+    p = node.tables.shape[-1]
+    served = copies_of(node.tables)
+    padded = [F.pad(t, (0, -p % (ops.ROW_ALIGN // t.element_size()))) for t in served]
+    before = ops.TABLE_COPIES["table_operand"]
+    got = ops.lut_affine(codes, padded[0], scales)[:, :p]
+    if ops.TABLE_COPIES["table_operand"] != before:
+        raise AssertionError("a pre-padded table was copied")
+    ops.lut_affine(codes, served[0], scales)
+    copies = ops.TABLE_COPIES["table_operand"] - before
+    want = ops.lut_affine(codes, node.tables, scales, use_kernels=False)
+    err = (got - want).abs().max().item()
+    if err > KERNEL_TOL * want.abs().max().item():
+        raise AssertionError(f"the pre-padded head is {err} off its plain version")
+    with_copy = device_ms([functools.partial(ops.lut_affine, codes, t, scales)
+                           for t in served], iters)
+    pre_padded = device_ms([functools.partial(ops.lut_affine, codes, t, scales)
+                            for t in padded], iters)
+    b_ms, b_by = bound(codes, 1, node.tables.shape[-2], p, node.tables.element_size(), 0)
+    return {"copies_per_call": copies, "ms_with_copy": with_copy,
+            "ms_pre_padded": pre_padded, "copy_ms": with_copy - pre_padded,
+            "table_bytes": node.tables.numel() * node.tables.element_size(),
+            "bound_ms": b_ms, "bound_by": b_by, "codes_shape": list(codes.shape),
+            "max_abs_err_pre_padded": err}
+
+
+def paper_layer_ms(node, x, ctx, iters: int) -> dict:
+    """Where a converted forward's time goes: one layer's ``linear`` call
+    (its pack, any table copy and its ``lut_affine``) and its pack alone,
+    on the layer's own input in the forward, with the regime the wrapper
+    picks and the bound of the ``lut_affine`` call (its tables are read in
+    place, so a small layer's may sit in L2 between calls)."""
+    from repro_torch.kernels.bitplane_pack.ops import pack
+    from repro_torch.models.layers import linear
+
+    codes = pack(x, node.plan)
+    t = node.tables
+    b_ms, b_by = bound(codes, 1, t.shape[-2], t.shape[-1], t.element_size(), 0)
+    return {"rows": x.shape[0], "q": x.shape[1], "p": t.shape[-1],
+            "n": node.plan.num_planes, "k": node.plan.num_chunks, "E": t.shape[-2],
+            "regime": lut_tiling("lut_affine", codes, t[None]).regime,
+            "ms": device_ms([functools.partial(linear, node, x, ctx)], iters),
+            "pack_ms": device_ms([functools.partial(pack, x, node.plan)], iters),
+            "lut_affine_bound_ms": b_ms, "bound_by": b_by}
+
+
+def paper_batches(bits=None):
+    """The held-out images of ``examples/tablenet_mnist.py::accuracy`` (3
+    batches of 500 from step 50,000) on the card, on the ``bits`` grid
+    when given."""
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.models.paper_models import quantize_inputs
+
+    out = []
+    for s in range(PAPER_BATCHES):
+        x, y = image_batch(PAPER_ROWS, 50_000 + s, device=DEV)
+        out.append((quantize_inputs(x, bits), y))
+    return out
+
+
+def run_converted(tag: dict, lut, report, params, forward, batches, iters: int,
+                  dense_inputs) -> dict:
+    """A converted paper network over ``batches``: one counted pass on the
+    kernels (per forward one ``bitplane_pack`` and one ``lut_affine`` launch
+    per converted layer, no pack off the kernel), the plain versions on the
+    same images, every converted layer against its plain version on the
+    same input, device times of the kernel path, the plain path and the
+    dense forward at B = 500, and the 10-column head's table copy.
+    ``dense_inputs`` maps an image batch to the dense model's input for the
+    accuracy beside the LUT path's."""
+    import torch
+
+    from repro_torch.core.convert import LUTLinear
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+    from repro_torch.models.layers import linear
+    from repro_torch.models.paper_models import paper_ctx
+
+    kctx, pctx = paper_ctx(), paper_ctx(use_kernels=False)
+    names = [k for k, v in lut.items() if isinstance(v, LUTLinear)]
+    by_node = {id(lut[k]): k for k in names}
+    reset_launches()
+    with torch.no_grad():
+        kern = [forward(lut, x, kctx) for x, _ in batches]
+    torch.cuda.synchronize()
+    launches, uncovered = read_launches(), plain_pack_codes_calls()
+    copies = lut_ops.TABLE_COPIES["table_operand"]
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    expect = {**no_launches(), "lut_affine": len(names) * n, "bitplane_pack": len(names) * n}
+    if launches != expect or uncovered:
+        raise AssertionError(f"{tag}: launches {launches} != {expect}, or {uncovered} "
+                             "packs off the kernel")
+    with torch.no_grad():
+        plain = [forward(lut, x, pctx) for x, _ in batches]
+        dense = [forward(params, dense_inputs(x), kctx) for x, _ in batches]
+    labels = [y for _, y in batches]
+    agree = [int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(kern, plain)]
+    cat_k, cat_p = torch.cat(kern), torch.cat(plain)
+    finite = bool(torch.isfinite(cat_k).all())
+
+    def correct(logits):
+        return sum(int((lg.argmax(-1) == y).sum()) for lg, y in zip(logits, labels))
+
+    # every converted layer against its plain version on the same input
+    layer_err, layer_in = {}, {}
+
+    def check(p, x, y):
+        if not isinstance(p, LUTLinear):
+            return
+        name = by_node[id(p)]
+        want = linear(p, x, pctx)
+        err, ref = (y - want).abs().max().item(), want.abs().max().item()
+        layer_err[name] = {"rows": x.numel() // x.shape[-1], "max_abs_err": err,
+                           "max_abs_ref": ref, "ok": err <= KERNEL_TOL * ref}
+        layer_in[name] = x.reshape(-1, x.shape[-1])
+
+    with torch.no_grad(), paper_layer_spy(check):
+        forward(lut, batches[0][0], kctx)
+    x0 = batches[0][0]
+    with torch.no_grad():
+        kernel_ms = device_ms([functools.partial(forward, lut, x0, kctx)], iters)
+        plain_ms = device_ms([functools.partial(forward, lut, x0, pctx)], max(1, iters // 4),
+                             warmup=1, hold=False)
+        dense_x = dense_inputs(x0)
+        dense_ms = device_ms([functools.partial(forward, params, dense_x, kctx)], iters)
+        per_layer = {k: paper_layer_ms(lut[k], x, kctx, iters) for k, x in layer_in.items()}
+        heads = {k: head_copy_ms(lut[k], x, iters) for k, x in layer_in.items()
+                 if lut[k].tables.shape[-1] * lut[k].tables.element_size()
+                 % lut_ops.ROW_ALIGN}
+    del layer_in
+    res = {
+        **tag, "converted_layers": names, "table_bytes": report.table_bytes,
+        "weight_bytes": report.weight_bytes, "peak_bytes": peak,
+        "launches": launches, "per_forward": {k: v // n for k, v in launches.items() if v},
+        "plain_pack_codes_calls": uncovered, "table_copies_per_forward": copies / n,
+        "layers": layer_err, "argmax_agree_per_batch": agree, "argmax_agree_min": PAPER_AGREE,
+        "finite": finite, **compare_logits(cat_k, cat_p),
+        "lut_correct": correct(kern), "plain_correct": correct(plain),
+        "dense_correct": correct(dense), "images": n * PAPER_ROWS,
+        "device_ms": {"kernel": kernel_ms, "plain": plain_ms, "dense_fp32": dense_ms},
+        "images_per_s": {"kernel": PAPER_ROWS / kernel_ms * 1e3,
+                         "plain": PAPER_ROWS / plain_ms * 1e3,
+                         "dense_fp32": PAPER_ROWS / dense_ms * 1e3},
+        "per_layer": per_layer, "heads": heads,
+    }
+    res["lut_accuracy"] = res["lut_correct"] / res["images"]
+    res["dense_accuracy"] = res["dense_correct"] / res["images"]
+    emit({"phase": "paper", **res})
+    bad = [k for k, v in layer_err.items() if not v["ok"]]
+    if bad or set(layer_err) != set(names):
+        raise AssertionError(f"{tag}: layers {bad} off their plain version (or unchecked)")
+    if min(agree) < PAPER_AGREE or not finite:
+        raise AssertionError(f"{tag}: argmax agreement {agree} below {PAPER_AGREE} a batch")
+    return res
+
+
+def paper_phase(iters: int) -> dict:
+    """The paper's three networks at their published widths, each trained on
+    the card with the reference's recipe (``examples/tablenet_mnist.py``;
+    LeNet also at a stable learning rate, :data:`PAPER_LR`), its dense
+    accuracy over 1500 held-out images and at input bits 1..8,
+    converted to unsigned fp16 bitplane tables (chunk 1 for all three,
+    chunk 2 for the classifier and the MLP) and run on the kernels and on
+    the plain versions; then the classifier at the Fig. 5 fixed 3/3 plan,
+    chunks 1 / 2 / 7 / 14, against the dense model on the same 3-bit
+    inputs; then the TL1 rows of ``benchmarks/accuracy_vs_bits.py`` on
+    ``lut_tl1``, the head's output held against its plain version on every
+    batch (the accuracies beside the plain version's are a report)."""
+    import torch
+
+    from repro_torch.benchmarks import accuracy_vs_bits as avb
+    from repro_torch.core.convert import conversion_summary, convert_params
+    from repro_torch.core.lut import LUTPlan
+    from repro_torch.core.lut_tl1 import TL1Plan
+    from repro_torch.core.planner import ModelPlan
+    from repro_torch.core.quantize import FixedPointFormat
+    from repro_torch.examples import tablenet_mnist as tm
+    from repro_torch.models.layers import linear
+    from repro_torch.models.paper_models import paper_ctx
+
+    total = no_launches()
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    for name, chunks in PAPER_CHUNKS.items():
+        for lr in PAPER_LR[name]:
+            t0 = time.perf_counter()
+            params, forward, ctx = tm.train(name, lr=lr, device=DEV)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            emit({"phase": "paper", "net": name, "step": "train", "steps": 300,
+                  "batch": 128, "lr": lr, "recipe": lr == 0.3, "train_s": train_s,
+                  "converted": lr == PAPER_LR[name][-1],
+                  "accuracy_fp32": tm.accuracy(forward, params, ctx, device=DEV),
+                  "accuracy_by_input_bits": {str(b): tm.accuracy(forward, params, ctx, b,
+                                                                 device=DEV)
+                                             for b in range(1, 9)}})
+        batches = paper_batches()
+        for chunk in chunks:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lut, report = convert_params(params, chunk_size=chunk, signed=False)
+            torch.cuda.synchronize()
+            tag = {"net": name, "step": "lut", "plan": f"fp16-unsigned-bitplane-c{chunk}",
+                   "convert_s": time.perf_counter() - t0,
+                   "summary": conversion_summary(report)}
+            res = run_converted(tag, lut, report, params, forward, batches, iters,
+                                lambda x: x.half().float())
+            add(res["launches"])
+            del lut
+            torch.cuda.empty_cache()
+        if name == "linear":  # the Fig. 5 point: 3-bit inputs, fixed-point tables
+            fig5 = paper_batches(FIG5_BITS)
+            fmt = FixedPointFormat(FIG5_BITS, FIG5_BITS)
+            for m in FIG5_CHUNKS:
+                torch.cuda.reset_peak_memory_stats()
+                plan = LUTPlan(784, 10, m, fmt)
+                lut, report = convert_params(params, plan=ModelPlan({"fc": plan}))
+                tag = {"net": name, "step": "fig5",
+                       "plan": f"fixed{FIG5_BITS}/{FIG5_BITS}-unsigned-bitplane-c{m}",
+                       "entries": plan.num_entries, "tables": plan.num_chunks}
+                res = run_converted(tag, lut, report, params, forward, fig5, iters,
+                                    lambda x: x)
+                if abs(res["lut_correct"] - res["dense_correct"]) > 1:
+                    raise AssertionError(f"fig5 c{m}: {res['lut_correct']} LUT against "
+                                         f"{res['dense_correct']} dense correct images")
+                add(res["launches"])
+                del lut
+        del params
+        torch.cuda.empty_cache()
+
+    # the TL1 rows of accuracy_vs_bits: its recipe, its held-out images
+    params, ctx = avb.train_linear(device=DEV)
+    ref = avb.accuracy(params, ctx, None, device=DEV)
+    emit({"phase": "paper", "net": "linear", "step": "fig4", "recipe": "accuracy_vs_bits",
+          "accuracy_fp32": ref,
+          "accuracy_by_input_bits": {str(b): avb.accuracy(params, ctx, b, device=DEV)
+                                     for b in range(1, 9)}})
+    pctx = paper_ctx(use_kernels=False)
+    for act_bits in TL1_ACT_BITS:
+        # the TL1 node's kernel output against its plain version on the same
+        # input, every batch: the int path bit for bit (integer accumulate),
+        # the fp32 path within TL1_TOL x max|plain| (sums in another order)
+        batch_err = []
+
+        def check(p, x, y):
+            want = linear(p, x, pctx)
+            err, top = (y - want).abs().max().item(), want.abs().max().item()
+            tol = 0.0 if act_bits is not None else TL1_TOL * top
+            batch_err.append({"max_abs_err": err, "max_abs_ref": top, "tol": tol,
+                              "ok": err <= tol and bool(torch.isfinite(y).all())})
+
+        reset_launches()
+        with paper_layer_spy(check):
+            acc = avb.tl1_accuracy(params, ctx, act_bits, device=DEV)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        plain = avb.tl1_accuracy(params, pctx, act_bits, device=DEV)
+        expect = {**no_launches(), "lut_tl1": TL1_BATCHES}
+        plan = TL1Plan(784, 10, act_bits=act_bits)
+        err = max(b["max_abs_err"] for b in batch_err)
+        emit({"phase": "paper", "net": "linear", "step": "tl1", "act_bits": act_bits,
+              "accuracy": acc, "plain_accuracy": plain, "accuracy_fp32": ref,
+              "table_bytes": plan.total_lut_bytes, "launches": launches,
+              "expected_launches": expect, "max_abs_err": err, "batches": batch_err})
+        if launches != expect:
+            raise AssertionError(f"tl1 a{act_bits}: launches {launches} != {expect}")
+        if len(batch_err) != TL1_BATCHES or not all(b["ok"] for b in batch_err):
+            raise AssertionError(f"tl1 a{act_bits}: the kernel is off its plain version "
+                                 f"(or a batch went unchecked): {batch_err}")
+        add(launches)
+    return {"launches": total}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases",
         default="device,pack_kernel,kernel,serve,tl1_kernel,tl1_serve,moe_kernel,"
-                "moe_serve,bmm_kernel,bmm_serve",
+                "moe_serve,bmm_kernel,bmm_serve,paper",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -2108,18 +2462,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     bkern = bmm_kernel_phase(args.iters, SLOTS * BUCKET) if "bmm_kernel" in phases else None
     bsrv = bmm_serve_phase(BMM_LAYERS, REQUESTS, MAX_NEW) if "bmm_serve" in phases else None
+    torch.cuda.empty_cache()
+    paper = paper_phase(args.iters) if "paper" in phases else None
     rows = []
-    for k, s, names in ((kern, srv, ("lut_affine", "lut_affine_grouped")),
-                        (tkern, tsrv, ("lut_tl1", "lut_tl1_grouped")),
-                        (mkern, msrv, ("lut_affine_experts",)),
-                        (bkern, bsrv, ("binary_matmul",))):
+    for k, s, path, names in ((kern, srv, "serve", ("lut_affine", "lut_affine_grouped")),
+                              (tkern, tsrv, "tl1_serve", ("lut_tl1", "lut_tl1_grouped")),
+                              (mkern, msrv, "moe_serve", ("lut_affine_experts",)),
+                              (bkern, bsrv, "bmm_serve", ("binary_matmul",))):
         if k is None or s is None:
             continue
         for name in names:
             m = k["main"][name]
+            # lut_affine and lut_tl1 also run the paper networks
+            by_path = {path: s["launches"][name]}
+            if paper is not None and paper["launches"][name]:
+                by_path["paper"] = paper["launches"][name]
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": s["launches"][name],
+                "replaces": REPLACES[name], "launches": sum(by_path.values()),
+                **({"launches_by_path": by_path} if len(by_path) > 1 else {}),
                 "max_abs_err": k["worst"][name], "ms": m["kernel_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": "/".join(sorted(m["bound_by"])),
@@ -2127,9 +2488,10 @@ def main(argv=None) -> int:
                 **({"prefill_ms": m["prefill_ms"], "prefill_bound_ms": m["prefill_bound_ms"]}
                    if "prefill_ms" in m else {}),
             })
-    # the packing kernel runs on three paths; its times are one binary-cell
-    # decode layer's 7 packs (layer_ms: each cell's layer)
-    paths = {name: s for name, s in (("serve", srv), ("moe_serve", msrv), ("bmm_serve", bsrv))
+    # the packing kernel runs on four paths; its times are one binary-cell
+    # decode layer's 7 packs (layer_ms and layer_bound_ms: each cell's layer)
+    paths = {name: s for name, s in (("serve", srv), ("moe_serve", msrv), ("bmm_serve", bsrv),
+                                     ("paper", paper))
              if s is not None}
     if pkern is not None and paths:
         m = pkern["layers"]["binary"]
@@ -2142,6 +2504,7 @@ def main(argv=None) -> int:
             "bound_by": "/".join(sorted(m["bound_by"])), "library_ms": None,
             "prefill_ms": m["prefill_ms"], "prefill_bound_ms": m["prefill_bound_ms"],
             "layer_ms": {cell: c["kernel_ms"] for cell, c in pkern["layers"].items()},
+            "layer_bound_ms": {cell: c["bound_ms"] for cell, c in pkern["layers"].items()},
         })
     if rows:
         emit({"kernels": rows})

@@ -16,8 +16,14 @@ inputs.
 * :func:`ternary_quantize` / :func:`ternary_fake_quant` — absmean
   ternarisation of a weight matrix for the TL1 family, and
   :func:`absmax_int_quantize`, its per-token activation quantizer.
+* :func:`build_stochastic_rounding_lut` / :func:`stochastic_round_via_lut`
+  — the paper's stochastic rounding as a table indexed by (counter mod R,
+  input code), the table built in numpy exactly as the reference builds it.
 
-The stochastic-rounding LUT is not ported yet.
+``dequantize`` and ``fake_quant`` are bit for bit the reference's on fp32
+input.  ``FixedPointFormat.quantize_stochastic`` draws from a
+``torch.Generator`` where the reference takes a JAX key: the same rule,
+other random numbers.
 """
 from __future__ import annotations
 
@@ -67,6 +73,28 @@ class FixedPointFormat:
         """float -> integer code (round-to-nearest-even, saturating)."""
         c = torch.round(x / self.scale)
         return torch.clamp(c, self.code_min, self.code_max).to(torch.int32)
+
+    def quantize_stochastic(
+        self, x: torch.Tensor, generator: torch.Generator
+    ) -> torch.Tensor:
+        """Paper §Stochastic rounding: ``P(up) = frac(x / eps)``, with the
+        uniform draws taken from ``generator`` (on its own device, then
+        moved to ``x``'s)."""
+        v = x / self.scale
+        lo = torch.floor(v)
+        u = torch.rand(
+            x.shape, generator=generator, dtype=torch.float32, device=generator.device
+        ).to(x.device)
+        c = lo + (u < v - lo).to(lo.dtype)
+        return torch.clamp(c, self.code_min, self.code_max).to(torch.int32)
+
+    def dequantize(self, codes: torch.Tensor) -> torch.Tensor:
+        return codes.to(torch.float32) * self.scale
+
+    def fake_quant(self, x: torch.Tensor) -> torch.Tensor:
+        """Quantize + dequantize with a straight-through gradient (QAT)."""
+        y = self.dequantize(self.quantize(x))
+        return x + (y - x).detach()
 
     def to_unsigned_bits(self, codes: torch.Tensor) -> torch.Tensor:
         """Two's-complement bit pattern of the code as a non-negative int."""
@@ -127,6 +155,13 @@ class Float16Format:
             return x.to(torch.float16)
         # "+ 0.0" turns clamp's -0.0 into +0.0, as the reference's maximum
         return (torch.clamp(x, min=0.0) + 0.0).to(torch.float16)
+
+    def fake_quant(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.quantize(x).to(torch.float32)
+        return x + (y - x).detach()
+
+    def dequantize(self, h: torch.Tensor) -> torch.Tensor:
+        return h.to(torch.float32)
 
     @staticmethod
     def _bits(h: torch.Tensor) -> torch.Tensor:
@@ -201,3 +236,49 @@ def absmax_int_quantize(
     scale = torch.clamp(amax, min=1e-12) / qmax
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
     return q, scale.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Stochastic rounding as a LUT (paper §Stochastic rounding)
+# ---------------------------------------------------------------------------
+
+
+def build_stochastic_rounding_lut(
+    fmt: FixedPointFormat, in_bits: int, R: int, seed: int = 0
+) -> np.ndarray:
+    """The paper's rounding LUT ``(R, 2**in_bits)`` int32, row = counter
+    mod ``R``, column = the ``in_bits``-wide input code's bit pattern (same
+    ``frac_bits`` and signedness as ``fmt``), mapped down to ``fmt``; the
+    random sequence r(i) is fixed when the table is built.  Built by the
+    reference's numpy calls in the reference's order, so the same ``seed``
+    gives the same array.
+
+    For a signed ``fmt`` a column's pattern is two's complement: negative
+    codes floor toward -inf (an arithmetic shift), round up with the same
+    ``P(up) = frac`` rule and saturate at ``fmt.code_min``."""
+    if in_bits <= fmt.total_bits:
+        raise ValueError("input format must be wider than the output format")
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(size=R)
+    shift = in_bits - fmt.total_bits
+    codes = np.arange(2**in_bits, dtype=np.int64)
+    if fmt.signed:
+        codes = codes - (codes >= 2 ** (in_bits - 1)) * 2**in_bits
+    lo = codes >> shift
+    frac = (codes & (2**shift - 1)) / float(2**shift)
+    # f(x, i) = floor(x) if r(i) <= 1 - frac else floor(x) + eps
+    table = lo[None, :] + (r[:, None] > 1.0 - frac[None, :]).astype(np.int64)
+    return np.clip(table, fmt.code_min, fmt.code_max).astype(np.int32)
+
+
+def stochastic_round_via_lut(table, codes: torch.Tensor, step) -> torch.Tensor:
+    """Apply the rounding LUT with a replayable counter (``step``, an int
+    or an integer tensor): row ``step mod R``, column the code's
+    two's-complement bit pattern (a negative code wraps modulo the table
+    width), as :func:`build_stochastic_rounding_lut` lays the columns out.
+    The result lies on ``codes``' device."""
+    t = torch.as_tensor(table, device=codes.device)
+    R, width = t.shape
+    i = torch.as_tensor(step, dtype=torch.int64, device=codes.device) % R
+    cols = torch.where(codes < 0, codes + width, codes).to(torch.int64)
+    return t[i, cols]

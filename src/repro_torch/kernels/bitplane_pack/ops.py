@@ -17,7 +17,10 @@ count is :data:`LAUNCHES`, counted right where the kernel launches.
 
 :func:`pack` is the plan-taking entry the model calls in place of
 ``pack_codes``; :func:`kernel_args` maps a plan onto the kernel's
-arguments.
+arguments.  :func:`pack` refuses a bf16 input on a fixed-point plan whose
+clip bounds bf16 cannot hold (:func:`check_bf16_bounds`): ``pack_codes``
+clamps in the input's dtype, so such a bound would round (2047 to 2048)
+and a saturated code would wrap or lose its top bit.
 """
 from __future__ import annotations
 
@@ -71,6 +74,22 @@ def kernel_args(plan: LUTPlan) -> dict | None:
     if fmt.signed or fmt.mantissa_radix != 1:
         return None
     return {**args, "kind": "float16"}
+
+
+def check_bf16_bounds(x: torch.Tensor, plan: LUTPlan) -> None:
+    """Raise ``ValueError`` for a bf16 ``x`` on a fixed-point plan whose
+    ``code_min`` or ``code_max`` is not exact in bf16 (signed formats of
+    10 bits or more, unsigned of 9 or more)."""
+    fmt = plan.fmt
+    if x.dtype != torch.bfloat16 or not isinstance(fmt, FixedPointFormat):
+        return
+    bounds = torch.tensor([fmt.code_min, fmt.code_max], dtype=torch.float64)
+    if not torch.equal(bounds.to(torch.bfloat16).to(torch.float64), bounds):
+        raise ValueError(
+            f"bf16 input on {fmt}: its clip bounds [{fmt.code_min}, "
+            f"{fmt.code_max}] are not exact in bf16, so saturated codes would "
+            "be wrong; pass fp32 input"
+        )
 
 
 def vectorized(q: int, m: int, ptr: int, itemsize: int) -> bool:
@@ -141,6 +160,7 @@ def pack(x: torch.Tensor, plan: LUTPlan, use_kernels: bool = True) -> torch.Tens
     ``pack_codes`` itself, counted in :data:`PLAIN_CALLS`."""
     if x.shape[-1] != plan.in_features:
         raise ValueError(f"input width {x.shape[-1]} != plan.in_features {plan.in_features}")
+    check_bf16_bounds(x, plan)
     args = kernel_args(plan)
     if args is None:
         PLAIN_CALLS["pack_codes"] += 1

@@ -23,7 +23,9 @@ split into enough ranges for one wave of blocks.  The ragged entry runs one
 kernel at every shape, on blocks of 4 expert-sorted rows whatever their
 experts (:func:`experts_tiling`).  The kernels read tables whose base is
 16-byte aligned and whose rows are a multiple of 16 bytes; any other table
-is first copied into such a buffer (:func:`table_operand`).
+is first copied into such a buffer (:func:`table_operand`), counted in
+:data:`TABLE_COPIES` (a 10-column fp32 head, 40-byte rows, takes it on
+every call).
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ from repro_torch.kernels.lut_affine.ref import (
 )
 
 LAUNCHES = {"lut_affine": 0, "lut_affine_grouped": 0, "lut_affine_experts": 0}
+# tables copied by table_operand before a launch
+TABLE_COPIES = {"table_operand": 0}
 
 MAX_PLANES = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int16: 3}
@@ -192,6 +196,7 @@ def table_operand(tables: torch.Tensor) -> torch.Tensor:
     pad = -p % vec
     if tables.data_ptr() % ROW_ALIGN == 0 and not pad:
         return tables
+    TABLE_COPIES["table_operand"] += 1
     return torch.nn.functional.pad(tables, (0, pad)) if pad else tables.clone()
 
 

@@ -753,3 +753,104 @@ def test_pack_invalid_argument_raises_from_the_c_entry(cuda_device, kw):
     with pytest.raises(RuntimeError, match="CUDA error"):
         pack_ops.launch(x2, out, **kw)
     assert pack_ops.LAUNCHES["bitplane_pack"] == before
+
+
+# ---------------------------------------------------------------------------
+# the paper networks' shapes: fp32 tables over 11 unsigned fp16 planes (E =
+# 64 at chunk 1, 4096 at chunk 2), 10-column heads (rows of 40 bytes, which
+# the wrapper copies into 48-byte rows every call), the Fig. 5 fixed 3/3
+# plan at chunk 14, and the TL1 classifier head
+# ---------------------------------------------------------------------------
+
+# (B, k, E, p): linear fc / MLP fc3 / LeNet fc2 heads at chunk 1 (prefill),
+# the linear head at chunk 2 (decode), LeNet conv1 and conv2 rows, MLP fc2,
+# and the chunk-2 head at 500 rows
+PAPER_LUT = [
+    (500, 784, 64, 10),
+    (500, 512, 64, 10),
+    (6, 392, 4096, 10),
+    (500, 392, 4096, 10),
+    (4000, 25, 64, 32),
+    (600, 800, 64, 64),
+    (200, 1024, 64, 512),
+    (3, 512, 4096, 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,k,E,p", PAPER_LUT)
+def test_lut_affine_at_the_paper_shapes_on_card(cuda_device, B, k, E, p):
+    rng = np.random.default_rng(B + k + E + p)
+    codes = torch.from_numpy(rng.integers(0, E, (B, 11, k)).astype(np.int32)).to(cuda_device)
+    tables = torch.from_numpy(rng.standard_normal((k, E, p)).astype(np.float32)).to(cuda_device)
+    scales = 2.0 ** np.arange(11) * 2.0**-24  # the fp16 planes' scales
+    bias = torch.from_numpy(rng.standard_normal(p).astype(np.float32)).to(cuda_device)
+    launches, copies = ops.LAUNCHES["lut_affine"], ops.TABLE_COPIES["table_operand"]
+    got = ops.lut_affine(codes, tables, scales, bias)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lut_affine"] == launches + 1
+    copied = p * 4 % ops.ROW_ALIGN != 0
+    assert ops.TABLE_COPIES["table_operand"] == copies + int(copied)
+    want = ops.lut_affine(codes, tables, scales, bias, use_kernels=False)
+    _close(got, want)
+    if copied:  # a pre-padded operand takes no copy and gives the same sums
+        padded = torch.nn.functional.pad(tables, (0, -p % 4))
+        again = ops.lut_affine(codes, padded, scales)[:, :p] + bias
+        assert ops.TABLE_COPIES["table_operand"] == copies + 1
+        assert torch.equal(again, got)
+
+
+# (B, q, m): unsigned fp16 bitplanes of LeNet conv1 / the 784-wide inputs /
+# conv2 / LeNet fc1, chunk 1 (conv1's q = 25 takes the scalar path) and
+# chunk 2
+PAPER_PACK = [(4000, 25, 1), (500, 784, 1), (500, 784, 2), (1000, 800, 1), (500, 3136, 1),
+              (500, 1024, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,q,m", PAPER_PACK)
+def test_pack_float16_at_the_paper_shapes_on_card(cuda_device, B, q, m):
+    rng = np.random.default_rng(B + q + m)
+    x = rng.uniform(0.0, 4.0, (B, q)) * (rng.uniform(size=(B, q)) > 0.3)  # ReLU-like
+    x[0, :4] = [-1.0, 5.96e-8, 6.0e-5, 7e4]  # clamped, subnormal, normal, inf
+    xs = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    before = pack_ops.LAUNCHES["bitplane_pack"]
+    got = pack_ops.bitplane_pack(xs, kind="float16", m=m)
+    torch.cuda.synchronize()
+    assert pack_ops.LAUNCHES["bitplane_pack"] == before + 1
+    assert tuple(got.shape) == (B, 11, -(-q // m))
+    assert torch.equal(got, pack_ops.bitplane_pack(xs, kind="float16", m=m, use_kernels=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 7, 14])
+def test_pack_fixed_3_3_at_the_fig5_chunks_on_card(cuda_device, m):
+    rng = np.random.default_rng(m)
+    x = rng.uniform(0.0, 1.0, (500, 784)).astype(np.float32)
+    x[0, :3] = [1.0, 0.0625, 0.1875]  # saturation and round-half-even ties
+    xs = torch.from_numpy(x).to(cuda_device)
+    kw = dict(kind="fixed", m=m, bits=3, frac=3, signed=False)
+    got = pack_ops.bitplane_pack(xs, **kw)
+    assert tuple(got.shape) == (500, 3, -(-784 // m))
+    assert int(got.max()) < 2**m
+    assert torch.equal(got, pack_ops.bitplane_pack(xs, use_kernels=False, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_bits", [None, 8, 4, 2])
+def test_tl1_classifier_head_on_card(cuda_device, act_bits):
+    from repro_torch.core.lut_tl1 import TL1Plan, build_tl1_tables, quantize_acts
+
+    rng = np.random.default_rng(21)
+    plan = TL1Plan(784, 10, act_bits=act_bits)
+    w = torch.from_numpy((rng.standard_normal((784, 10)) * 0.05).astype(np.float32))
+    tables, scale = build_tl1_tables(w)
+    x = torch.from_numpy(rng.uniform(0, 1, (500, 784)).astype(np.float32))
+    acts, act_scale = quantize_acts(x.to(cuda_device), plan)
+    t, s = tables.to(cuda_device), scale.to(cuda_device)
+    before = tl1_ops.LAUNCHES["lut_tl1"]
+    got = tl1_ops.lut_tl1(acts, t, act_scale, s, plan=plan)
+    torch.cuda.synchronize()
+    assert tl1_ops.LAUNCHES["lut_tl1"] == before + 1
+    want = tl1_ops.lut_tl1(acts, t, act_scale, s, plan=plan, use_kernels=False)
+    _tl1_same(got, want, act_bits is not None)

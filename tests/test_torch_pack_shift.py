@@ -217,6 +217,47 @@ PLANS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# the plan-taking entry refuses bf16 input where bf16 cannot hold the bounds
+# ---------------------------------------------------------------------------
+
+BF16_INEXACT = [FixedPointFormat(12, 3, True), FixedPointFormat(10, 0, True),
+                FixedPointFormat(9, 4, False), FixedPointFormat(16, 8, False)]
+
+
+@pytest.mark.parametrize("mode", ["bitplane", "full"])
+@pytest.mark.parametrize("fmt", BF16_INEXACT, ids=str)
+def test_pack_refuses_bf16_on_a_fixed_plan_with_inexact_bounds(fmt, mode):
+    plan = LUTPlan(30, 7, 1, fmt, mode=mode)
+    x = torch.full((2, 30), 1e6, dtype=torch.bfloat16)
+    packs, plain = ops.LAUNCHES["bitplane_pack"], ops.PLAIN_CALLS["pack_codes"]
+    with pytest.raises(ValueError, match="not exact in bf16"):
+        ops.pack(x, plan)
+    assert (ops.LAUNCHES["bitplane_pack"], ops.PLAIN_CALLS["pack_codes"]) == (packs, plain)
+    # the same input in fp32 packs, saturating at the true bounds
+    x32 = x.to(torch.float32)
+    np.testing.assert_array_equal(ops.pack(x32, plan).numpy(), pack_codes(x32, plan).numpy())
+
+
+def test_pack_still_takes_bf16_on_the_binary_modes_plan_and_fp32_everywhere():
+    """8/6 signed (bounds -128 and 127, exact in bf16) packs bf16 input
+    bit for bit with ``pack_codes``; every plan of :data:`PLANS` and the
+    inexact-bound formats pack fp32 input, and every fp16 plan bf16."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(-3, 3, (4, 30)).astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    plan86 = LUTPlan(30, 7, 1, FixedPointFormat(8, 6, True))
+    np.testing.assert_array_equal(ops.pack(xb, plan86).numpy(), pack_codes(xb, plan86).numpy())
+    plans = [plan for plan, _ in PLANS.values()]
+    plans += [LUTPlan(30, 7, 1, fmt) for fmt in BF16_INEXACT]
+    for plan in plans:
+        np.testing.assert_array_equal(ops.pack(x, plan).numpy(), pack_codes(x, plan).numpy())
+        if isinstance(plan.fmt, Float16Format):
+            np.testing.assert_array_equal(
+                ops.pack(xb, plan).numpy(), pack_codes(xb, plan).numpy()
+            )
+
+
 @pytest.mark.parametrize("name", list(PLANS))
 def test_kernel_args_cover_the_kernels_plans(name):
     plan, kind = PLANS[name]
