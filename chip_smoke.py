@@ -36,9 +36,9 @@ Phases, one JSON object per line:
    ``bitplane_pack``: ``plain_pack_codes_calls`` must be 0); then the same
    requests on the plain versions, whose ``pack_codes`` calls must equal
    the kernel run's packs, the prefill logits of both compared and every
-   request's first token held equal.  The decode profile counts device
-   kernels per step, beside a second profile with the pack sites on the
-   eager ``pack_codes`` (the packing before the kernel took it).
+   request's first token held equal.  The decode profiles count device
+   kernels per step, with the graph, eager, and eager with the pack sites
+   on the eager ``pack_codes`` (the packing before the kernel took it).
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -103,6 +103,20 @@ Phases, one JSON object per line:
    dense model's on the same inputs within one image; then the TL1 rows of
    ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
    plain version.
+
+The four serve phases (3, 5, 7, 9) serve their requests on the kernels
+with the engine's decode step captured as a CUDA graph and replayed (the
+engine's default on the card, the main path) and eager
+(``cuda_graph=False``), in turns: eager, graph, graph, eager, after one
+untimed eager run (:func:`serve_paths`).  Each run must launch the
+phase's kernels as often per forward as the eager step does (the replays
+count what the capture recorded) and serve the same streams, whole; one
+``graph_vs_eager`` line gives each path's median decode step, tok/s,
+device kernels, busy ms and idle share per step (the decode profile of
+each path: ``decode_profile`` with the graph, whose kernels the profiler
+records per replay, beside the captured graph's nodes;
+``decode_profile_eager`` without).  The plain versions run eager: they
+copy host scales to the card inside the step, which a capture refuses.
 
 Kernel and library times are device times (:func:`device_ms`): many
 calls back to back between one pair of CUDA events, each call on its own
@@ -643,13 +657,12 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
 
     prompts = serve_requests(cfg, requests)
-    reset_launches()
-    reqs, eng, wall, decode_ms = run_engine(lut, cfg, prompts, max_new, True)
-    launches, uncovered = read_launches(), plain_pack_codes_calls()
-    forwards = eng.readbacks
     # one pack per lone projection and group: wq, wk+wv, wo, w_gate+w_up, w_down
     per_forward = {"lut_affine": 3 * layers, "lut_affine_grouped": 2 * layers,
                    "bitplane_pack": 5 * layers}
+    reqs, eng, wall, decode_ms, launches, uncovered = serve_paths(
+        "serve", lut, cfg, prompts, max_new, per_forward, eager_pack_profile=True)
+    forwards = eng.readbacks
     expect = {**no_launches(), **{k: v * forwards for k, v in per_forward.items()}}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
@@ -664,11 +677,9 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
 
-    profile_with_eager_pack("serve", lut, cfg, prompts[:SLOTS], max_new)
-
     with count_plain_packs() as packs:
         plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
-                                                             False)
+                                                             False, cuda_graph=False)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
@@ -738,12 +749,10 @@ def _launch_counts() -> tuple:
 def reset_launches() -> None:
     """Every kernel's launch count, the count of packs off the kernel and
     the count of table copies before a launch, to 0."""
-    from repro_torch.kernels.bitplane_pack import ops as pack_ops
-    from repro_torch.kernels.lut_affine import ops
+    from repro_torch.kernels.common import launch_counters
 
-    for counts in _launch_counts() + (pack_ops.PLAIN_CALLS, ops.TABLE_COPIES):
-        for key in counts:
-            counts[key] = 0
+    for counts in launch_counters():
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def plain_pack_codes_calls() -> int:
@@ -797,17 +806,92 @@ def eager_pack():
         layers.pack, moe.pack = saved
 
 
-def profile_with_eager_pack(phase, lut, cfg, prompts, max_new) -> None:
-    """The decode profile as served, then with the eager packing, and what
-    the kernel's packs removed per step."""
-    served = profile_decode(lut, cfg, prompts, max_new)
-    emit({"phase": phase, "step": "decode_profile", **served})
-    with eager_pack():
-        eager = profile_decode(lut, cfg, prompts, max_new)
-    emit({"phase": phase, "step": "decode_profile_eager_pack", **eager,
-          "device_kernels_removed_per_step": eager["device_kernels_per_step"]
-          - served["device_kernels_per_step"],
-          "busy_ms_saved_per_step": eager["busy_ms_per_step"] - served["busy_ms_per_step"]})
+PATH_ORDER = (False, True, True, False)  # eager, graph, graph, eager
+
+
+def serve_paths(phase, params, cfg, prompts, max_new, per_forward, eager_pack_profile=False,
+                **ex):
+    """Serve ``prompts`` on the kernels with the decode step eager and as
+    CUDA graph replays, in turns (PATH_ORDER, after one untimed eager run
+    that takes the process's first-use costs off the first timed run), each
+    run's launch counts set to 0 just before it and read just after: every
+    run must launch
+    ``per_forward`` of each kernel per forward (replays count what the
+    capture recorded), pack nothing off the kernel, and serve the same
+    streams, whole.  Then the decode profile of each path (and, with
+    ``eager_pack_profile``, of the eager step with the pack sites on eager
+    ``pack_codes``), one ``graph_vs_eager`` line, and the first graph run
+    (the main path) returned as (requests, engine, wall s, decode step ms,
+    launches, packs off the kernel)."""
+    import torch
+
+    run_engine(params, cfg, prompts, max_new, True, cuda_graph=False, **ex)
+    runs = []
+    for graph in PATH_ORDER:
+        reset_launches()
+        reqs, eng, wall, decode_ms = run_engine(params, cfg, prompts, max_new, True,
+                                                cuda_graph=graph, **ex)
+        launches, uncovered = read_launches(), plain_pack_codes_calls()
+        expect = {**no_launches(), **{k: v * eng.readbacks for k, v in per_forward.items()}}
+        if launches != expect or uncovered or eng.readbacks <= 0:
+            raise AssertionError(f"{phase} ({'graph' if graph else 'eager'}): launch counts "
+                                 f"{launches} != expected {expect}, or {uncovered} packs off "
+                                 "the kernel")
+        if eng.cuda_graph is not graph or (graph and eng._graph is None):
+            raise AssertionError(f"{phase}: the engine did not run the step as asked "
+                                 f"(cuda_graph {graph})")
+        runs.append({"reqs": reqs, "eng": eng, "wall": wall, "decode_ms": decode_ms,
+                     "launches": launches, "uncovered": uncovered})
+    streams = [[r.generated for r in run["reqs"]] for run in runs]
+    identical = all(s == streams[0] for s in streams)
+    sub = prompts[:SLOTS]
+    profiles = {"graph": profile_decode(params, cfg, sub, max_new, cuda_graph=True, **ex),
+                "eager": profile_decode(params, cfg, sub, max_new, cuda_graph=False, **ex)}
+    emit({"phase": phase, "step": "decode_profile", **profiles["graph"]})
+    emit({"phase": phase, "step": "decode_profile_eager", **profiles["eager"]})
+    if eager_pack_profile:
+        with eager_pack():
+            packs = profile_decode(params, cfg, sub, max_new, cuda_graph=False, **ex)
+        emit({"phase": phase, "step": "decode_profile_eager_pack", **packs,
+              "device_kernels_removed_per_step": packs["device_kernels_per_step"]
+              - profiles["eager"]["device_kernels_per_step"],
+              "busy_ms_saved_per_step": packs["busy_ms_per_step"]
+              - profiles["eager"]["busy_ms_per_step"]})
+    tokens = sum(len(r.generated) for r in runs[0]["reqs"])
+    paths = {}
+    for name, graph in (("eager", False), ("graph", True)):
+        mine = [run for run, g in zip(runs, PATH_ORDER) if g is graph]
+        steps = [ms for run in mine for ms in run["decode_ms"]]
+        prof = profiles[name]
+        paths[name] = {
+            "median_decode_step_ms": statistics.median(steps),
+            "median_decode_step_ms_by_run": [statistics.median(r["decode_ms"]) for r in mine],
+            "tok_per_s": tokens * len(mine) / sum(r["wall"] for r in mine),
+            "tok_per_s_by_run": [tokens / r["wall"] for r in mine],
+            # the graph's: its capture and first replay
+            "second_decode_step_ms_by_run": [r["decode_ms"][0] for r in mine],
+            "device_kernels_per_step": prof["device_kernels_per_step"],
+            "busy_ms_per_step": prof["busy_ms_per_step"],
+            "idle_share": prof["idle_share"],
+            "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
+            # the profiler slows the host: the share of the timed median step
+            # that the profiled busy time leaves idle
+            "idle_share_at_median_step": 1.0 - prof["busy_ms_per_step"]
+            / statistics.median(steps),
+        }
+    emit({"phase": phase, "step": "graph_vs_eager",
+          "order": ["graph" if g else "eager" for g in PATH_ORDER], "tokens": tokens,
+          "forwards": runs[1]["eng"].readbacks, "streams_identical": identical, **paths,
+          "median_step_ratio_eager_over_graph": paths["eager"]["median_decode_step_ms"]
+          / paths["graph"]["median_decode_step_ms"],
+          "graph_nodes": profiles["graph"]["graph_nodes"],
+          "nvidia_smi": smi_line(),
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if not identical:
+        raise AssertionError(f"{phase}: the graph and eager runs served different streams")
+    main = runs[1]
+    return (main["reqs"], main["eng"], main["wall"], main["decode_ms"], main["launches"],
+            main["uncovered"])
 
 
 def read_launches() -> dict:
@@ -831,18 +915,21 @@ def serve_requests(cfg, requests: int):
     ]
 
 
-def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, **ex):
+def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph=None, **ex):
     """Serve ``prompts`` through ``BatchingEngine`` (SLOTS slots, grouped
     launches, ``ex`` further ExecCfg fields) on the kernels or the plain
-    versions; returns the requests, the engine, the wall seconds and each
-    pure decode step's ms."""
+    versions, the decode step as graph replays (the engine's default on the
+    card) or eager (``cuda_graph=False``; the plain versions copy host
+    scales to the card in the step, which a capture refuses); returns the
+    requests, the engine, the wall seconds and each pure decode step's ms."""
     import torch
 
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.serve import BatchingEngine, Request
 
     ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels, **ex))
-    eng = BatchingEngine(params, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV)
+    eng = BatchingEngine(params, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV,
+                         cuda_graph=cuda_graph)
     reqs = [Request(i, pr, max_new) for i, pr in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
@@ -1099,11 +1186,10 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
 
     prompts = serve_requests(cfg, requests)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    reqs, eng, wall, decode_ms = run_engine(tl1, cfg, prompts, max_new, True)
-    launches = read_launches()
-    forwards = eng.readbacks
     per_forward = {"lut_tl1": 3 * layers, "lut_tl1_grouped": 2 * layers}
+    reqs, eng, wall, decode_ms, launches, _ = serve_paths(
+        "tl1_serve", tl1, cfg, prompts, max_new, per_forward)
+    forwards = eng.readbacks
     expect = {**no_launches(), **{k: v * forwards for k, v in per_forward.items()}}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "tl1_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
@@ -1117,10 +1203,8 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
 
-    emit({"phase": "tl1_serve", "step": "decode_profile",
-          **profile_decode(tl1, cfg, prompts[:SLOTS], max_new)})
-
-    plain_reqs, _, plain_wall, plain_decode = run_engine(tl1, cfg, prompts, max_new, False)
+    plain_reqs, _, plain_wall, plain_decode = run_engine(tl1, cfg, prompts, max_new, False,
+                                                         cuda_graph=False)
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
     )
@@ -1506,14 +1590,13 @@ def moe_serve_phase(requests: int, max_new: int) -> dict:
 
     prompts = serve_requests(cfg, requests)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    reqs, eng, wall, decode_ms = run_engine(lut, cfg, prompts, max_new, True)
-    launches, uncovered = read_launches(), plain_pack_codes_calls()
-    forwards = eng.readbacks
     # packs: the attention group, wo, the routed gate+up (once per token)
     # and w_down, the shared expert's gate+up and w_down, and lm_head
     per_forward = {"lut_affine": 2 * layers + 1, "lut_affine_grouped": 2 * layers,
                    "lut_affine_experts": 2 * layers, "bitplane_pack": 6 * layers + 1}
+    reqs, eng, wall, decode_ms, launches, uncovered = serve_paths(
+        "moe_serve", lut, cfg, prompts, max_new, per_forward, eager_pack_profile=True)
+    forwards = eng.readbacks
     expect = {**no_launches(), **{k: v * forwards for k, v in per_forward.items()}}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "moe_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
@@ -1529,11 +1612,9 @@ def moe_serve_phase(requests: int, max_new: int) -> dict:
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
 
-    profile_with_eager_pack("moe_serve", lut, cfg, prompts[:SLOTS], max_new)
-
     with count_plain_packs() as packs:
         plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
-                                                             False)
+                                                             False, cuda_graph=False)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
@@ -1941,11 +2022,10 @@ def bmm_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     del ref32
 
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    reqs, eng, wall, decode_ms = run_engine(params, cfg, prompts, max_new, True, **mode)
-    launches = read_launches()
-    forwards = eng.readbacks
     per_forward = {"bitplane_pack": 7 * layers, "binary_matmul": 7 * layers}
+    reqs, eng, wall, decode_ms, launches, _ = serve_paths(
+        "bmm_serve", params, cfg, prompts, max_new, per_forward, **mode)
+    forwards = eng.readbacks
     expect = {**no_launches(), **{k: v * forwards for k, v in per_forward.items()}}
     tokens = sum(len(r.generated) for r in reqs)
     emit({"phase": "bmm_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
@@ -1959,11 +2039,8 @@ def bmm_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
 
-    emit({"phase": "bmm_serve", "step": "decode_profile",
-          **profile_decode(params, cfg, prompts[:SLOTS], max_new, **mode)})
-
     plain_reqs, _, plain_wall, plain_decode = run_engine(params, cfg, prompts, max_new, False,
-                                                         **mode)
+                                                         cuda_graph=False, **mode)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
@@ -2024,12 +2101,44 @@ def compare_logits(a, b) -> dict:
             "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean().item()}
 
 
-def profile_decode(lut, cfg, prompts, max_new, steps=4, **ex):
+def graph_nodes(graph) -> dict:
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``) by type, from CUDA's runtime (``cudaGraphGetNodes``
+    and ``cudaGraphNodeGetType``, through the runtime torch loaded)."""
+    import ctypes
+
+    import torch
+
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    rt.cudaGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    rt.cudaGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if rt.cudaGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cudaGraphGetNodes failed")
+    # cudaGraphNodeType: kernel 0, memcpy 1, memset 2, the rest other
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}
+    kinds: dict = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            raise RuntimeError("cudaGraphNodeGetType failed")
+        kind = names.get(t.value, f"type_{t.value}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
+
+
+def profile_decode(lut, cfg, prompts, max_new, steps=4, cuda_graph=True, **ex):
     """Where a steady decode step's time goes: ``torch.profiler`` over
-    ``steps`` engine steps after admission.  ``busy_ms`` sums the device
-    time of every kernel; the idle share is the rest of the host-clock
-    wall time.  (Its launches are not the main-path run's: the counts were
-    read before.)"""
+    ``steps`` engine steps after admission and two decode steps (with the
+    graph: the eager warm-up and the capture, whose graph is kept so that
+    its nodes can be counted beside the profiler's records).  ``busy_ms``
+    sums the device time of every kernel; the idle share is the rest of the
+    host-clock wall time.  (Its launches are not the main-path run's: the
+    counts were read before.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2037,10 +2146,17 @@ def profile_decode(lut, cfg, prompts, max_new, steps=4, **ex):
     from repro_torch.serve import BatchingEngine, Request
 
     ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex))
-    eng = BatchingEngine(lut, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV)
+    eng = BatchingEngine(lut, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV,
+                         cuda_graph=cuda_graph)
     for i, pr in enumerate(prompts):
         eng.submit(Request(i, pr, max_new))
-    eng.step()  # admission prefill + first decode
+    made = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = functools.partial(made, keep_graph=True)
+    try:
+        eng.step()  # admission prefill + first decode (the graph's warm-up)
+        eng.step()  # with the graph: its capture and first replay
+    finally:
+        torch.cuda.CUDAGraph = made
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
@@ -2051,11 +2167,17 @@ def profile_decode(lut, cfg, prompts, max_new, steps=4, **ex):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     packs = [e for e in kernels if "pack_kernel" in e.key]
+    profiled = sum(e.count for e in kernels) / steps
+    # the profiler records each kernel of a replay; the captured graph's
+    # nodes (kernels and copies; the step's readback is outside) beside them
+    nodes = graph_nodes(eng._graph[0]) if cuda_graph else None
+    if not profiled:
+        raise AssertionError(f"the profiler recorded no kernel (cuda_graph {cuda_graph})")
     return {
-        "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "cuda_graph": cuda_graph, "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "busy_ms_per_step": busy / steps,
-        "idle_share": 1.0 - busy / wall_ms if busy > 0 else None,
-        "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+        "idle_share": 1.0 - busy / wall_ms,
+        "device_kernels_per_step": profiled, "graph_nodes": nodes,
         "pack_kernels_per_step": sum(e.count for e in packs) / steps,
         "pack_ms_per_step": sum(e.self_device_time_total for e in packs) / 1e3 / steps,
         "top_kernels_ms_per_step": {

@@ -1,8 +1,13 @@
 """Shared helpers for the port's Hopper kernels (counterpart of
-``repro/kernels/common.py``)."""
+``repro/kernels/common.py``), and the launch counts of a captured CUDA
+graph: :func:`captured_counts` and :func:`replay_counted`."""
 from __future__ import annotations
 
+from typing import Callable, TypeVar
+
 import numpy as np
+
+T = TypeVar("T")
 
 # Largest |value| each accumulator dtype can hold exactly enough for the
 # contract check: integer dtypes their max code, float32 its max finite.
@@ -54,3 +59,43 @@ def check_acc_contract(op: str, plan, kernel_acc_dtype: str) -> None:
 
 def ceil_to(x: int, mult: int) -> int:
     return -(-x // mult) * mult
+
+
+def launch_counters() -> tuple[dict, ...]:
+    """Every count the kernel wrappers keep in Python: each kernel's
+    ``LAUNCHES``, the packs off the kernel (``bitplane_pack``'s
+    ``PLAIN_CALLS``) and the table copies before a launch
+    (``lut_affine``'s ``TABLE_COPIES``)."""
+    from repro_torch.kernels.binary_matmul import ops as bmm_ops
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+    from repro_torch.kernels.lut_tl1 import ops as tl1_ops
+
+    return (lut_ops.LAUNCHES, lut_ops.TABLE_COPIES, tl1_ops.LAUNCHES,
+            pack_ops.LAUNCHES, pack_ops.PLAIN_CALLS, bmm_ops.LAUNCHES)
+
+
+def captured_counts(capture: Callable[[], T]) -> tuple[T, list]:
+    """Run ``capture`` (the capture of a CUDA graph, which records each
+    launch without running it) and return its result with what it added to
+    every count of :func:`launch_counters`, as ``(counts, key, added)``
+    triples.  The counts are put back as they were, also when the capture
+    raises: only a replay runs the launches (:func:`replay_counted`)."""
+    counters = launch_counters()
+    before = [dict(c) for c in counters]
+    try:
+        out = capture()
+        added = [(c, key, c[key] - b[key])
+                 for c, b in zip(counters, before) for key in c if c[key] != b[key]]
+    finally:
+        for c, b in zip(counters, before):
+            c.update(b)
+    return out, added
+
+
+def replay_counted(graph, added: list) -> None:
+    """``graph.replay()``, then add to each count what the capture added
+    (``added`` from :func:`captured_counts`)."""
+    graph.replay()
+    for counts, key, n in added:
+        counts[key] += n

@@ -6,13 +6,17 @@ Layout: ``k``/``v`` ``(L, B, T, n_kv, head_dim)`` with T = max_len, plus
 (B,), the next write offset per slot.
 
 Writes keep the reference's semantics with direct indexing in place of
-its one-hot contractions (the port updates the cache in place): a masked
-token writes nothing and does not advance ``index``; a write whose slot
-falls at or past T is dropped and flags the row's ``overflow``, which the
-serving layer raises on (:class:`CacheOverflowError`); the ``S == T``
-fresh-row fast path overwrites whole rows whose pre-write index is 0 and
-rejects any other row as a unit.  Sliding-window rings and pages come
-with their slices.
+its one-hot contractions: a masked token writes nothing and does not
+advance ``index``; a write whose slot falls at or past T is dropped and
+flags the row's ``overflow``, which the serving layer raises on
+(:class:`CacheOverflowError`); the ``S == T`` fresh-row fast path
+overwrites whole rows whose pre-write index is 0 and rejects any other row
+as a unit.  Sliding-window rings and pages come with their slices.
+
+Every write lands in place, in the buffer the cache was made with, never
+in a new tensor bound to its key: a CUDA graph captured over a step reads
+and writes fixed addresses, so only then does its replay see the step's
+own updates (the counterpart of the reference's donated cache).
 """
 from __future__ import annotations
 
@@ -100,23 +104,24 @@ def advance_meta(
     window: int | None,
     token_mask: torch.Tensor | None = None,
 ) -> tuple[dict, CacheWrite]:
-    """Advance pos/valid/index for the S tokens written this step (in
-    place) and return ``(cache, write)``.  ``window`` must be None here."""
+    """Advance pos/valid/index (and ``overflow`` where the cache has it)
+    for the S tokens written this step, each in its own buffer, and return
+    ``(cache, write)``.  ``window`` must be None here."""
     if window is not None:
         raise NotImplementedError("sliding-window rings come with the mixtral slice")
     S = positions.shape[1]
     T = cache["pos"].shape[1]
-    index = cache["index"]
+    index = cache["index"].clone()  # the pre-write offsets, kept past the advance
     slots = index[:, None] + torch.arange(S, dtype=torch.int32, device=index.device)
     over = slots >= T
     if token_mask is not None:
         over = over & token_mask
-    overflow = cache["overflow"] | over.any(1) if "overflow" in cache else None
+    overflow = cache.get("overflow")
     meta_mask = token_mask
     if token_mask is None and S == T:
         # the per-layer writes take the whole-row fast path, which cannot
         # express a partially in-range write: suppress those rows' pos/valid
-        # too (they are flagged overflow above)
+        # too (their overflow is flagged)
         meta_mask = (index == 0)[:, None].expand(slots.shape)
     ok = slots < T
     if meta_mask is not None:
@@ -124,9 +129,9 @@ def advance_meta(
     scatter_rows(cache["pos"], positions.to(torch.int32), slots, ok)
     scatter_rows(cache["valid"], torch.ones_like(ok), slots, ok)
     adv = token_mask.sum(1).to(torch.int32) if token_mask is not None else S
-    cache["index"] = index + adv
+    cache["index"].add_(adv)
     if overflow is not None:
-        cache["overflow"] = overflow
+        overflow |= over.any(1)
     write = CacheWrite(
         slots=slots,
         mask=token_mask,

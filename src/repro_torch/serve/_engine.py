@@ -21,6 +21,12 @@ into one grouped launch.  The scheduler is agnostic to all of it.
 * Each step returns a packed (B, 3) int32 ``[token, done, overflow]``
   that the host reads back once (``readbacks`` counts them); an overflow
   flag raises :class:`CacheOverflowError`.
+* On a CUDA device the decode step is captured once as a CUDA graph and
+  replayed (the counterpart of the reference's ``jax.jit`` with a donated
+  cache): its shapes (``num_slots`` x 1 token) and sampling mode are fixed
+  per engine, and both steps write the cache in place.  Admission prefill
+  and :func:`generate` stay eager.  The kernels' launch counts are kept
+  per replay (``kernels/common.py::replay_counted``).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.common import captured_counts, replay_counted
 from repro_torch.models.layers import Ctx, SampleCfg, fold_key, sample_tokens
 from repro_torch.models.model import model_forward
 from repro_torch.models.params import init_params
@@ -149,7 +156,9 @@ class Request:
 
 
 def _engine_steps(ctx: Ctx, scfg: SampleCfg, eos_id: Optional[int]):
-    """The engine's two steps, updating the cache in place:
+    """The engine's two steps, each writing the cache in place (into the
+    buffers the engine allocated, so that a captured decode step's replay
+    sees what the steps wrote):
 
     prefill: (params, cache, tokens, lens, admit, uids, max_news, base_key)
              -> packed
@@ -177,14 +186,16 @@ def _engine_steps(ctx: Ctx, scfg: SampleCfg, eos_id: Optional[int]):
     @torch.no_grad()
     def prefill(params, cache, tokens, lens, admit, uids, max_news, base_key):
         adm1 = admit[:, None]
-        cache["index"] = torch.where(admit, 0, cache["index"])
-        cache["pos"] = torch.where(adm1, 0, cache["pos"])
-        cache["valid"] = cache["valid"] & ~adm1
-        cache["overflow"] = cache["overflow"] & ~admit
+        cache["index"].masked_fill_(admit, 0)
+        cache["pos"].masked_fill_(adm1, 0)
+        cache["valid"] &= ~adm1
+        cache["overflow"] &= ~admit
         fresh_keys = fold_key(base_key, uids)
-        cache["slot_key"] = torch.where(admit, fresh_keys, cache["slot_key"])
+        cache["slot_key"].copy_(torch.where(admit, fresh_keys, cache["slot_key"]))
         remaining = max_news - 1
-        cache["slot_remaining"] = torch.where(admit, remaining, cache["slot_remaining"])
+        cache["slot_remaining"].copy_(
+            torch.where(admit, remaining, cache["slot_remaining"])
+        )
         S = tokens.shape[1]
         steps = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
         mask = (steps < lens[:, None]) & adm1
@@ -195,13 +206,13 @@ def _engine_steps(ctx: Ctx, scfg: SampleCfg, eos_id: Optional[int]):
         last = logits[rows, torch.clamp(lens - 1, min=0).to(torch.int64)]
         tok = _sample(last, cache)
         done = admit & (_eos(tok) | (cache["slot_remaining"] <= 0))
-        cache["slot_active"] = (cache["slot_active"] | admit) & ~done
-        cache["next_tok"] = torch.where(adm1, tok[:, None], cache["next_tok"])
+        cache["slot_active"].copy_((cache["slot_active"] | admit) & ~done)
+        cache["next_tok"].copy_(torch.where(adm1, tok[:, None], cache["next_tok"]))
         return _packed(tok, done, cache)
 
     @torch.no_grad()
     def decode(params, cache):
-        active = cache["slot_active"]
+        active = cache["slot_active"].clone()  # read after the in-place update below
         logits, cache, _ = model_forward(
             params,
             {"tokens": cache["next_tok"], "token_mask": active[:, None]},
@@ -211,10 +222,10 @@ def _engine_steps(ctx: Ctx, scfg: SampleCfg, eos_id: Optional[int]):
         tok = _sample(logits[:, -1], cache)
         remaining = cache["slot_remaining"] - active.to(torch.int32)
         done = active & (_eos(tok) | (remaining <= 0))
-        cache["slot_remaining"] = remaining
-        cache["slot_active"] = active & ~done
+        cache["slot_remaining"].copy_(remaining)
+        cache["slot_active"].copy_(active & ~done)
         act1 = active[:, None]
-        cache["next_tok"] = torch.where(act1, tok[:, None], cache["next_tok"])
+        cache["next_tok"].copy_(torch.where(act1, tok[:, None], cache["next_tok"]))
         return _packed(tok, done, cache)
 
     return prefill, decode
@@ -231,7 +242,11 @@ def _bucket(n: int, cap: int) -> int:
 class BatchingEngine:
     """Fixed-slot continuous batching, device-resident: finished sequences
     are swapped for queued requests between decode steps by batched masked
-    prefill (see the module docstring for the contracts)."""
+    prefill (see the module docstring for the contracts).
+
+    ``cuda_graph`` (default: on for a CUDA device, off on the CPU, where
+    ``True`` raises) runs the decode step as replays of one captured CUDA
+    graph; ``False`` keeps the eager step."""
 
     def __init__(
         self,
@@ -246,6 +261,7 @@ class BatchingEngine:
         prefill_bucket: int | None = None,
         page_size: int | None = None,
         device: str | torch.device = "cuda",
+        cuda_graph: bool | None = None,
     ):
         if ctx.cfg.family not in _ENGINE_FAMILIES:
             raise NotImplementedError(
@@ -257,6 +273,13 @@ class BatchingEngine:
         if page_size is not None:
             raise NotImplementedError("paged serving comes with the paging slice")
         self.device = resolve_device(device)
+        if cuda_graph is None:
+            cuda_graph = self.device.type == "cuda"
+        elif cuda_graph and self.device.type != "cuda":
+            raise ValueError(f"cuda_graph=True needs a CUDA device, not {self.device}")
+        self.cuda_graph = cuda_graph
+        self._graph = None  # (CUDAGraph, its packed output, the counts a replay adds)
+        self._warmed_up = False
         self.params, self.ctx = params, ctx
         self.num_slots, self.max_len = num_slots, max_len
         self.eos_id = eos_id
@@ -357,12 +380,41 @@ class BatchingEngine:
                 else:
                     self.slots[s] = req
 
+    def _decode_step(self) -> torch.Tensor:
+        """The decode step, eager; or under ``cuda_graph`` eager the first
+        time (which also warms up every kernel's build, attributes and
+        tensor maps, and the allocator), captured into the engine's own
+        graph and memory pool the second time, then replayed.  A capture
+        that fails raises: the step never falls back to eager."""
+        if not self.cuda_graph or not self._warmed_up:
+            self._warmed_up = True
+            return self._decode(self.params, self.cache)
+        if self._graph is None:
+            graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(self.device)
+
+            def record():
+                # the outer context restores the engine's stream also when
+                # the capture fails (a failed end of capture skips the inner)
+                with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+                    return self._decode(self.params, self.cache)
+
+            try:
+                packed, added = captured_counts(record)
+            except Exception as e:
+                raise RuntimeError(
+                    f"capturing the decode step as a CUDA graph failed: {e}"
+                ) from e
+            self._graph = graph, packed, added
+        graph, packed, added = self._graph
+        replay_counted(graph, added)
+        return packed
+
     def step(self) -> bool:
         """One decode step over all active slots; returns True if any active."""
         self._admit()
         if all(r is None for r in self.slots):
             return False
-        arr = self._check(self._decode(self.params, self.cache))
+        arr = self._check(self._decode_step())
         for s, req in enumerate(self.slots):
             if req is None:
                 continue

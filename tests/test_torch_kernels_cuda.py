@@ -854,3 +854,121 @@ def test_tl1_classifier_head_on_card(cuda_device, act_bits):
     assert tl1_ops.LAUNCHES["lut_tl1"] == before + 1
     want = tl1_ops.lut_tl1(acts, t, act_scale, s, plan=plan, use_kernels=False)
     _tl1_same(got, want, act_bits is not None)
+
+
+# ---------------------------------------------------------------------------
+# The engine's decode step as a CUDA graph: each served path at a reduced
+# config with seeded random weights, the graph engine against the eager one
+# ---------------------------------------------------------------------------
+
+GRAPH_PATHS = ["weight", "tl1", "moe", "binary"]
+GRAPH_SLOTS, GRAPH_MAX_LEN, GRAPH_MAX_NEW = 3, 32, 6
+
+
+def _graph_world(path, device):
+    """(config, params, ExecCfg fields) of one served path: planned i8
+    tables (weight, MoE with its experts), TL1 tables, or bf16 projections
+    under the binary-matmul mode."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import convert_params
+    from repro_torch.core.planner import plan_model
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import bf16_projections, init_params
+
+    cfg = get_config("qwen2_moe_a2_7b" if path == "moe" else "granite_8b", reduced=True)
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = init_params(model_specs(cfg), gen, device=device)
+    if path == "binary":
+        return cfg, bf16_projections(params), dict(linear_mode="binary_matmul",
+                                                   fixed_bits=8, fixed_frac=6)
+    if path == "tl1":
+        plan = plan_model(params, float("inf"), families=("tl1",))
+    else:
+        kw = {"convert_experts": True} if path == "moe" else {}
+        uniform = plan_model(params, float("inf"), max_chunk=2, **kw)
+        plan = plan_model(params, uniform.total_lut_bytes // 2, max_chunk=2,
+                          modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
+                          table_formats=(None, "i8"), **kw)
+    return cfg, convert_params(params, plan=plan, convert_experts=path == "moe")[0], {}
+
+
+def _graph_prompts(vocab):
+    rng = np.random.default_rng(29)
+    return [rng.integers(0, vocab, int(rng.integers(3, 12))).astype(np.int32)
+            for _ in range(5)]
+
+
+def _counts_now():
+    from repro_torch.kernels.common import launch_counters
+
+    return {k: v for c in launch_counters() for k, v in c.items()}
+
+
+def _graph_serve(world, cuda_graph, sample, device):
+    """Serve the prompts; returns (streams, launches of the run, engine)."""
+    from repro_torch.kernels.common import launch_counters
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import BatchingEngine, Request
+
+    cfg, params, ex = world
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex))
+    eng = BatchingEngine(params, ctx, GRAPH_SLOTS, GRAPH_MAX_LEN, sample=sample, seed=5,
+                         device=device, cuda_graph=cuda_graph)
+    reqs = [Request(i, p, GRAPH_MAX_NEW) for i, p in enumerate(_graph_prompts(cfg.vocab_size))]
+    for r in reqs:
+        eng.submit(r)
+    for c in launch_counters():
+        c.update(dict.fromkeys(c, 0))
+    eng.run()
+    torch.cuda.synchronize()
+    return [r.generated for r in reqs], _counts_now(), eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", ["greedy", "top_k"])
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graph_engine_matches_the_eager_engine_on_card(cuda_device, path, sample):
+    """Whole streams equal; every launch count of the run equal too (the
+    replays add what the capture recorded), with as many forwards."""
+    from repro_torch.models.layers import SampleCfg
+
+    scfg = SampleCfg() if sample == "greedy" else SampleCfg("top_k", 0.9, 5)
+    world = _graph_world(path, cuda_device)
+    eager, eager_counts, eager_eng = _graph_serve(world, False, scfg, cuda_device)
+    graph, graph_counts, graph_eng = _graph_serve(world, None, scfg, cuda_device)
+    assert graph_eng.cuda_graph and graph_eng._graph is not None
+    assert graph == eager
+    assert graph_eng.readbacks == eager_eng.readbacks
+    assert graph_counts == eager_counts
+    assert sum(graph_counts.values()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_graph_capture_refuses_a_read_back_on_card(cuda_device, path, monkeypatch):
+    """A read-back inside the step makes the capture raise; the step does
+    not run eagerly instead: no cache state moves, nothing is read back and
+    no launch is counted."""
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import BatchingEngine, Request, _engine
+
+    cfg, params, ex = _graph_world(path, cuda_device)
+    sample = _engine.sample_tokens
+
+    def reads_back(logits, *a, **kw):
+        float(logits.sum().item())
+        return sample(logits, *a, **kw)
+
+    monkeypatch.setattr(_engine, "sample_tokens", reads_back)
+    eng = BatchingEngine(params, Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex)), GRAPH_SLOTS,
+                         GRAPH_MAX_LEN, device=cuda_device)
+    for i, p in enumerate(_graph_prompts(cfg.vocab_size)):
+        eng.submit(Request(i, p, GRAPH_MAX_NEW))
+    assert eng.step()  # admission prefill and the eager warm-up step
+    index, readbacks, counts = eng.cache["index"].clone(), eng.readbacks, _counts_now()
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        eng.step()
+    torch.cuda.synchronize()
+    assert eng._graph is None
+    assert torch.equal(eng.cache["index"], index)
+    assert eng.readbacks == readbacks and _counts_now() == counts
