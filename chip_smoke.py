@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
-    python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,tl1_kernel,
-                                    tl1_serve,moe_kernel,moe_serve,bmm_kernel,
-                                    bmm_serve,paper]
+    python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
+                                    tl1_kernel,tl1_serve,moe_kernel,moe_serve,
+                                    bmm_kernel,bmm_serve,paper]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -39,6 +39,32 @@ Phases, one JSON object per line:
    request's first token held equal.  The decode profiles count device
    kernels per step, with the graph, eager, and eager with the pack sites
    on the eager ``pack_codes`` (the packing before the kernel took it).
+3b. ``paged_serve``  the same model (the serve phase's tables, or built
+   anew) served through ``BatchingEngine(page_size=8)``: a paged KV cache
+   with copy-on-write prefix sharing.  8 requests of 16 new tokens; 0, 2,
+   4 and 6 open with one shared 16-token system prompt.  In one call: (a)
+   the dense engine with the decode step as a CUDA graph, (b) the paged
+   engine with the graph on the dense rectangle's 32 pages, (c) paged
+   eager, (d) paged with the graph on 21 pages (the smallest pool that
+   serves this traffic: 16 and 20 pages must raise CacheOverflowError
+   mid-decode, since admission maps only a prompt's pages), (b) and (a)
+   again, (e) paged on the plain versions, eager, (f) the dense engine
+   with the graph, its attention's K/V rounded to bf16.  Every kernel run
+   launches 12 / 8 / 20 per forward and packs nothing off the kernel; (b),
+   (c), (d) serve identical streams; first tokens are identical in (b)
+   and (e); the first admission's prefill logits of (b) are within
+   LOGITS_TOL / LOGITS_FRO_TOL of (a)'s (their first tokens are reported:
+   a paged prefill attends over bf16 cached K/V, a dense one over fp32
+   in-flight K/V); (f) serves (b)'s streams whole, and
+   ``prefill_attribution``'s dense prefill on bf16-rounded K/V is within
+   BF16_KV_TOL of the paged one; ``prefill_tokens`` is what
+   sharing predicts; the live slots map no more than ceil(len / 8) pages
+   each, the peak below the rectangle; no page is in use after
+   ``release_prefixes()``.  One paged decode-shaped forward and a
+   copy-on-write run under ``torch.cuda.set_sync_debug_mode("error")``.
+   Reported: median decode step and tok/s per path, KV bytes, peak pages,
+   and the decode profiles paged against dense with the kernels paging
+   adds, by name.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -125,10 +151,11 @@ behind a spin kernel until the host has enqueued them all.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  Then one ``kernels`` summary line (the row of
-``bitplane_pack`` sums its launches over the four paths that pack,
+``bitplane_pack`` sums its launches over the five paths that pack,
 ``launches_by_path``, and times one binary-cell decode layer's 7 packs;
 ``lut_affine`` and ``lut_tl1`` add the paper networks' launches to their
-serve phase's),
+serve phase's, the weight cell's kernels the paged engine's; a null
+``library_ms`` comes with its ``library_reason``),
 the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero
 without that last line.  It exits non-zero at once when no CUDA device is
@@ -180,6 +207,19 @@ BMM_DEPTHS = (1, 4, 12, 36)
 BMM_LOGITS_TOL = 1e-1  # x max|plain|
 BMM_LOGITS_FRO_TOL = 1e-1
 BMM_FIXED = (8, 6)  # ExecCfg.fixed_bits / fixed_frac: signed 8/6 fixed point
+# the paged_serve phase: the serve cell's engine paged at the reference
+# bench's page size; the traffic's shared system prefix (two full pages);
+# the pools: the dense rectangle's 32 pages, the smallest pool that serves
+# the traffic to its end (admission maps only a prompt's pages, so smaller
+# pools run dry mid-decode: the phase checks that two of them raise)
+PAGE_SIZE, SYS_PREFIX = 8, 16
+RECT_POOL = SLOTS * MAX_LEN // PAGE_SIZE
+SMALL_POOL = 21
+DRY_POOLS = (16, SMALL_POOL - 1)
+# a dense prefill whose K/V are rounded to bf16 before attention against the
+# paged prefill, which reads them from its bf16 pool: the CPU test's limit
+# (x max|dense on bf16 K/V|); PR 23's card runs measured 0
+BF16_KV_TOL = 1e-3
 
 # the pack_kernel phase: per cell, the model, the kind of its packs and
 # its packed inputs: (input, width, rows at decode, rows at prefill, packs
@@ -232,6 +272,13 @@ SOURCES = {
     "lut_affine_experts": "src/repro_torch/csrc/lut_affine.cu",
     "binary_matmul": "src/repro_torch/csrc/binary_matmul.cu",
     "bitplane_pack": "src/repro_torch/csrc/bitplane_pack.cu",
+}
+# why a kernel line's library_ms is null (its tables' types, or no one call)
+LIBRARY_REASONS = {
+    "lut_affine": "no PyTorch call takes i8/i16 tables with exponent shifts",
+    "lut_affine_grouped": "no PyTorch call takes i8/i16 tables with exponent shifts",
+    "lut_affine_experts": "no PyTorch call takes i8 expert tables with exponent shifts",
+    "bitplane_pack": "no single PyTorch call packs bitplanes",
 }
 REPLACES = {
     "lut_affine": "src/repro/kernels/lut_affine/lut_affine.py:275",
@@ -452,7 +499,10 @@ def run_case(name, codes, tables, scales, shift_bits, iters, plain_iters, lib_fn
         "max_abs_err": err, "tol": tol,
         "tol_reason": f"{KERNEL_TOL} x max|plain|: fp32 sums in another order",
         "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms, "dense_matmul_ms": dense_ms(B, calls, k, p, iters),
+        "library_ms": lib_ms,
+        **({"library_reason": LIBRARY_REASONS[name]}
+           if lib_fn is None and tables.dtype in (torch.int8, torch.int16) else {}),
+        "dense_matmul_ms": dense_ms(B, calls, k, p, iters),
     }
 
 
@@ -610,16 +660,18 @@ def determinism(phase, name, call, fields, repeats: int = 4) -> None:
 # ---------------------------------------------------------------------------
 
 
-def serve_phase(layers: int, requests: int, max_new: int) -> dict:
+def weight_cell(phase: str, layers: int):
+    """The weight cell's model: full-width granite_8b cut to ``layers``,
+    seeded random weights planned by the serving recipe and converted;
+    emits the ``plan`` and ``convert`` lines under ``phase`` and returns
+    (config, converted tree)."""
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import conversion_summary, convert_params
     from repro_torch.core.planner import plan_model
-    from repro_torch.models.layers import Ctx, ExecCfg
-    from repro_torch.models.model import model_forward, model_specs
+    from repro_torch.models.model import model_specs
     from repro_torch.models.params import init_params
-    from repro_torch.serve import make_cache
 
     full = get_config("granite_8b")
     cfg = dataclasses.replace(full, num_layers=layers)
@@ -641,7 +693,7 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
         for p in mplan.layers.values()
     })
     per_layer = mplan.total_lut_bytes / layers / 2**20
-    emit({"phase": "serve", "step": "plan", "summary": mplan.summary(),
+    emit({"phase": phase, "step": "plan", "summary": mplan.summary(),
           "table_mib": mplan.total_lut_bytes / 2**20, "table_mib_per_layer": per_layer,
           "plans": kinds,
           "depth": {"layers": layers, "published": full.num_layers,
@@ -652,10 +704,20 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
     lut, report = convert_params(params, plan=mplan)
     del params
     torch.cuda.synchronize()
-    emit({"phase": "serve", "step": "convert", "summary": conversion_summary(report),
+    emit({"phase": phase, "step": "convert", "summary": conversion_summary(report),
           "seconds": time.perf_counter() - t0,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return cfg, lut
 
+
+def serve_phase(layers: int, requests: int, max_new: int) -> dict:
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
+
+    cfg, lut = weight_cell("serve", layers)
     prompts = serve_requests(cfg, requests)
     # one pack per lone projection and group: wq, wk+wv, wo, w_gate+w_up, w_down
     per_forward = {"lut_affine": 3 * layers, "lut_affine_grouped": 2 * layers,
@@ -734,7 +796,7 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
                         "effect between two orders of the plain version)"})
     if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
         raise AssertionError(f"prefill logits differ: {res} (tol {tol}, {LOGITS_FRO_TOL})")
-    return {"launches": launches}
+    return {"launches": launches, "model": (cfg, lut)}
 
 
 def _launch_counts() -> tuple:
@@ -785,6 +847,27 @@ def count_plain_packs():
         yield n
     finally:
         ops.bitplane_pack_ref, ops.pack_codes = saved
+
+
+@contextlib.contextmanager
+def bf16_attention_inputs():
+    """Inside a ``with`` block, the model's attention takes its K/V rounded
+    to bf16, as a paged prefill reads them from its cache (a dense prefill
+    attends over its fp32 in-flight K/V; cached K/V are bf16 already)."""
+    import torch
+
+    from repro_torch.models import layers
+
+    saved = layers._sdpa
+
+    def rounded(q, k, v, mask):
+        return saved(q, k.to(torch.bfloat16), v.to(torch.bfloat16), mask)
+
+    layers._sdpa = rounded
+    try:
+        yield
+    finally:
+        layers._sdpa = saved
 
 
 @contextlib.contextmanager
@@ -894,6 +977,331 @@ def serve_paths(phase, params, cfg, prompts, max_new, per_forward, eager_pack_pr
             main["uncovered"])
 
 
+# ---------------------------------------------------------------------------
+# paged_serve phase
+# ---------------------------------------------------------------------------
+
+
+def paged_requests(cfg):
+    """The paged_serve phase's 8 requests: 0, 2, 4 and 6 open with one
+    shared SYS_PREFIX-token system prompt and 4..16 tokens of their own
+    (chat serving, where every conversation opens with the same system
+    prompt); 1, 3, 5 and 7 are serve_requests' first four prompts."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, cfg.vocab_size, SYS_PREFIX).astype(np.int32)
+    base = serve_requests(cfg, 4)
+    out = []
+    for i in range(4):
+        own = rng.integers(0, cfg.vocab_size, int(rng.integers(4, 17))).astype(np.int32)
+        out += [np.concatenate([system, own]), base[i]]
+    return out
+
+
+def shared_prefill_tokens(prompts) -> int:
+    """The tokens the reference's prefix sharing prefills for ``prompts``:
+    the first holder of the system prompt prefills it in full, every later
+    holder only its tail (a holder's prompt is longer than the prefix, so
+    the hit never covers its last token)."""
+    system = prompts[0][:SYS_PREFIX]
+    holders = sum(len(p) > SYS_PREFIX and bool((p[:SYS_PREFIX] == system).all())
+                  for p in prompts)
+    return sum(len(p) for p in prompts) - (holders - 1) * SYS_PREFIX
+
+
+def page_watch(stats: dict):
+    """A ``run_engine`` watch for a paged engine: counts the admissions that
+    left a slot free with a request queued (a dry pool), the registry's
+    evictions, and per step the pages in use beside the pages the live
+    slots map and the bound ceil(len / PAGE_SIZE) summed over them."""
+    stats.update(steps=0, dry_deferrals=0, evictions=0, peak_pages_in_use=0,
+                 peak_live_bound=0, live_mapped_over_bound=[])
+
+    def watch(eng):
+        admit, evict = eng._admit, eng.alloc._evict_one
+
+        def admitted():
+            admit()
+            stats["dry_deferrals"] += bool(eng.queue) and any(r is None for r in eng.slots)
+
+        def evicted():
+            done = evict()
+            stats["evictions"] += done
+            return done
+
+        eng._admit, eng.alloc._evict_one = admitted, evicted
+
+        def step():
+            live = [s for s, r in enumerate(eng.slots) if r is not None]
+            rows = eng.alloc.table[live]
+            mapped = len(set(rows[rows >= 0].tolist()))
+            bound = sum(-(-eng._slot_len[s] // PAGE_SIZE) for s in live)
+            in_use = eng.alloc.pages_in_use
+            stats["steps"] += 1
+            stats["peak_live_bound"] = max(stats["peak_live_bound"], bound)
+            if in_use > stats["peak_pages_in_use"]:
+                stats.update(peak_pages_in_use=in_use, at_peak={
+                    "live_slots": len(live), "live_mapped_pages": mapped,
+                    "live_bound": bound, "registry_only_pages": in_use - mapped})
+            if mapped > bound:
+                stats["live_mapped_over_bound"].append((stats["steps"], mapped, bound))
+
+        return step
+
+    return watch
+
+
+def paged_serve_phase(model, layers: int, max_new: int) -> dict:
+    """The weight cell's model served through ``BatchingEngine(page_size=8)``
+    on traffic whose even requests share a system prompt, in one call: (a)
+    the dense engine with the graph (the yardstick), (b) the paged engine
+    with the graph on the rectangle's pool, (c) paged eager, (d) paged with
+    the graph on SMALL_POOL pages, then the DRY_POOLS (each must raise
+    CacheOverflowError mid-decode), (b) and (a) again, (e) paged on the
+    plain versions, eager, and (f) the dense engine with the graph and its
+    attention's K/V rounded to bf16, as a paged prefill reads them: (f)
+    must serve (b)'s streams whole, which holds decode, prefix mapping and
+    copy-on-write against a dense run.  ``model``: the serve phase's
+    (config, tree), or None to build it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import CacheOverflowError, _engine, make_cache
+    from repro_torch.serve._cache import copy_pages
+
+    cfg, lut = model if model is not None else weight_cell("paged_serve", layers)
+    prompts = paged_requests(cfg)
+    per_forward = {"lut_affine": 3 * layers, "lut_affine_grouped": 2 * layers,
+                   "bitplane_pack": 5 * layers}
+    forward = _engine.model_forward
+
+    def served(name, pages=None, use_kernels=True, cuda_graph=None, record=False):
+        """One run, its launch counts set to 0 just before it and read just
+        after, held to ``per_forward`` per forward (kernel runs) or to none;
+        with ``record``, the first admission's prefill logits are kept."""
+        first = {}
+
+        def recording(params, inputs, ctx, cache=None):
+            out = forward(params, inputs, ctx, cache=cache)
+            if not first:
+                first.update(logits=out[0].clone(), mask=inputs["token_mask"].clone())
+            return out
+
+        stats = {}
+        engine = None if pages is None else {"page_size": PAGE_SIZE, "num_pages": pages}
+        _engine.model_forward = recording if record else forward
+        try:
+            reset_launches()
+            with count_plain_packs() as packs:
+                reqs, eng, wall, decode_ms = run_engine(
+                    lut, cfg, prompts, max_new, use_kernels, cuda_graph=cuda_graph,
+                    engine=engine, watch=page_watch(stats) if pages else None)
+            launches, uncovered = read_launches(), plain_pack_codes_calls()
+        finally:
+            _engine.model_forward = forward
+        forwards = eng.readbacks
+        expect = no_launches()
+        if use_kernels:
+            expect.update({k: v * forwards for k, v in per_forward.items()})
+        if launches != expect or uncovered or forwards <= 0:
+            raise AssertionError(f"paged_serve {name}: launch counts {launches} != expected "
+                                 f"{expect}, or {uncovered} packs off the kernel")
+        if (cuda_graph is None) is not (eng._graph is not None):
+            raise AssertionError(f"paged_serve {name}: the decode step did not run as asked")
+        if not all(len(r.generated) == max_new for r in reqs):
+            raise AssertionError(f"paged_serve {name}: a request stopped short of max_new")
+        tokens = sum(len(r.generated) for r in reqs)
+        run = {"name": name, "num_pages": pages, "cuda_graph": eng._graph is not None,
+               "use_kernels": use_kernels, "median_decode_step_ms": statistics.median(decode_ms),
+               "tok_per_s": tokens / wall, "wall_s": wall, "tokens": tokens,
+               "decode_steps": len(decode_ms), "forwards": forwards,
+               "prefill_tokens": eng.prefill_tokens, "launches": launches,
+               "plain_pack_calls": packs["calls"], "pages": dict(stats),
+               "kv_bytes": sum(t.nbytes for t in eng.cache["layers"].values())}
+        if pages:
+            run["pages_in_use_drained"] = eng.alloc.pages_in_use
+            eng.alloc.release_prefixes()
+            run["pages_in_use_released"] = eng.alloc.pages_in_use
+            if run["pages_in_use_released"]:
+                raise AssertionError(f"paged_serve {name}: {eng.alloc.pages_in_use} pages in "
+                                     "use after release_prefixes()")
+        emit({"phase": "paged_serve", "step": "run", **run})
+        run["decode_ms"] = decode_ms
+        return run, [r.generated for r in reqs], first
+
+    run_engine(lut, cfg, prompts, max_new, True, cuda_graph=False,
+               engine={"page_size": PAGE_SIZE})  # untimed: first-use costs
+    a, a_streams, a_first = served("a_dense_graph", record=True)
+    b, b_streams, b_first = served("b_paged_graph", RECT_POOL, record=True)
+    c, c_streams, _ = served("c_paged_eager", RECT_POOL, cuda_graph=False)
+    d, d_streams, _ = served("d_paged_graph_small_pool", SMALL_POOL)
+    dry = {}
+    for pages in DRY_POOLS:
+        stats = {}
+        try:
+            run_engine(lut, cfg, prompts, max_new, True, engine={"page_size": PAGE_SIZE,
+                       "num_pages": pages}, watch=page_watch(stats))
+        except CacheOverflowError as e:
+            dry[pages] = {"raised": str(e), "after_steps": stats["steps"],
+                          "evictions": stats["evictions"]}
+        else:
+            raise AssertionError(f"paged_serve: a {pages}-page pool served the traffic")
+    b2, b2_streams, _ = served("b_paged_graph_again", RECT_POOL)
+    a2, a2_streams, _ = served("a_dense_graph_again")
+    e, e_streams, _ = served("e_paged_plain_eager", RECT_POOL, use_kernels=False,
+                             cuda_graph=False)
+    with bf16_attention_inputs():
+        f, f_streams, _ = served("f_dense_graph_bf16_kv")
+
+    # the first admission: (b) admits 0 and 1 (2 waits to share 0's prefix),
+    # (a) admits 0..3; the rows both admitted, at their real tokens
+    rows = b_first["mask"].any(1)
+    mask = b_first["mask"][rows]
+    if not torch.equal(a_first["mask"][rows], mask):
+        raise AssertionError("paged_serve: the first admissions differ in their tokens")
+    logits = compare_logits(b_first["logits"][rows][mask], a_first["logits"][rows][mask])
+    tol = LOGITS_TOL * logits["max_abs_ref"]
+    agree = [sum(x == y for x, y in zip(p, q)) for p, q in zip(a_streams, b_streams)]
+    first = {"a": [x[0] for x in a_streams], "b": [x[0] for x in b_streams],
+             "e": [x[0] for x in e_streams], "f": [x[0] for x in f_streams]}
+    checks = {
+        "paged_streams_identical": b_streams == c_streams == d_streams == b2_streams,
+        "dense_graph_streams_repeat": a_streams == a2_streams,
+        # kernel against plain on the paged path; paged against dense is held
+        # to the logits' tolerance (its first tokens are reported: a paged
+        # prefill reads bf16 K/V, a dense one fp32, see prefill_attribution)
+        "first_tokens_identical_b_e": first["b"] == first["e"],
+        # paged against dense, the K/V rounding aside: whole streams
+        "dense_bf16_kv_streams_identical_b": f_streams == b_streams,
+        "prefill_logits_within_tol": logits["max_abs_err"] <= tol
+        and logits["rel_fro_err"] <= LOGITS_FRO_TOL,
+        "prefill_tokens_as_shared": b["prefill_tokens"] == c["prefill_tokens"]
+        == shared_prefill_tokens(prompts),
+        "live_pages_within_bound": not b["pages"]["live_mapped_over_bound"],
+        "peak_pages_below_rectangle": b["pages"]["peak_pages_in_use"] < RECT_POOL,
+        "dry_pools_raise": sorted(dry) == sorted(DRY_POOLS),
+    }
+    emit({"phase": "paged_serve", "step": "checks", **checks,
+          "prefill_logits": {**logits, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL,
+                             "rows": int(rows.sum()), "shape": list(mask.shape),
+                             "tol_reason": "the paged prefill attends over the bf16 cached "
+                                           "keys, the dense one over its fp32 in-flight "
+                                           "keys; each projection re-quantizes its input"},
+          "tokens_agreeing_a_b_per_request": agree, "max_new": max_new,
+          "tokens_agreeing_f_b_per_request": [
+              sum(x == y for x, y in zip(p, q)) for p, q in zip(f_streams, b_streams)],
+          "first_tokens": first,
+          "first_tokens_agreeing_a_b": sum(x == y for x, y in zip(first["a"], first["b"])),
+          "prefill_tokens": {"dense": a["prefill_tokens"], "paged": b["prefill_tokens"],
+                             "small_pool": d["prefill_tokens"],
+                             "predicted": shared_prefill_tokens(prompts),
+                             "prompt_tokens": sum(len(p) for p in prompts)},
+          "dry_pools": dry})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"paged_serve: failed checks {failed}")
+
+    # what parts a paged prefill from a dense one: the prefill batch of the
+    # first SLOTS prompts on fresh caches, dense (fp32 in-flight K/V), paged
+    # (bf16 K/V through the page view), and dense with its in-flight K/V
+    # rounded to bf16 before attention
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
+    inputs = prefill_inputs(prompts)
+
+    def prefill(page_size=None):
+        cache = make_cache(cfg, SLOTS, MAX_LEN, ctx, page_size=page_size, device=DEV)
+        with torch.no_grad():
+            logits, _, _ = model_forward(lut, inputs, ctx, cache=cache)
+        return logits
+
+    dense, paged = prefill(), prefill(PAGE_SIZE)
+    with bf16_attention_inputs():
+        rounded = prefill()
+    last = torch.tensor([len(p) - 1 for p in prompts[:SLOTS]], device=DEV)
+    rows = torch.arange(SLOTS, device=DEV)
+    m = inputs["token_mask"]
+    bf16_kv = compare_logits(paged[m], rounded[m])
+    bf16_kv_tol = BF16_KV_TOL * bf16_kv["max_abs_ref"]
+    emit({"phase": "paged_serve", "step": "prefill_attribution",
+          "paged_vs_dense": compare_logits(paged[m], dense[m]),
+          "paged_vs_dense_bf16_kv": {**bf16_kv, "tol": bf16_kv_tol},
+          "first_tokens": {name: x[rows, last].argmax(-1).tolist() for name, x in
+                           (("dense", dense), ("paged", paged), ("dense_bf16_kv", rounded))}})
+    if not bf16_kv["max_abs_err"] <= bf16_kv_tol:
+        raise AssertionError(f"paged_serve: the paged prefill is {bf16_kv['max_abs_err']} off "
+                             f"the dense prefill on bf16 K/V (limit {bf16_kv_tol})")
+
+    # one paged decode-shaped forward (and a copy-on-write) with no read-back
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
+    cache = make_cache(cfg, SLOTS, MAX_LEN, ctx, page_size=PAGE_SIZE, device=DEV)
+    cache["overflow"] = torch.zeros(SLOTS, dtype=torch.bool, device=DEV)
+    with torch.no_grad():
+        model_forward(lut, prefill_inputs(prompts), ctx, cache=cache)
+        tok = torch.tensor([[int(p[0])] for p in prompts[:SLOTS]], dtype=torch.int32,
+                           device=DEV)
+        live = torch.tensor([[True], [True], [False], [True]], device=DEV)
+        src = torch.tensor([0, -1, -1, -1], dtype=torch.int32, device=DEV)
+        dst = torch.tensor([RECT_POOL - 1, -1, -1, -1], dtype=torch.int32, device=DEV)
+        model_forward(lut, {"tokens": tok, "token_mask": live}, ctx, cache=cache)
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for leaf in cache["layers"].values():
+                copy_pages(leaf, src, dst)
+            out, _, _ = model_forward(lut, {"tokens": tok, "token_mask": live}, ctx,
+                                      cache=cache)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launched = read_launches()
+    expect = {**no_launches(), **per_forward}
+    emit({"phase": "paged_serve", "step": "sync_debug", "sync_debug_mode": "error",
+          "raised": False, "tokens": list(tok.shape), "launches": launched,
+          "expected_launches": expect, "finite": bool(torch.isfinite(out).all().item())})
+    if launched != expect or not torch.isfinite(out).all():
+        raise AssertionError(f"paged decode forward: launches {launched} != {expect}")
+
+    # where a decode step's time goes, paged against dense, on the same prompts
+    sub = prompts[:SLOTS]
+    prof = {"paged": profile_decode(lut, cfg, sub, max_new, engine={"page_size": PAGE_SIZE}),
+            "dense": profile_decode(lut, cfg, sub, max_new)}
+    names = set(prof["paged"]["kernels_by_name"]) | set(prof["dense"]["kernels_by_name"])
+    added = {n: prof["paged"]["kernels_by_name"].get(n, 0)
+             - prof["dense"]["kernels_by_name"].get(n, 0) for n in sorted(names)}
+    for name, p in prof.items():
+        emit({"phase": "paged_serve", "step": f"decode_profile_{name}",
+              **{k: v for k, v in p.items() if k != "kernels_by_name"}})
+    summary = {  # medians over every decode step of a path's runs
+        name: {"median_decode_step_ms": statistics.median(
+                   [ms for r in runs for ms in r["decode_ms"]]),
+               "median_decode_step_ms_by_run": [r["median_decode_step_ms"] for r in runs],
+               "tok_per_s": sum(r["tokens"] for r in runs) / sum(r["wall_s"] for r in runs),
+               "tok_per_s_by_run": [r["tok_per_s"] for r in runs]}
+        for name, runs in (("a_dense_graph", [a, a2]), ("b_paged_graph", [b, b2]),
+                           ("c_paged_eager", [c]), ("d_paged_graph_small_pool", [d]))
+    }
+    emit({"phase": "paged_serve", "step": "paged_vs_dense", **summary,
+          "kv_bytes": {"paged_pool": b["kv_bytes"], "small_pool": d["kv_bytes"],
+                       "dense_rectangle": a["kv_bytes"],
+                       "pool_pages": RECT_POOL + 1, "small_pool_pages": SMALL_POOL + 1,
+                       "page_bytes_all_layers": b["kv_bytes"] // (RECT_POOL + 1)},
+          "peak_pages_in_use": b["pages"]["peak_pages_in_use"],
+          "at_peak": b["pages"].get("at_peak"), "peak_live_bound": b["pages"]["peak_live_bound"],
+          "small_pool_peak_pages_in_use": d["pages"]["peak_pages_in_use"],
+          "dry_deferrals": {"b": b["pages"]["dry_deferrals"], "d": d["pages"]["dry_deferrals"]},
+          "evictions": {"b": b["pages"]["evictions"], "d": d["pages"]["evictions"]},
+          "device_kernels_per_step": {n: p["device_kernels_per_step"] for n, p in prof.items()},
+          "busy_ms_per_step": {n: p["busy_ms_per_step"] for n, p in prof.items()},
+          "graph_nodes": {n: p["graph_nodes"] for n, p in prof.items()},
+          "kernels_paging_adds_per_step": {n: v for n, v in added.items() if v},
+          "nvidia_smi": smi_line(),
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return {"launches": b["launches"]}
+
+
 def read_launches() -> dict:
     return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
@@ -915,13 +1323,17 @@ def serve_requests(cfg, requests: int):
     ]
 
 
-def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph=None, **ex):
+def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph=None,
+               engine=None, watch=None, **ex):
     """Serve ``prompts`` through ``BatchingEngine`` (SLOTS slots, grouped
-    launches, ``ex`` further ExecCfg fields) on the kernels or the plain
-    versions, the decode step as graph replays (the engine's default on the
-    card) or eager (``cuda_graph=False``; the plain versions copy host
-    scales to the card in the step, which a capture refuses); returns the
-    requests, the engine, the wall seconds and each pure decode step's ms."""
+    launches, ``engine`` further engine arguments such as ``page_size``,
+    ``ex`` further ExecCfg fields) on the kernels or the plain versions, the
+    decode step as graph replays (the engine's default on the card) or
+    eager (``cuda_graph=False``; the plain versions copy host scales to the
+    card in the step, which a capture refuses); returns the requests, the
+    engine, the wall seconds and each pure decode step's ms.  ``watch(eng)``,
+    if given, is called once before the first step and returns a callable
+    run after every step."""
     import torch
 
     from repro_torch.models.layers import Ctx, ExecCfg
@@ -929,7 +1341,8 @@ def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph
 
     ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels, **ex))
     eng = BatchingEngine(params, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV,
-                         cuda_graph=cuda_graph)
+                         cuda_graph=cuda_graph, **(engine or {}))
+    after_step = watch(eng) if watch is not None else None
     reqs = [Request(i, pr, max_new) for i, pr in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
@@ -942,6 +1355,8 @@ def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph
             break
         if eng.prefill_tokens == before:  # a pure decode step
             decode_ms.append((time.perf_counter() - t) * 1e3)
+        if after_step is not None:
+            after_step()
     return reqs, eng, time.perf_counter() - start, decode_ms
 
 
@@ -1302,8 +1717,7 @@ def run_experts_case(codes, tables, scales, gs, shift_bits, iters, plain_iters):
         "splits": t.splits, "max_abs_err": err, "tol": tol,
         "tol_reason": f"{KERNEL_TOL} x max|plain|: fp32 sums in another order",
         "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None,
-        "library_reason": "no PyTorch call takes i8 expert tables with exponent shifts",
+        "library_ms": None, "library_reason": LIBRARY_REASONS["lut_affine_experts"],
     }
 
 
@@ -1703,7 +2117,7 @@ def run_pack_case(x, iters, plain_iters, **kw):
         "plain_ms": device_ms([lambda: ops.bitplane_pack(x, use_kernels=False, **kw)],
                               plain_iters, warmup=1, hold=False),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "library_reason": "no single PyTorch call packs bitplanes",
+        "library_reason": LIBRARY_REASONS["bitplane_pack"],
     }, got
 
 
@@ -2131,14 +2545,15 @@ def graph_nodes(graph) -> dict:
     return kinds
 
 
-def profile_decode(lut, cfg, prompts, max_new, steps=4, cuda_graph=True, **ex):
+def profile_decode(lut, cfg, prompts, max_new, steps=4, cuda_graph=True, engine=None, **ex):
     """Where a steady decode step's time goes: ``torch.profiler`` over
     ``steps`` engine steps after admission and two decode steps (with the
     graph: the eager warm-up and the capture, whose graph is kept so that
     its nodes can be counted beside the profiler's records).  ``busy_ms``
     sums the device time of every kernel; the idle share is the rest of the
-    host-clock wall time.  (Its launches are not the main-path run's: the
-    counts were read before.)"""
+    host-clock wall time; ``kernels_by_name`` each kernel's launches per
+    step.  ``engine``: further engine arguments.  (Its launches are not the
+    main-path run's: the counts were read before.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2147,7 +2562,7 @@ def profile_decode(lut, cfg, prompts, max_new, steps=4, cuda_graph=True, **ex):
 
     ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex))
     eng = BatchingEngine(lut, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV,
-                         cuda_graph=cuda_graph)
+                         cuda_graph=cuda_graph, **(engine or {}))
     for i, pr in enumerate(prompts):
         eng.submit(Request(i, pr, max_new))
     made = torch.cuda.CUDAGraph
@@ -2173,6 +2588,9 @@ def profile_decode(lut, cfg, prompts, max_new, steps=4, cuda_graph=True, **ex):
     nodes = graph_nodes(eng._graph[0]) if cuda_graph else None
     if not profiled:
         raise AssertionError(f"the profiler recorded no kernel (cuda_graph {cuda_graph})")
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.key[:80]] = by_name.get(e.key[:80], 0) + e.count / steps
     return {
         "cuda_graph": cuda_graph, "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "busy_ms_per_step": busy / steps,
@@ -2183,6 +2601,7 @@ def profile_decode(lut, cfg, prompts, max_new, steps=4, cuda_graph=True, **ex):
         "top_kernels_ms_per_step": {
             e.key[:60]: e.self_device_time_total / 1e3 / steps for e in top
         },
+        "kernels_by_name": by_name,
     }
 
 
@@ -2536,7 +2955,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases",
-        default="device,pack_kernel,kernel,serve,tl1_kernel,tl1_serve,moe_kernel,"
+        default="device,pack_kernel,kernel,serve,paged_serve,tl1_kernel,tl1_serve,moe_kernel,"
                 "moe_serve,bmm_kernel,bmm_serve,paper",
     )
     ap.add_argument("--iters", type=int, default=20)
@@ -2575,6 +2994,11 @@ def main(argv=None) -> int:
     pkern = pack_kernel_phase(args.iters) if "pack_kernel" in phases else None
     kern = kernel_phase(args.iters, 4 * 32) if "kernel" in phases else None
     srv = serve_phase(LAYERS, REQUESTS, MAX_NEW) if "serve" in phases else None
+    # the paged engine serves the serve phase's converted tables (26 GiB)
+    psrv = paged_serve_phase(srv and srv.pop("model"), LAYERS, MAX_NEW) \
+        if "paged_serve" in phases else None
+    if srv is not None:
+        srv.pop("model", None)
     torch.cuda.empty_cache()
     tkern = tl1_kernel_phase(args.iters, 4 * 32) if "tl1_kernel" in phases else None
     tsrv = tl1_serve_phase(TL1_LAYERS, REQUESTS, MAX_NEW) if "tl1_serve" in phases else None
@@ -2595,10 +3019,12 @@ def main(argv=None) -> int:
             continue
         for name in names:
             m = k["main"][name]
-            # lut_affine and lut_tl1 also run the paper networks
+            # lut_affine and lut_tl1 also run the paper networks, the weight
+            # cell's kernels the paged engine
             by_path = {path: s["launches"][name]}
-            if paper is not None and paper["launches"][name]:
-                by_path["paper"] = paper["launches"][name]
+            for other, o in (("paged_serve", psrv), ("paper", paper)):
+                if o is not None and o["launches"][name]:
+                    by_path[other] = o["launches"][name]
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -2607,13 +3033,15 @@ def main(argv=None) -> int:
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": "/".join(sorted(m["bound_by"])),
                 "library_ms": m.get("library_ms"),
+                **({"library_reason": LIBRARY_REASONS[name]}
+                   if m.get("library_ms") is None else {}),
                 **({"prefill_ms": m["prefill_ms"], "prefill_bound_ms": m["prefill_bound_ms"]}
                    if "prefill_ms" in m else {}),
             })
     # the packing kernel runs on four paths; its times are one binary-cell
     # decode layer's 7 packs (layer_ms and layer_bound_ms: each cell's layer)
-    paths = {name: s for name, s in (("serve", srv), ("moe_serve", msrv), ("bmm_serve", bsrv),
-                                     ("paper", paper))
+    paths = {name: s for name, s in (("serve", srv), ("paged_serve", psrv), ("moe_serve", msrv),
+                                     ("bmm_serve", bsrv), ("paper", paper))
              if s is not None}
     if pkern is not None and paths:
         m = pkern["layers"]["binary"]
@@ -2624,6 +3052,7 @@ def main(argv=None) -> int:
             "launches_by_path": by_path, "max_abs_err": pkern["worst"]["bitplane_pack"],
             "ms": m["kernel_ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "/".join(sorted(m["bound_by"])), "library_ms": None,
+            "library_reason": LIBRARY_REASONS["bitplane_pack"],
             "prefill_ms": m["prefill_ms"], "prefill_bound_ms": m["prefill_bound_ms"],
             "layer_ms": {cell: c["kernel_ms"] for cell, c in pkern["layers"].items()},
             "layer_bound_ms": {cell: c["bound_ms"] for cell, c in pkern["layers"].items()},

@@ -459,7 +459,11 @@ def attention(
     ``cache`` is one layer's ``{"k", "v"}`` views plus the step's
     ``"_meta"`` :class:`~repro_torch.serve._cache.CacheWrite`; K/V are
     written into those views in place.  Decode attends over the bf16
-    cache; a prefill attends over its in-flight fp32 keys."""
+    cache; a dense prefill attends over its in-flight fp32 keys.  A paged
+    prefill attends through the page-table view, as decode does: prefix
+    sharing maps pages written earlier into the slot, so the in-flight
+    keys are not the whole visible context (the causal mask and ``valid``
+    exclude what is not written yet)."""
     cfg = ctx.cfg
     yq, yk, yv = fused_linears(p, ("wq", "wk", "wv"), x, ctx)
     q = _split_heads(yq, cfg.num_heads)
@@ -472,7 +476,7 @@ def attention(
         from repro_torch.serve._cache import update_kv_cache
 
         k_all, v_all, k_pos, k_valid = update_kv_cache(cache, k, v, positions, ctx)
-        if x.shape[1] == 1:  # decode: attend over the cached keys
+        if x.shape[1] == 1 or cache["_meta"].page_ids is not None:
             k, v = k_all, v_all
             mask = causal_mask(positions, k_pos, k_valid)
         else:

@@ -7,6 +7,8 @@ Engine / generation: :class:`BatchingEngine`, :class:`Request`,
 :func:`make_decode_step`.  Cache construction and contracts:
 :func:`make_cache`, :func:`cache_specs`, :func:`advance_meta` ->
 :class:`CacheWrite`, :func:`update_kv_cache`, :class:`CacheOverflowError`.
+Paged mode's host side, exposed for instrumentation:
+:class:`PageAllocator` (``engine.alloc``), :class:`PagePoolExhausted`.
 """
 from repro_torch.serve._cache import (
     CacheOverflowError,
@@ -24,11 +26,14 @@ from repro_torch.serve._engine import (
     make_decode_step,
     make_prefill_step,
 )
+from repro_torch.serve._paging import PageAllocator, PagePoolExhausted
 
 __all__ = [
     "BatchingEngine",
     "CacheOverflowError",
     "CacheWrite",
+    "PageAllocator",
+    "PagePoolExhausted",
     "Request",
     "SampleCfg",
     "advance_meta",

@@ -1,22 +1,37 @@
-"""Dense decode cache for the GQA decoder (counterpart of the dense half of
-``repro/serve/_cache.py``).
+"""Decode caches for the GQA decoder (counterpart of the dense and paged
+halves of ``repro/serve/_cache.py``).
 
-Layout: ``k``/``v`` ``(L, B, T, n_kv, head_dim)`` with T = max_len, plus
-``pos`` (B, T) absolute position per slot, ``valid`` (B, T) and ``index``
-(B,), the next write offset per slot.
+Dense layout: ``k``/``v`` ``(L, B, T, n_kv, head_dim)`` with T = max_len,
+plus ``pos`` (B, T) absolute position per slot, ``valid`` (B, T) and
+``index`` (B,), the next write offset per slot.
+
+Paged layout (``cache_specs(..., page_size=)``): ``k``/``v`` are a pool of
+fixed-size pages shared by all slots, ``(L, num_pages + 1, page_size,
+n_kv, head_dim)``, behind a ``page_table`` (B, max_pages) int32 that maps
+each slot's logical page group to a physical page (-1 = unmapped).
+``pos``/``valid``/``index`` keep their dense (B, T) shapes, T = max_pages
+* page_size.  The pool's last page is a *sink* that no allocator maps:
+every token that writes nothing (masked, past T, or in an unmapped page)
+is routed there, so a write is one scatter whose valid targets are
+distinct -- a slot owns the pages it writes (copy-on-write duplicates a
+shared page first) -- and no valid write can collide with a dropped one.
+Allocation is the serving layer's job (``serve/_paging.py``).
 
 Writes keep the reference's semantics with direct indexing in place of
 its one-hot contractions: a masked token writes nothing and does not
-advance ``index``; a write whose slot falls at or past T is dropped and
-flags the row's ``overflow``, which the serving layer raises on
-(:class:`CacheOverflowError`); the ``S == T`` fresh-row fast path
-overwrites whole rows whose pre-write index is 0 and rejects any other row
-as a unit.  Sliding-window rings and pages come with their slices.
+advance ``index``; a write whose slot falls at or past T, or whose page is
+unmapped, is dropped and flags the row's ``overflow``, which the serving
+layer raises on (:class:`CacheOverflowError`); the dense ``S == T``
+fresh-row fast path overwrites whole rows whose pre-write index is 0 and
+rejects any other row as a unit.  Sliding-window rings come with their
+slice.
 
 Every write lands in place, in the buffer the cache was made with, never
-in a new tensor bound to its key: a CUDA graph captured over a step reads
-and writes fixed addresses, so only then does its replay see the step's
-own updates (the counterpart of the reference's donated cache).
+in a new tensor bound to its key, and nothing is read back to the host: a
+CUDA graph captured over a step reads and writes fixed addresses, so only
+then does its replay see the step's own updates (the counterpart of the
+reference's donated cache).  The engine updates ``page_table`` in place
+too, between steps.
 """
 from __future__ import annotations
 
@@ -35,9 +50,17 @@ class CacheOverflowError(ValueError):
 class CacheWrite(NamedTuple):
     """Typed result of :func:`advance_meta`: everything a per-layer write
     needs.  ``slots`` (B, S) explicit write slots; ``mask`` (B, S) bool or
-    None; ``positions`` written; ``overflow`` (B,) accumulated flags or
-    None; ``pos``/``valid`` post-write metadata; ``index`` the PRE-write
-    per-slot offset (gates the fresh-row fast path)."""
+    None (paged: tokens whose page is unmapped are masked out here too);
+    ``positions`` written; ``overflow`` (B,) accumulated flags or None;
+    ``pos``/``valid`` post-write metadata; ``index`` the PRE-write per-slot
+    offset (gates the fresh-row fast path).  Paged caches also carry
+    ``page_ids`` (B, S) the physical page per token (-1 = dropped),
+    ``page_offsets`` (B, S) the offset in it, ``page_table`` the slot ->
+    page map, and what every layer's write and view reuse, computed once a
+    step: ``page_rows`` (B * S,) the flat pool row each token lands in
+    (:func:`write_rows`), ``view_pages`` (B * max_pages,) and
+    ``view_mapped`` (B, max_pages) the pages the views gather
+    (:func:`view_index`)."""
 
     slots: Optional[torch.Tensor] = None
     mask: Optional[torch.Tensor] = None
@@ -46,14 +69,29 @@ class CacheWrite(NamedTuple):
     pos: Optional[torch.Tensor] = None
     valid: Optional[torch.Tensor] = None
     index: Optional[torch.Tensor] = None
+    page_ids: Optional[torch.Tensor] = None
+    page_offsets: Optional[torch.Tensor] = None
+    page_table: Optional[torch.Tensor] = None
+    page_rows: Optional[torch.Tensor] = None
+    view_pages: Optional[torch.Tensor] = None
+    view_mapped: Optional[torch.Tensor] = None
 
 
 def cache_specs(
-    cfg: ModelConfig, batch: int, max_len: int, page_size: int | None = None
+    cfg: ModelConfig,
+    batch: int,
+    max_len: int,
+    page_size: int | None = None,
+    num_pages: int | None = None,
 ) -> dict:
-    """PSpec tree for a fresh dense decode cache."""
-    if page_size is not None:
-        raise NotImplementedError("paged caches come with the paging slice")
+    """PSpec tree for a fresh decode cache.
+
+    With ``page_size`` set, K/V are paged: leaves (L, num_pages + 1,
+    page_size, ...) -- the last page the sink -- plus a (batch, max_pages)
+    int32 ``page_table``.  ``num_pages`` (the pages an allocator may map)
+    defaults to ``batch * max_pages``: every slot can hold a full
+    rectangle, and prefix sharing only shrinks from there.  ``max_len``
+    must be a whole number of pages."""
     if (
         cfg.family not in ("dense", "moe")
         or cfg.attention != "gqa"
@@ -66,15 +104,30 @@ def cache_specs(
     kv = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     axes = ("layers", "batch", "seq_kv", None, None)
     meta = ("batch", "seq_kv")
-    return {
+    tree = {
         "pos": PSpec((batch, max_len), meta, init="zeros", dtype=torch.int32),
         "valid": PSpec((batch, max_len), meta, init="zeros", dtype=torch.bool),
         "index": PSpec((batch,), ("batch",), init="zeros", dtype=torch.int32),
-        "layers": {
-            "k": PSpec(kv, axes, init="zeros"),
-            "v": PSpec(kv, axes, init="zeros"),
-        },
     }
+    if page_size is not None:
+        if max_len % page_size:
+            raise ValueError(
+                f"cache capacity {max_len} must be a whole number of pages "
+                f"(page_size {page_size}); pad max_len"
+            )
+        max_pages = max_len // page_size
+        if num_pages is None:
+            num_pages = batch * max_pages
+        kv = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
+        axes = ("layers", "seq_kv", None, None, None)
+        tree["page_table"] = PSpec(
+            (batch, max_pages), ("batch", None), init="zeros", dtype=torch.int32
+        )
+    tree["layers"] = {
+        "k": PSpec(kv, axes, init="zeros"),
+        "v": PSpec(kv, axes, init="zeros"),
+    }
+    return tree
 
 
 def scatter_rows(
@@ -106,23 +159,44 @@ def advance_meta(
 ) -> tuple[dict, CacheWrite]:
     """Advance pos/valid/index (and ``overflow`` where the cache has it)
     for the S tokens written this step, each in its own buffer, and return
-    ``(cache, write)``.  ``window`` must be None here."""
+    ``(cache, write)``.  ``window`` must be None here.  For paged caches the
+    write also carries each token's (page, offset), resolved through its
+    slot's ``page_table`` row; a token whose slot is past T or whose page
+    is unmapped is dropped from the write mask and flags ``overflow``."""
     if window is not None:
         raise NotImplementedError("sliding-window rings come with the mixtral slice")
     S = positions.shape[1]
     T = cache["pos"].shape[1]
+    paged = "page_table" in cache
     index = cache["index"].clone()  # the pre-write offsets, kept past the advance
     slots = index[:, None] + torch.arange(S, dtype=torch.int32, device=index.device)
     over = slots >= T
     if token_mask is not None:
         over = over & token_mask
     overflow = cache.get("overflow")
-    meta_mask = token_mask
-    if token_mask is None and S == T:
+    mask = meta_mask = token_mask
+    if token_mask is None and S == T and not paged:
         # the per-layer writes take the whole-row fast path, which cannot
         # express a partially in-range write: suppress those rows' pos/valid
         # too (their overflow is flagged)
         meta_mask = (index == 0)[:, None].expand(slots.shape)
+    page_ids = page_offsets = table = rows = view_pages = view_mapped = None
+    if paged:
+        table = cache["page_table"]
+        max_pages = table.shape[1]
+        page_size = T // max_pages
+        grp = torch.clamp(slots // page_size, 0, max_pages - 1)
+        page_offsets = slots % page_size
+        pid = torch.gather(table, 1, grp.to(torch.int64))
+        dropped = (slots >= T) | (pid < 0)
+        if token_mask is not None:
+            dropped = dropped & token_mask
+        over = dropped
+        page_ids = torch.where(dropped, -1, pid)
+        mask = meta_mask = ~dropped if token_mask is None else token_mask & ~dropped
+        sink = cache["layers"]["k"].shape[1] - 1
+        rows = write_rows(page_ids, page_offsets, mask, sink, page_size)
+        view_pages, view_mapped = view_index(table)
     ok = slots < T
     if meta_mask is not None:
         ok = ok & meta_mask
@@ -134,20 +208,89 @@ def advance_meta(
         overflow |= over.any(1)
     write = CacheWrite(
         slots=slots,
-        mask=token_mask,
+        mask=mask,
         positions=positions,
         overflow=overflow,
         pos=cache["pos"],
         valid=cache["valid"],
         index=index,
+        page_ids=page_ids,
+        page_offsets=page_offsets,
+        page_table=table,
+        page_rows=rows,
+        view_pages=view_pages,
+        view_mapped=view_mapped,
     )
     return cache, write
 
 
+def write_rows(
+    page_ids: torch.Tensor,
+    page_offsets: torch.Tensor,
+    mask: torch.Tensor,
+    sink: int,
+    page_size: int,
+) -> torch.Tensor:
+    """The flat rows (``page * page_size + offset``, int64, (B * S,)) of a
+    layer's pool viewed as (pages * page_size, ...) that the (B, S) tokens
+    write: the token's page where ``mask``, else the sink page.  The valid
+    targets are distinct by the allocator's contract, so they never share
+    a row with a dropped token."""
+    pages = torch.where(mask, page_ids, sink).to(torch.int64)
+    return (pages * page_size + page_offsets).reshape(-1)
+
+
+def view_index(page_table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pages, mapped)`` for :func:`paged_view`: the table's pages, -1
+    clamped to page 0, flat int64 (B * max_pages,), and which groups are
+    mapped (B, max_pages)."""
+    pages = torch.clamp(page_table, min=0).reshape(-1).to(torch.int64)
+    return pages, page_table >= 0
+
+
+def paged_write(buf: torch.Tensor, new: torch.Tensor, rows: torch.Tensor) -> None:
+    """In place, write ``new`` (B, S, ...) into one layer's pool ``buf``
+    (num_pages + 1, page_size, ...) at the flat ``rows`` of
+    :func:`write_rows`."""
+    tail = buf.shape[2:]
+    buf.view((-1,) + tail).index_copy_(0, rows, new.reshape((-1,) + tail).to(buf.dtype))
+
+
+def paged_view(buf: torch.Tensor, pages: torch.Tensor, mapped: torch.Tensor) -> torch.Tensor:
+    """The (B, T, ...) logical view of one layer's pool ``buf`` (pages,
+    page_size, ...) through :func:`view_index`'s ``pages`` and ``mapped``:
+    a gather of each slot's pages; unmapped groups read as zeros, as the
+    reference's one-hot gather gives them (``valid`` masks them
+    downstream)."""
+    B, max_pages = mapped.shape
+    page_size, tail = buf.shape[1], buf.shape[2:]
+    got = buf.index_select(0, pages).view((B, max_pages, page_size) + tail)
+    got = torch.where(mapped.view((B, max_pages) + (1,) * (1 + len(tail))), got, 0)
+    return got.view((B, max_pages * page_size) + tail)
+
+
+def copy_pages(buf: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """In place, copy whole pages ``src[i] -> dst[i]`` of a layer-stacked
+    pool (L, num_pages + 1, page_size, ...): the device half of
+    copy-on-write, run before the divergent tail is written over the copy.
+    A -1 pair (src and dst are -1 together) copies the sink onto itself,
+    which changes no page an allocator maps; nothing is read back."""
+    sink = buf.shape[1] - 1
+    s = torch.where(src < 0, sink, src).to(torch.int64)
+    d = torch.where(dst < 0, sink, dst).to(torch.int64)
+    buf.index_copy_(1, d, buf.index_select(1, s))
+
+
 def update_kv_cache(cache: dict, k, v, positions, ctx) -> tuple[Any, ...]:
     """Write new K/V (B, S, ...) into one layer's cache views in place and
-    return ``(k_all, v_all, pos, valid)``, the views decode attends over."""
+    return ``(k_all, v_all, pos, valid)``, the views decode attends over
+    (paged: gathered through the page table after the write)."""
     w: CacheWrite = cache["_meta"]
+    if w.page_rows is not None:
+        for name, new in (("k", k), ("v", v)):
+            paged_write(cache[name], new, w.page_rows)
+        views = (paged_view(cache[name], w.view_pages, w.view_mapped) for name in ("k", "v"))
+        return (*views, w.pos, w.valid)
     T = cache["k"].shape[1]
     if w.slots.shape[1] == T and w.mask is None:
         fresh = (w.index == 0).reshape(-1, 1, 1, 1)

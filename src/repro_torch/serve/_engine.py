@@ -27,6 +27,24 @@ into one grouped launch.  The scheduler is agnostic to all of it.
   per engine, and both steps write the cache in place.  Admission prefill
   and :func:`generate` stay eager.  The kernels' launch counts are kept
   per replay (``kernels/common.py::replay_counted``).
+
+Paged mode (``page_size=``) keeps the reference's contracts too: K/V live
+in fixed-size pages behind a slot -> page table (``serve/_cache.py``); a
+host :class:`~repro_torch.serve._paging.PageAllocator` maps pages at
+admission and before each decode step and frees them, refcounted, on
+retire.  A request whose leading full pages match an earlier prompt maps
+those pages and prefills only its tail, with at most one copy-on-write
+page duplication at the start of the prefill when the whole prompt
+matched; a request whose prefix would match pages written in the same
+admission round waits one round, so that it shares them.  The device
+``page_table`` is one tensor for the engine's life: when the host table
+changes, it is copied in place from a pinned staging buffer, on the
+engine's stream, before the prefill or the decode replay that reads it
+(a captured graph reads the table's address, so a rebound table would
+never be seen).  ``prefill_tokens`` counts the tokens actually prefilled
+(tails only, under sharing); ``alloc.pages_in_use`` the physical pages
+referenced.  The pool running dry defers admission while a slot is active
+and raises :class:`CacheOverflowError` when none is, or mid-decode.
 """
 from __future__ import annotations
 
@@ -42,7 +60,8 @@ from repro_torch.kernels.common import captured_counts, replay_counted
 from repro_torch.models.layers import Ctx, SampleCfg, fold_key, sample_tokens
 from repro_torch.models.model import model_forward
 from repro_torch.models.params import init_params
-from repro_torch.serve._cache import CacheOverflowError, cache_specs
+from repro_torch.serve._cache import CacheOverflowError, cache_specs, copy_pages
+from repro_torch.serve._paging import PageAllocator, PagePoolExhausted, _prefix_key
 
 _ENGINE_FAMILIES = ("dense", "moe")
 
@@ -54,11 +73,33 @@ def make_cache(
     ctx: Ctx | None = None,
     dtype: torch.dtype = torch.bfloat16,
     page_size: int | None = None,
+    num_pages: int | None = None,
+    page_table: str = "identity",
     device: str | torch.device = "cuda",
 ) -> dict:
-    """A fresh zeroed dense cache on ``device`` (K/V in ``dtype``)."""
-    specs = cache_specs(cfg, batch, max_len, page_size=page_size)
-    return init_params(specs, torch.Generator(), device=device, default_dtype=dtype)
+    """A fresh zeroed cache on ``device`` (K/V in ``dtype``).  With
+    ``page_size``, K/V are paged (``serve/_cache.py``):
+    ``page_table="identity"`` maps slot b's group g to page ``b * max_pages
+    + g``, a paged cache that behaves as the dense rectangle (``generate``
+    uses it); ``"empty"`` starts unmapped, for an allocator to fill."""
+    specs = cache_specs(cfg, batch, max_len, page_size=page_size, num_pages=num_pages)
+    cache = init_params(specs, torch.Generator(), device=device, default_dtype=dtype)
+    if page_size is not None:
+        table = cache["page_table"]
+        max_pages = table.shape[1]
+        if page_table == "identity":
+            pool = cache["layers"]["k"].shape[1] - 1  # the sink is never mapped
+            if pool < batch * max_pages:
+                raise ValueError(
+                    f"identity page table needs {batch * max_pages} pages; "
+                    f"pool has {pool}"
+                )
+            table.copy_(torch.arange(batch * max_pages, dtype=torch.int32).view(table.shape))
+        elif page_table == "empty":
+            table.fill_(-1)
+        else:
+            raise ValueError(f"page_table must be 'identity' or 'empty': {page_table!r}")
+    return cache
 
 
 def _slot_keys(cache: dict) -> torch.Tensor:
@@ -104,7 +145,9 @@ def generate(
     """Reference generation loop, aligned with :class:`BatchingEngine`:
     each row stops at its first ``eos_id`` (emitted), later positions are
     padded with ``eos_id``; raises :class:`CacheOverflowError` up front when
-    ``prompt + max_new - 1`` writes cannot fit in ``max_len``."""
+    ``prompt + max_new - 1`` writes cannot fit in ``max_len``.  With
+    ``page_size``, K/V are paged behind an identity page table: the same
+    semantics in the paged layout."""
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
     B, S = prompts.shape
@@ -160,8 +203,12 @@ def _engine_steps(ctx: Ctx, scfg: SampleCfg, eos_id: Optional[int]):
     buffers the engine allocated, so that a captured decode step's replay
     sees what the steps wrote):
 
-    prefill: (params, cache, tokens, lens, admit, uids, max_news, base_key)
-             -> packed
+    prefill: (params, cache, tokens, lens, admit, uids, max_news, base_key,
+             starts, copy_src=None, copy_dst=None) -> packed; ``starts``
+             (B,) int32 is each slot's first prefilled position (everything
+             before it is mapped from shared pages; 0 on a dense cache), and
+             a paged cache takes (B,) int32 ``copy_src``/``copy_dst``, at
+             most one copy-on-write page copy a slot (-1: none), done first
     decode:  (params, cache) -> packed
 
     with packed (B, 3) int32 = [sampled token, done, overflow].  Logits are
@@ -184,18 +231,31 @@ def _engine_steps(ctx: Ctx, scfg: SampleCfg, eos_id: Optional[int]):
         return tok == eos_id
 
     @torch.no_grad()
-    def prefill(params, cache, tokens, lens, admit, uids, max_news, base_key):
+    def prefill(
+        params, cache, tokens, lens, admit, uids, max_news, base_key, starts,
+        copy_src=None, copy_dst=None,
+    ):
+        if "page_table" in cache:
+            # copy-on-write first: the tail below writes only private copies,
+            # never pages other slots still map
+            for leaf in cache["layers"].values():
+                copy_pages(leaf, copy_src, copy_dst)
+        T = cache["pos"].shape[1]
         adm1 = admit[:, None]
-        cache["index"].masked_fill_(admit, 0)
-        cache["pos"].masked_fill_(adm1, 0)
-        cache["valid"] &= ~adm1
+        tpos = torch.arange(T, dtype=torch.int32, device=tokens.device)[None, :]
+        shared = tpos < starts[:, None]  # mapped from the prefix registry
+        cache["index"].copy_(torch.where(admit, starts, cache["index"]))
+        # the shared slots are valid at their absolute positions; the masked
+        # forward writes the tail
+        cache["pos"].copy_(torch.where(adm1, torch.where(shared, tpos, 0), cache["pos"]))
+        cache["valid"].copy_(torch.where(adm1, shared, cache["valid"]))
         cache["overflow"] &= ~admit
         fresh_keys = fold_key(base_key, uids)
         cache["slot_key"].copy_(torch.where(admit, fresh_keys, cache["slot_key"]))
-        remaining = max_news - 1
         cache["slot_remaining"].copy_(
-            torch.where(admit, remaining, cache["slot_remaining"])
+            torch.where(admit, max_news - 1, cache["slot_remaining"])
         )
+        # the masked forward, and each slot's sample at its last real token
         S = tokens.shape[1]
         steps = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
         mask = (steps < lens[:, None]) & adm1
@@ -246,7 +306,9 @@ class BatchingEngine:
 
     ``cuda_graph`` (default: on for a CUDA device, off on the CPU, where
     ``True`` raises) runs the decode step as replays of one captured CUDA
-    graph; ``False`` keeps the eager step."""
+    graph; ``False`` keeps the eager step.  ``page_size`` pages the cache
+    (``num_pages`` physical pages, default ``num_slots * max_len /
+    page_size``; ``share_prefixes`` maps registered prompt prefixes)."""
 
     def __init__(
         self,
@@ -260,6 +322,8 @@ class BatchingEngine:
         admit: str = "batched",
         prefill_bucket: int | None = None,
         page_size: int | None = None,
+        num_pages: int | None = None,
+        share_prefixes: bool = True,
         device: str | torch.device = "cuda",
         cuda_graph: bool | None = None,
     ):
@@ -270,8 +334,6 @@ class BatchingEngine:
             )
         if admit not in ("batched", "per-slot"):
             raise ValueError(f"admit must be 'batched' or 'per-slot': {admit!r}")
-        if page_size is not None:
-            raise NotImplementedError("paged serving comes with the paging slice")
         self.device = resolve_device(device)
         if cuda_graph is None:
             cuda_graph = self.device.type == "cuda"
@@ -287,8 +349,24 @@ class BatchingEngine:
         self.admit_mode = admit
         self.queue: list[Request] = []
         self.slots: list[Optional[Request]] = [None] * num_slots
-        self.cache = make_cache(ctx.cfg, num_slots, max_len, ctx, device=self.device)
+        self.page_size = page_size
+        self.cache = make_cache(
+            ctx.cfg, num_slots, max_len, ctx, page_size=page_size,
+            num_pages=num_pages, page_table="empty", device=self.device,
+        )
         self._T = self.cache["pos"].shape[1]
+        self.alloc: Optional[PageAllocator] = None
+        if page_size is not None:
+            pages_per_slot = self._T // page_size
+            self.alloc = PageAllocator(
+                num_pages or num_slots * pages_per_slot, page_size, num_slots,
+                pages_per_slot, share=share_prefixes,
+            )
+            # the host side of the device table's in-place uploads
+            self._table_host = torch.empty(
+                self.alloc.table.shape, dtype=torch.int32,
+                pin_memory=self.device.type == "cuda",
+            )
         self.prefill_bucket = prefill_bucket
         if prefill_bucket is not None and prefill_bucket > self._T:
             raise ValueError(
@@ -305,7 +383,8 @@ class BatchingEngine:
         self._base_key = torch.tensor(seed, dtype=torch.int64, device=dev)
         self._prefill, self._decode = _engine_steps(ctx, self.sample, eos_id)
         self.readbacks = 0  # host syncs: 1/decode step + 1/admission prefill
-        self.prefill_tokens = 0
+        self.prefill_tokens = 0  # tokens actually prefilled (tails only)
+        self._slot_len = [0] * num_slots  # host mirror of each slot's index
 
     def submit(self, req: Request):
         plen = int(len(req.prompt))
@@ -335,48 +414,108 @@ class BatchingEngine:
             )
         return arr
 
+    def _upload_table(self):
+        """Copy the allocator's table into the device ``page_table`` in
+        place, through the pinned staging buffer, on the engine's stream
+        (each step's read-back completes the copy before the buffer is
+        written again)."""
+        self._table_host.copy_(torch.from_numpy(self.alloc.table))
+        self.cache["page_table"].copy_(self._table_host, non_blocking=True)
+
+    def _plan_batch(self, free: list[int], limit: int):
+        """Pop up to ``limit`` admittable requests, assigning slots (and,
+        when paged, page mappings).  A candidate whose prefix would match
+        pages written in this same round waits a round, to share them."""
+        placed: list[tuple[Request, int, Any]] = []
+        pending: set[bytes] = set()
+        while self.queue and len(placed) < limit:
+            req = self.queue.pop(0)
+            if req.max_new <= 0:
+                req.done = True  # nothing requested; don't pay a prefill
+                continue
+            s = free[len(placed)]
+            if self.alloc is None:
+                placed.append((req, s, None))
+                continue
+            pnp = np.asarray(req.prompt, np.int32)
+            keys = (
+                [
+                    _prefix_key(pnp, m * self.page_size)
+                    for m in range(1, len(pnp) // self.page_size + 1)
+                ]
+                if self.alloc.share
+                else []
+            )
+            if any(k in pending and not self.alloc.has_prefix(k) for k in keys):
+                self.queue.insert(0, req)  # share with this round's donor
+                break  # once it registers, next round
+            plan = self.alloc.admit(s, pnp)
+            if plan is None:  # pool dry: wait for retires to free pages
+                self.queue.insert(0, req)
+                break
+            pending.update(keys)
+            placed.append((req, s, plan))
+        return placed
+
     def _admit(self):
         while self.queue and any(s is None for s in self.slots):
             free = [i for i, s in enumerate(self.slots) if s is None]
             limit = 1 if self.admit_mode == "per-slot" else len(free)
-            placed: list[tuple[Request, int]] = []
-            while self.queue and len(placed) < limit:
-                req = self.queue.pop(0)
-                if req.max_new <= 0:
-                    req.done = True  # nothing requested; don't pay a prefill
-                    continue
-                placed.append((req, free[len(placed)]))
+            placed = self._plan_batch(free, limit)
             if not placed:
+                if self.alloc is not None and self.queue and all(
+                    r is None for r in self.slots
+                ):
+                    raise CacheOverflowError(
+                        f"request {self.queue[0].uid}: page pool exhausted with no "
+                        "active slots to retire; raise num_pages"
+                    )
                 return
             B = self.num_slots
-            prompts = [np.asarray(r.prompt, np.int32) for r, _ in placed]
-            S = self.prefill_bucket or _bucket(max(len(t) for t in prompts), self._T)
+            tails = [
+                np.asarray(r.prompt, np.int32)[(p.start if p else 0):]
+                for r, _, p in placed
+            ]
+            S = self.prefill_bucket or _bucket(max(len(t) for t in tails), self._T)
             tokens = np.zeros((B, S), np.int32)
             lens = np.ones((B,), np.int32)
             admit = np.zeros((B,), bool)
             uids = np.zeros((B,), np.int64)
             max_news = np.ones((B,), np.int32)
-            for (req, s), prompt in zip(placed, prompts):
-                tokens[s, : len(prompt)] = prompt
-                lens[s], admit[s] = len(prompt), True
+            starts = np.zeros((B,), np.int32)
+            copy_src = np.full((B,), -1, np.int32)
+            copy_dst = np.full((B,), -1, np.int32)
+            for (req, s, plan), tail in zip(placed, tails):
+                tokens[s, : len(tail)] = tail
+                lens[s], admit[s] = len(tail), True
                 uids[s], max_news[s] = req.uid, req.max_new
+                if plan is not None:
+                    starts[s] = plan.start
+                    copy_src[s], copy_dst[s] = plan.copy_src, plan.copy_dst
             dev = self.device
+            copies = []
+            if self.alloc is not None:
+                self._upload_table()
+                copies = [copy_src, copy_dst]
+            args = [torch.from_numpy(a).to(dev) for a in (tokens, lens, admit, uids, max_news)]
             packed = self._prefill(
-                self.params,
-                self.cache,
-                torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(lens).to(dev),
-                torch.from_numpy(admit).to(dev),
-                torch.from_numpy(uids).to(dev),
-                torch.from_numpy(max_news).to(dev),
-                self._base_key,
+                self.params, self.cache, *args, self._base_key,
+                *(torch.from_numpy(a).to(dev) for a in [starts] + copies),
             )
-            self.prefill_tokens += int(sum(len(t) for t in prompts))
+            for (req, s, plan), tail in zip(placed, tails):
+                if self.alloc is not None:
+                    # the prefill writing these pages has been issued: safe
+                    # to register them for later admissions to map
+                    self.alloc.register(s, np.asarray(req.prompt, np.int32))
+                self._slot_len[s] = (plan.start if plan else 0) + len(tail)
+            self.prefill_tokens += int(sum(len(t) for t in tails))
             arr = self._check(packed)
-            for req, s in placed:
+            for req, s, _ in placed:
                 req.generated.append(int(arr[s, 0]))
                 if arr[s, 1]:  # EOS at prefill or max_new == 1: free the slot
                     req.done = True
+                    if self.alloc is not None:
+                        self.alloc.retire(s)
                 else:
                     self.slots[s] = req
 
@@ -414,14 +553,29 @@ class BatchingEngine:
         self._admit()
         if all(r is None for r in self.slots):
             return False
+        if self.alloc is not None:
+            dirty = False
+            for s, req in enumerate(self.slots):
+                if req is not None:
+                    try:
+                        # the decode below writes this slot's K/V at its
+                        # current length: map that page first
+                        dirty |= self.alloc.ensure_page(s, self._slot_len[s])
+                    except PagePoolExhausted as e:
+                        raise CacheOverflowError(str(e)) from None
+            if dirty:
+                self._upload_table()
         arr = self._check(self._decode_step())
         for s, req in enumerate(self.slots):
             if req is None:
                 continue
+            self._slot_len[s] += 1
             req.generated.append(int(arr[s, 0]))
             if arr[s, 1]:
                 req.done = True
                 self.slots[s] = None
+                if self.alloc is not None:
+                    self.alloc.retire(s)
         return True
 
     def run(self) -> list[Request]:

@@ -972,3 +972,142 @@ def test_graph_capture_refuses_a_read_back_on_card(cuda_device, path, monkeypatc
     assert eng._graph is None
     assert torch.equal(eng.cache["index"], index)
     assert eng.readbacks == readbacks and _counts_now() == counts
+
+
+# ---------------------------------------------------------------------------
+# The paged KV cache under the decode step's CUDA graph: the page table is
+# one device tensor, updated in place between replays
+# ---------------------------------------------------------------------------
+
+PAGE = 4
+
+
+def _paged_prompts(vocab):
+    """Two prompts open with one shared 8-token system prompt (two pages),
+    one IS that prompt (a whole-prompt hit: copy-on-write), two share
+    nothing."""
+    rng = np.random.default_rng(31)
+    system = rng.integers(0, vocab, 2 * PAGE).astype(np.int32)
+    own = [rng.integers(0, vocab, n).astype(np.int32) for n in (3, 5, 7, 2)]
+    return [np.concatenate([system, own[0]]), own[2], np.concatenate([system, own[1]]),
+            system.copy(), own[3]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", GRAPH_PATHS)
+def test_paged_graph_engine_matches_the_eager_engine_on_card(cuda_device, path):
+    """The paged engine (page_size 4, shared prefixes): the graph's streams
+    equal the eager step's whole, with the same launch counts and forwards;
+    drained and released, no page is in use."""
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import BatchingEngine, Request
+    from repro_torch.kernels.common import launch_counters
+
+    cfg, params, ex = _graph_world(path, cuda_device)
+    runs = {}
+    for graph in (False, None):
+        eng = BatchingEngine(params, Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex)), GRAPH_SLOTS,
+                             GRAPH_MAX_LEN, page_size=PAGE, device=cuda_device, cuda_graph=graph)
+        reqs = [Request(i, p, GRAPH_MAX_NEW) for i, p in enumerate(_paged_prompts(cfg.vocab_size))]
+        for r in reqs:
+            eng.submit(r)
+        for c in launch_counters():
+            c.update(dict.fromkeys(c, 0))
+        eng.run()
+        torch.cuda.synchronize()
+        runs[graph] = [r.generated for r in reqs], _counts_now(), eng
+    (eager, eager_counts, eager_eng), (got, counts, eng) = runs[False], runs[None]
+    assert eng._graph is not None and eager_eng._graph is None
+    assert got == eager
+    assert counts == eager_counts and sum(counts.values()) > 0
+    assert eng.readbacks == eager_eng.readbacks
+    assert eng.prefill_tokens == eager_eng.prefill_tokens < sum(
+        len(p) for p in _paged_prompts(cfg.vocab_size))
+    for e in (eng, eager_eng):
+        e.alloc.release_prefixes()
+        assert e.alloc.pages_in_use == 0
+
+
+@pytest.mark.cuda
+def test_paged_replays_write_across_page_boundaries_on_card(cuda_device):
+    """Two slots whose decode writes cross page boundaries at different
+    steps, all but the first two steps as graph replays, stepped beside the
+    eager paged engine: after every step the device table holds the host's
+    rows for the live slots, and every layer's K and V gathered through it
+    equal the eager engine's at every valid position, so each replayed
+    write landed in the page the table maps at that step."""
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import BatchingEngine, Request
+    from repro_torch.serve._cache import paged_view, view_index
+
+    cfg, params, ex = _graph_world("weight", cuda_device)
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex))
+    rng = np.random.default_rng(37)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (3, 6)]
+    engines = [BatchingEngine(params, ctx, 2, GRAPH_MAX_LEN, page_size=PAGE,
+                              device=cuda_device, cuda_graph=graph) for graph in (None, False)]
+    reqs = [[Request(i, p, 12) for i, p in enumerate(prompts)] for _ in engines]
+    for eng, rs in zip(engines, reqs):
+        for r in rs:
+            eng.submit(r)
+    graph, eager = engines
+    table, layers = graph.cache["page_table"], dict(graph.cache["layers"])
+    crossings = steps = 0
+    while True:
+        mapped = int((graph.alloc.table >= 0).sum())
+        more = graph.step()
+        assert more == eager.step()
+        torch.cuda.synchronize()
+        steps += 1
+        crossings += steps > 2 and int((graph.alloc.table >= 0).sum()) > mapped
+        assert graph.cache["page_table"] is table
+        assert all(graph.cache["layers"][n] is t for n, t in layers.items())
+        np.testing.assert_array_equal(graph.alloc.table, eager.alloc.table)
+        live = [s for s, r in enumerate(graph.slots) if r is not None]
+        np.testing.assert_array_equal(table.cpu().numpy()[live], graph.alloc.table[live])
+        valid = graph.cache["valid"]
+        assert torch.equal(valid, eager.cache["valid"])
+        for name, pool in layers.items():
+            for layer in range(pool.shape[0]):
+                got = paged_view(pool[layer], *view_index(table))
+                want = paged_view(eager.cache["layers"][name][layer],
+                                  *view_index(eager.cache["page_table"]))
+                for s in live:
+                    assert torch.equal(got[s][valid[s]], want[s][valid[s]]), (name, layer, s, steps)
+        if not more:
+            break
+    assert graph._graph is not None and crossings >= 2
+    assert [r.generated for r in reqs[0]] == [r.generated for r in reqs[1]]
+
+
+@pytest.mark.cuda
+def test_paged_decode_forward_reads_nothing_back_on_card(cuda_device):
+    """Routing, the paged write and view, and a copy-on-write copy, under
+    ``set_sync_debug_mode("error")``: no read-back."""
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
+    from repro_torch.serve._cache import copy_pages
+
+    cfg, params, ex = _graph_world("weight", cuda_device)
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex))
+    cache = make_cache(cfg, 3, GRAPH_MAX_LEN, ctx, page_size=PAGE, device=cuda_device)
+    cache["overflow"] = torch.zeros(3, dtype=torch.bool, device=cuda_device)
+    tok = torch.tensor([[5], [6], [7]], dtype=torch.int32, device=cuda_device)
+    live = torch.tensor([[True], [False], [True]], device=cuda_device)
+    src = torch.tensor([0, -1, -1], dtype=torch.int32, device=cuda_device)
+    dst = torch.tensor([9, -1, -1], dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        model_forward(params, {"tokens": tok, "token_mask": live}, ctx, cache=cache)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for leaf in cache["layers"].values():
+                copy_pages(leaf, src, dst)
+            out, _, _ = model_forward(params, {"tokens": tok, "token_mask": live}, ctx,
+                                      cache=cache)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out).all()
+    assert cache["index"].tolist() == [2, 0, 2]
+    assert not cache["overflow"].any()
