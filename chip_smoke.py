@@ -2,8 +2,8 @@
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
     python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
-                                    tl1_kernel,tl1_serve,moe_kernel,moe_serve,
-                                    bmm_kernel,bmm_serve,paper]
+                                    mla_serve,tl1_kernel,tl1_serve,moe_kernel,
+                                    moe_serve,bmm_kernel,bmm_serve,paper]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -65,6 +65,21 @@ Phases, one JSON object per line:
    Reported: median decode step and tok/s per path, KV bytes, peak pages,
    and the decode profiles paged against dense with the kernels paging
    adds, by name.
+3c. ``mla_serve``  full-width minicpm3_4b (MLA attention: a latent KV
+   cache of ``c_kv`` and a shared ``k_rope``), depth cut from 62 to 16
+   layers, planned by the serving recipe with chunks capped at 1 and
+   ``wk_b``/``wv_b`` vetoed (the absorbed form reads them as raw weights),
+   converted to i8 tables and served through ``BatchingEngine`` on the
+   kernels, graph and eager in turns (``serve_paths``): launches 5L + 1 /
+   L / 6L + 1 per forward, no pack off the kernel, no table copy; then on
+   the plain versions (first tokens identical, prefill logits at 1 / 4 / 16
+   layers within LOGITS_TOL / LOGITS_FRO_TOL); then paged at PAGE_SIZE on
+   ``paged_requests``' traffic: (a) dense graph, (b) paged graph, (c) paged
+   eager, (f) dense graph with its latents rounded to bf16; (b) and (c)
+   serve identical streams, (f) serves (b)'s whole, ``prefill_tokens`` is
+   what sharing predicts.  Last, each of the seven LUT calls (a layer's six
+   and lm_head) at the decode shape, kernel against plain, its device ms
+   beside its bound.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -130,7 +145,7 @@ Phases, one JSON object per line:
    ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
    plain version.
 
-The four serve phases (3, 5, 7, 9) serve their requests on the kernels
+The five serve phases (3, 3c, 5, 7, 9) serve their requests on the kernels
 with the engine's decode step captured as a CUDA graph and replayed (the
 engine's default on the card, the main path) and eager
 (``cuda_graph=False``), in turns: eager, graph, graph, eager, after one
@@ -151,10 +166,11 @@ behind a spin kernel until the host has enqueued them all.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after.  Then one ``kernels`` summary line (the row of
-``bitplane_pack`` sums its launches over the five paths that pack,
+``bitplane_pack`` sums its launches over the six paths that pack,
 ``launches_by_path``, and times one binary-cell decode layer's 7 packs;
 ``lut_affine`` and ``lut_tl1`` add the paper networks' launches to their
-serve phase's, the weight cell's kernels the paged engine's; a null
+serve phase's, the weight cell's kernels the paged engine's and the MLA
+cell's; a null
 ``library_ms`` comes with its ``library_reason``),
 the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero
@@ -220,6 +236,14 @@ DRY_POOLS = (16, SMALL_POOL - 1)
 # paged prefill, which reads them from its bf16 pool: the CPU test's limit
 # (x max|dense on bf16 K/V|); PR 23's card runs measured 0
 BF16_KV_TOL = 1e-3
+
+# the mla_serve phase: full-width minicpm3_4b, depth cut from 62 to 16 (the
+# recipe's chunk-1 i8 tables take ~1.8 GiB a layer and lm_head ~5.6 GiB:
+# all 62 layers would need ~119 GiB), its prefill logits held kernel
+# against plain at these depths (the plain path costs ~40x the kernels' per
+# call, so not at every depth)
+MLA_LAYERS = 16
+MLA_DEPTHS = (1, 4, MLA_LAYERS)
 
 # the pack_kernel phase: per cell, the model, the kind of its packs and
 # its packed inputs: (input, width, rows at decode, rows at prefill, packs
@@ -851,23 +875,28 @@ def count_plain_packs():
 
 @contextlib.contextmanager
 def bf16_attention_inputs():
-    """Inside a ``with`` block, the model's attention takes its K/V rounded
-    to bf16, as a paged prefill reads them from its cache (a dense prefill
-    attends over its fp32 in-flight K/V; cached K/V are bf16 already)."""
+    """Inside a ``with`` block, the model's attention takes its K/V (MLA:
+    its latents ``c_kv`` and ``k_rope``) rounded to bf16, as a paged
+    prefill reads them from its cache (a dense prefill attends over its
+    fp32 in-flight K/V; cached ones are bf16 already)."""
     import torch
 
     from repro_torch.models import layers
 
-    saved = layers._sdpa
+    sdpa, latent_sdpa = layers._sdpa, layers._latent_sdpa
 
     def rounded(q, k, v, mask):
-        return saved(q, k.to(torch.bfloat16), v.to(torch.bfloat16), mask)
+        return sdpa(q, k.to(torch.bfloat16), v.to(torch.bfloat16), mask)
 
-    layers._sdpa = rounded
+    def rounded_latents(q_nope, q_rope, c_kv, k_rope, mask, wk_b, wv_b):
+        return latent_sdpa(q_nope, q_rope, c_kv.to(torch.bfloat16), k_rope.to(torch.bfloat16),
+                           mask, wk_b, wv_b)
+
+    layers._sdpa, layers._latent_sdpa = rounded, rounded_latents
     try:
         yield
     finally:
-        layers._sdpa = saved
+        layers._sdpa, layers._latent_sdpa = sdpa, latent_sdpa
 
 
 @contextlib.contextmanager
@@ -1300,6 +1329,287 @@ def paged_serve_phase(model, layers: int, max_new: int) -> dict:
           "nvidia_smi": smi_line(),
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
     return {"launches": b["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# mla_serve phase
+# ---------------------------------------------------------------------------
+
+
+def mla_cell(layers: int):
+    """The MLA cell's model: full-width minicpm3_4b cut to ``layers``,
+    seeded random weights planned by the serving recipe (half the uniform
+    chunk-2 footprint, the widened frontier) with chunks capped at 1 and
+    ``wk_b``/``wv_b`` vetoed (``models/layers.py::mla_convertible``: the
+    absorbed form reads them as raw weights), and converted; emits the
+    ``plan`` and ``convert`` lines and returns (config, converted tree)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import conversion_summary, convert_params
+    from repro_torch.core.planner import plan_model
+    from repro_torch.models.layers import MLA_RAW_WEIGHTS, mla_convertible
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params
+
+    full = get_config("minicpm3_4b")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(model_specs(cfg), gen, device=DEV)
+    uniform = plan_model(params, float("inf"), max_chunk=2, predicate=mla_convertible)
+    kw = dict(modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
+              table_formats=(None, "i8"), predicate=mla_convertible)
+    budget = uniform.total_lut_bytes // 2
+    mplan = plan_model(params, budget, max_chunk=1, **kw)
+    uncapped = plan_model(params, budget, max_chunk=2, **kw)
+    kinds = sorted({
+        f"{p.mode}-r{p.fmt.mantissa_radix}-{p.table_format}-c{p.chunk_size}"
+        for p in mplan.layers.values()
+    })
+    mib = 2**20
+    head = mplan.layers["lm_head"].total_lut_bytes
+    per_layer = (mplan.total_lut_bytes - head) / layers / mib
+    # a stacked entry's bytes are one layer's
+    entries = {key: p.total_lut_bytes / mib for key, p in mplan.layers.items()}
+    wider = {key: {"chunk": p.chunk_size, "mib_per_layer": p.total_lut_bytes / mib}
+             for key, p in uncapped.layers.items() if p.chunk_size > 1}
+    emit({"phase": "mla_serve", "step": "plan", "summary": mplan.summary(),
+          "table_mib": mplan.total_lut_bytes / mib, "table_mib_per_layer": per_layer,
+          "lm_head_table_mib": head / mib, "entry_mib_per_layer": entries, "plans": kinds,
+          "groups": [list(g) for g in mplan.groups], "vetoed": list(MLA_RAW_WEIGHTS),
+          "depth": {"layers": layers, "published": full.num_layers,
+                    "reason": f"{per_layer:.1f} MiB of i8 tables per layer and "
+                              f"{head / mib:.0f} MiB for the untied lm_head: all "
+                              f"{full.num_layers} layers would need "
+                              f"{(per_layer * full.num_layers * mib + head) / 2**30:.0f} GiB, "
+                              "more than the card's 80 GB; widths are the published ones"},
+          "uncapped_recipe": {"table_mib": uncapped.total_lut_bytes / mib,
+                              "entries_above_chunk_1": wider},
+          "chunk_cap_reason": "chunks capped at 1 as in moe_serve: the halved uniform chunk-2 "
+                              "budget is the recipe's, sized on the reduced configs; the "
+                              "uncapped plan of the same weights is reported beside it"})
+    lut, report = convert_params(params, plan=mplan, predicate=mla_convertible)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({"phase": "mla_serve", "step": "convert", "summary": conversion_summary(report),
+          "seconds": time.perf_counter() - t0, "table_bytes": report.table_bytes,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "memory_allocated_after_free_gib": torch.cuda.memory_allocated() / 2**30})
+    if report.table_bytes != mplan.total_lut_bytes:
+        raise AssertionError(f"tables {report.table_bytes} B != plan {mplan.total_lut_bytes} B")
+    return cfg, lut
+
+
+def lut_calls_per_forward(tree, layers: int) -> dict:
+    """The LUT launches one forward of a converted decoder of ``layers``
+    layers makes, from its tree: one ``lut_affine`` per lone projection and
+    layer, one ``lut_affine_grouped`` per group and layer, and one pack
+    before each (``linear`` packs its input, ``fused_linears`` once per
+    group)."""
+    from repro_torch.core.convert import LUTGroup, LUTLinear
+
+    calls = {"lut_affine": 0, "lut_affine_grouped": 0}
+
+    def walk(node, n):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v, n)
+        elif isinstance(node, LUTLinear):
+            calls["lut_affine"] += n
+        elif isinstance(node, LUTGroup):
+            calls["lut_affine_grouped"] += n
+
+    for key, node in tree.items():
+        walk(node, layers if key == "blocks" else 1)
+    return {**calls, "bitplane_pack": sum(calls.values())}
+
+
+def mla_layer_calls(lut, iters: int) -> dict:
+    """Each of the cell's seven LUT calls at the decode shape (4 rows, on
+    layer 0's tables; lm_head's own), kernel against plain as the kernel
+    phase holds them, with its device ms beside ``bound``; returns the sums
+    over one layer's six calls."""
+    import torch
+
+    from repro_torch.core.convert import LUTGroup
+    from repro_torch.core.lut import pack_codes
+    from repro_torch.models.layers import _host_scales
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    layer = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    nodes = [(name, lut["blocks"][part][name].layer(0)) for part, names in
+             (("attn", ("wq_a", "wq_b", "wkv_a", "wo")), ("ffn", ("w_gate+w_up", "w_down")))
+             for name in names] + [("lm_head", lut["lm_head"])]
+    for proj, node in nodes:
+        plan = node.plan
+        grouped = isinstance(node, LUTGroup)
+        tables = node.tables if grouped else node.tables[None]
+        x = torch.randn(4, plan.in_features, generator=gen, device=DEV)
+        codes = pack_codes(x, plan)
+        r = run_case("lut_affine_grouped" if grouped else "lut_affine", codes, tables,
+                     _host_scales(plan, node.scale), plan.shift_bits, iters, 3)
+        emit({"phase": "mla_serve", "step": "layer_call", "proj": proj, "rows": 4,
+              "G": tables.shape[0], "n": plan.num_planes, "k": plan.in_features,
+              "E": plan.num_entries, "p": plan.out_features, "table": plan.table_format, **r,
+              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if proj != "lm_head":
+            for key in layer:
+                layer[key] += r[key]
+    return layer
+
+
+def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dict:
+    """Full-width minicpm3_4b (MLA attention, latent KV cache) cut to
+    ``layers``, served through ``BatchingEngine`` on the LUT kernels: dense
+    (graph and eager in turns, :func:`serve_paths`), then on the plain
+    versions (first tokens identical, prefill logits at MLA_DEPTHS), then
+    paged at PAGE_SIZE on ``paged_requests``' traffic: (a) dense graph, (b)
+    paged graph, (c) paged eager, (f) dense graph with its latents rounded
+    to bf16, which must serve (b)'s streams whole; last, the decode-shape
+    time of each LUT call of a layer beside its bound."""
+    import torch
+
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
+
+    cfg, lut = mla_cell(layers)
+    # wq_a, wq_b, wkv_a, wo and w_down alone, w_gate+w_up grouped, lm_head;
+    # one pack each (wq_a and wkv_a pack the same x twice: sharing that pack
+    # is ROADMAP Queue 1 item 2)
+    per_forward = lut_calls_per_forward(lut, layers)
+    want = {"lut_affine": 5 * layers + 1, "lut_affine_grouped": layers,
+            "bitplane_pack": 6 * layers + 1}
+    if per_forward != want:
+        raise AssertionError(f"the converted tree makes {per_forward} calls a forward, "
+                             f"not {want}")
+    prompts = serve_requests(cfg, requests)
+    torch.cuda.reset_peak_memory_stats()
+    reqs, eng, wall, decode_ms, launches, uncovered = serve_paths(
+        "mla_serve", lut, cfg, prompts, max_new, per_forward)
+    copies = lut_ops.TABLE_COPIES["table_operand"]
+    forwards = eng.readbacks
+    expect = {**no_launches(), **{k: v * forwards for k, v in per_forward.items()}}
+    tokens = sum(len(r.generated) for r in reqs)
+    emit({"phase": "mla_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
+          "tok_per_s": tokens / wall, "wall_s": wall,
+          "median_decode_step_ms": statistics.median(decode_ms),
+          "forwards": forwards, "launches": launches, "expected_launches": expect,
+          "per_forward": per_forward, "plain_pack_codes_calls": uncovered,
+          "table_copies": copies,
+          "kv_bytes": sum(t.nbytes for t in eng.cache["layers"].values()),
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if launches != expect or forwards <= 0 or uncovered or copies:
+        raise AssertionError(f"launch counts {launches} != expected {expect}, or {uncovered} "
+                             f"packs off the kernel, or {copies} table copies")
+    if not all(len(r.generated) == max_new for r in reqs):
+        raise AssertionError("a request stopped short of max_new")
+
+    with count_plain_packs() as packs:
+        plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
+                                                             False, cuda_graph=False)
+    first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
+    same = sum(
+        x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
+    )
+    emit({"phase": "mla_serve", "step": "plain", "tok_per_s": tokens / plain_wall,
+          "wall_s": plain_wall, "median_decode_step_ms": statistics.median(plain_decode),
+          "first_tokens_identical": first_ok, "identical_token_share": same / tokens,
+          "pack_codes_calls": packs["calls"]})
+    if not first_ok:
+        raise AssertionError("mla_serve: kernel and plain paths disagree on a first token")
+    if packs["calls"] != launches["bitplane_pack"]:
+        raise AssertionError(f"the plain run packed {packs['calls']} times, the kernel run "
+                             f"{launches['bitplane_pack']}")
+
+    inputs = prefill_inputs(prompts)
+
+    def prefill_logits(depth: int, use_kernels: bool):
+        dcfg = dataclasses.replace(cfg, num_layers=depth)
+        params = dict(lut, blocks=first_layers(lut["blocks"], depth))
+        ctx = Ctx(dcfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
+        cache = make_cache(dcfg, SLOTS, MAX_LEN, ctx, device=DEV)
+        with torch.no_grad():
+            logits, _, _ = model_forward(params, inputs, ctx, cache=cache)
+        return logits[inputs["token_mask"]]
+
+    for depth in MLA_DEPTHS:
+        got, ref = prefill_logits(depth, True), prefill_logits(depth, False)
+        res = compare_logits(got, ref)
+        finite = bool(torch.isfinite(got).all().item())
+        tol = LOGITS_TOL * res["max_abs_ref"]
+        line = {"phase": "mla_serve", "step": "prefill_logits", "layers": depth,
+                "shape": list(got.shape), **res, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL,
+                "finite": finite, "tol_reason": "as the serve phase's: the paths sum in other "
+                "orders and each projection re-quantizes its input, so an activation near an "
+                "fp16 rounding boundary takes the neighbouring code before the next lookup"}
+        if depth == layers:
+            # noise floor: the plain path against itself in another fp32 order
+            with plain_gather_bytes(64 * 2**20):
+                line["plain_vs_plain"] = compare_logits(prefill_logits(depth, False), ref)
+        emit(line)
+        if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
+            raise AssertionError(f"MLA prefill logits differ at {depth} layers: {res} "
+                                 f"(tol {tol}, {LOGITS_FRO_TOL})")
+        del got, ref
+
+    # paged: the latent cache in pages of PAGE_SIZE, a shared system prompt
+    pprompts = paged_requests(cfg)
+
+    def served(name, paged, cuda_graph=None):
+        reset_launches()
+        reqs, eng, wall, decode_ms = run_engine(
+            lut, cfg, pprompts, max_new, True, cuda_graph=cuda_graph,
+            engine={"page_size": PAGE_SIZE} if paged else None)
+        launches, uncovered = read_launches(), plain_pack_codes_calls()
+        expect = {**no_launches(), **{k: v * eng.readbacks for k, v in per_forward.items()}}
+        if launches != expect or uncovered or eng.readbacks <= 0:
+            raise AssertionError(f"mla_serve {name}: launch counts {launches} != expected "
+                                 f"{expect}, or {uncovered} packs off the kernel")
+        if (cuda_graph is None) is not (eng._graph is not None):
+            raise AssertionError(f"mla_serve {name}: the decode step did not run as asked")
+        tokens = sum(len(r.generated) for r in reqs)
+        emit({"phase": "mla_serve", "step": "paged_run", "name": name, "paged": paged,
+              "cuda_graph": eng._graph is not None,
+              "median_decode_step_ms": statistics.median(decode_ms), "tok_per_s": tokens / wall,
+              "forwards": eng.readbacks, "prefill_tokens": eng.prefill_tokens,
+              "launches": launches,
+              "kv_bytes": sum(t.nbytes for t in eng.cache["layers"].values())})
+        return [r.generated for r in reqs], eng.prefill_tokens
+
+    a, _ = served("a_dense_graph", False)
+    b, b_prefilled = served("b_paged_graph", True)
+    c, c_prefilled = served("c_paged_eager", True, cuda_graph=False)
+    with bf16_attention_inputs():
+        f, _ = served("f_dense_graph_bf16_latents", False)
+    predicted = shared_prefill_tokens(pprompts)
+    checks = {
+        "paged_streams_identical_b_c": b == c,
+        "dense_bf16_latents_streams_identical_b": f == b,
+        "prefill_tokens_as_shared": b_prefilled == c_prefilled == predicted,
+    }
+    emit({"phase": "mla_serve", "step": "paged_checks", **checks,
+          "prefill_tokens": {"paged": b_prefilled, "predicted": predicted,
+                             "prompt_tokens": sum(len(p) for p in pprompts)},
+          "tokens_agreeing_a_b_per_request": [sum(x == y for x, y in zip(p, q))
+                                              for p, q in zip(a, b)],
+          "first_tokens": {"a": [s[0] for s in a], "b": [s[0] for s in b]}})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mla_serve: failed paged checks {failed}")
+
+    layer = mla_layer_calls(lut, iters)
+    emit({"phase": "mla_serve", "step": "layer", "calls": 6, **layer,
+          "nvidia_smi": smi_line(),
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del lut
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def read_launches() -> dict:
@@ -2955,8 +3265,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases",
-        default="device,pack_kernel,kernel,serve,paged_serve,tl1_kernel,tl1_serve,moe_kernel,"
-                "moe_serve,bmm_kernel,bmm_serve,paper",
+        default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,tl1_kernel,tl1_serve,"
+                "moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -3000,6 +3310,8 @@ def main(argv=None) -> int:
     if srv is not None:
         srv.pop("model", None)
     torch.cuda.empty_cache()
+    mla = mla_serve_phase(MLA_LAYERS, REQUESTS, MAX_NEW, args.iters) \
+        if "mla_serve" in phases else None
     tkern = tl1_kernel_phase(args.iters, 4 * 32) if "tl1_kernel" in phases else None
     tsrv = tl1_serve_phase(TL1_LAYERS, REQUESTS, MAX_NEW) if "tl1_serve" in phases else None
     torch.cuda.empty_cache()
@@ -3020,9 +3332,9 @@ def main(argv=None) -> int:
         for name in names:
             m = k["main"][name]
             # lut_affine and lut_tl1 also run the paper networks, the weight
-            # cell's kernels the paged engine
+            # cell's kernels the paged engine and the MLA cell
             by_path = {path: s["launches"][name]}
-            for other, o in (("paged_serve", psrv), ("paper", paper)):
+            for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("paper", paper)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -3040,8 +3352,8 @@ def main(argv=None) -> int:
             })
     # the packing kernel runs on four paths; its times are one binary-cell
     # decode layer's 7 packs (layer_ms and layer_bound_ms: each cell's layer)
-    paths = {name: s for name, s in (("serve", srv), ("paged_serve", psrv), ("moe_serve", msrv),
-                                     ("bmm_serve", bsrv), ("paper", paper))
+    paths = {name: s for name, s in (("serve", srv), ("paged_serve", psrv), ("mla_serve", mla),
+                                     ("moe_serve", msrv), ("bmm_serve", bsrv), ("paper", paper))
              if s is not None}
     if pkern is not None and paths:
         m = pkern["layers"]["binary"]

@@ -75,7 +75,7 @@ class ModelConfig:
         return self.num_heads * self.head_dim
 
 
-ARCH_NAMES = ["granite_8b", "qwen2_moe_a2_7b"]
+ARCH_NAMES = ["granite_8b", "minicpm3_4b", "qwen2_moe_a2_7b"]
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

@@ -1,6 +1,7 @@
 """Shared model layers for the dense decoder (counterpart of the dense
 half of ``repro/models/layers.py``): norms, RoPE, linears with the TableNet
-LUT path, GQA attention over a dense KV cache, the gated MLP and sampling.
+LUT path, GQA attention and MLA latent attention over a dense or paged KV
+cache, the gated MLP and sampling.
 
 Every projection goes through :func:`linear` (or :func:`fused_linears` for
 sibling projections over one input).  Converted trees carry
@@ -484,6 +485,124 @@ def attention(
     else:
         mask = causal_mask(positions, positions)
     return linear(p["wo"], _sdpa(q, k, v, mask), ctx)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (minicpm3: latent KV)
+# ---------------------------------------------------------------------------
+
+# The up-projections MLA reads as raw weights in its absorbed form: veto them
+# in the planner and the converter (``mla_convertible`` as their
+# ``predicate``), so that they stay fp32 latent products, as the reference
+# computes them in jnp outside any Pallas kernel.
+MLA_RAW_WEIGHTS = ("wk_b", "wv_b")
+
+
+def mla_convertible(path: tuple, node) -> bool:
+    """The planner's and converter's ``predicate`` for an MLA tree."""
+    return path[-1] not in MLA_RAW_WEIGHTS
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    nope, rdim, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    H = cfg.num_heads
+    return {
+        "wq_a": linear_spec(d, cfg.q_lora_rank, axes=("embed", None)),
+        "q_norm": {"scale": PSpec((cfg.q_lora_rank,), (None,), init="ones")},
+        "wq_b": linear_spec(cfg.q_lora_rank, H * (nope + rdim), axes=(None, "heads_flat")),
+        "wkv_a": linear_spec(d, cfg.kv_lora_rank + rdim, axes=("embed", None)),
+        "kv_norm": {"scale": PSpec((cfg.kv_lora_rank,), (None,), init="ones")},
+        "wk_b": linear_spec(cfg.kv_lora_rank, H * nope, axes=(None, "heads_flat")),
+        "wv_b": linear_spec(cfg.kv_lora_rank, H * vdim, axes=(None, "heads_flat")),
+        "wo": linear_spec(H * vdim, d, axes=("heads_flat", "embed")),
+    }
+
+
+def _raw_weight(p: dict, name: str) -> torch.Tensor:
+    node = p.get(name)
+    if not isinstance(node, dict):
+        raise ValueError(
+            f"MLA reads {name} as a raw weight (the absorbed form), but the tree holds "
+            f"{type(node).__name__ if node is not None else 'no such node'} there: plan "
+            f"and convert an MLA tree with predicate=mla_convertible, which vetoes "
+            f"{MLA_RAW_WEIGHTS}"
+        )
+    return node["w"]
+
+
+def _latent_sdpa(
+    q_nope: torch.Tensor,  # (B, Sq, H, nope)
+    q_rope: torch.Tensor,  # (B, Sq, H, rope_dim), rotated
+    c_kv: torch.Tensor,  # (B, Sk, kv_lora)
+    k_rope: torch.Tensor,  # (B, Sk, rope_dim), rotated, shared by every head
+    mask: torch.Tensor,  # (B, 1, Sq, Sk) bool
+    wk_b: torch.Tensor,  # (kv_lora, H * nope)
+    wv_b: torch.Tensor,  # (kv_lora, H * v_dim)
+) -> torch.Tensor:
+    """MLA's absorbed attention in fp32; returns (B, Sq, H * v_dim).
+    ``q_nope`` is projected into the latent space through ``wk_b``, the
+    scores take ``1/sqrt(nope + rope_dim)``, and the attended latents go
+    out through ``wv_b``: two fp32 latent products, as the reference's
+    einsums.  Cached bf16 latents widen to fp32 exactly, as the reference's
+    promotion."""
+    B, S, H, nope = q_nope.shape
+    r = c_kv.shape[-1]
+    q_lat = torch.einsum("bshn,lhn->bshl", q_nope, wk_b.reshape(r, H, nope))
+    scores = (
+        torch.einsum("bshl,btl->bhst", q_lat.to(torch.float32), c_kv.to(torch.float32))
+        + torch.einsum("bshr,btr->bhst", q_rope.to(torch.float32), k_rope.to(torch.float32))
+    ) / math.sqrt(nope + q_rope.shape[-1])
+    probs = torch.softmax(scores + _mask_bias(mask), dim=-1).to(q_nope.dtype)
+    ctx_lat = torch.einsum("bhst,btl->bshl", probs, c_kv.to(probs.dtype))
+    out = torch.einsum("bshl,lhv->bshv", ctx_lat, wv_b.reshape(r, H, -1))
+    return out.reshape(B, S, -1)
+
+
+def mla_attention(
+    p: dict,
+    x: torch.Tensor,
+    ctx: Ctx,
+    positions: torch.Tensor,
+    cache: dict | None = None,
+) -> torch.Tensor:
+    """Multi-head latent attention in the reference's absorbed form
+    (:func:`_latent_sdpa`): the cache holds the normed latent ``c_kv`` (B,
+    T, kv_lora) and one rotated ``k_rope`` (B, T, rope_dim) shared by every
+    head.
+
+    ``cache`` is one layer's ``{"c_kv", "k_rope"}`` views plus the step's
+    ``"_meta"``, written in place.  As in :func:`attention`, decode and a
+    paged prefill attend over the (bf16) cache, widened to fp32 as the
+    reference's einsums promote it; a dense prefill attends over its fp32
+    in-flight latents.  ``wq_a``, ``wq_b``, ``wkv_a`` and ``wo`` go through
+    :func:`linear` (the LUT kernels when converted)."""
+    cfg = ctx.cfg
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rdim, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    q_lat_in = apply_norm(p["q_norm"], linear(p["wq_a"], x, ctx), cfg)
+    q = linear(p["wq_b"], q_lat_in, ctx).reshape(B, S, H, nope + rdim)
+    q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+    kv = linear(p["wkv_a"], x, ctx)
+    c_kv = apply_norm(p["kv_norm"], kv[..., :r], cfg)
+    k_rope = rope(kv[..., r:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is not None:
+        from repro_torch.serve._cache import update_mla_cache
+
+        c_all, r_all, k_pos, k_valid = update_mla_cache(cache, c_kv, k_rope, positions, ctx)
+        if S == 1 or cache["_meta"].page_ids is not None:
+            c_kv, k_rope = c_all, r_all
+            mask = causal_mask(positions, k_pos, k_valid)
+        else:
+            mask = causal_mask(positions, positions)
+    else:
+        mask = causal_mask(positions, positions)
+
+    out = _latent_sdpa(q_nope, q_rope, c_kv, k_rope, mask, _raw_weight(p, "wk_b"),
+                       _raw_weight(p, "wv_b"))
+    return linear(p["wo"], out, ctx)
 
 
 # ---------------------------------------------------------------------------

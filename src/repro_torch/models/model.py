@@ -4,8 +4,8 @@
   model_forward(params, inputs, ctx, cache=None) -> (logits, cache, aux)
 
 with ``inputs = {"tokens": (B, S)}`` and optionally ``"token_mask"``.
-The port serves the dense and MoE families so far; the others raise until
-their slices arrive.
+The port serves the dense and MoE families so far, with GQA or (minicpm3)
+MLA attention; the other families raise until their slices arrive.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
-"""Decoder-only transformer LM, dense and MoE families (counterpart of
-``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense and MoE families, GQA or MLA
+attention (counterpart of ``repro/models/transformer.py``).
 
 Layer parameters are stacked along a leading ``layers`` axis, as in the
 reference; the block loop takes layer ``l``'s views of every leaf
-(``tables[l]``, ``w[l]``, cache ``k[l]``) -- nothing is re-stacked.
+(``tables[l]``, ``w[l]``, a cache leaf's ``[l]``) -- nothing is re-stacked.
 """
 from __future__ import annotations
 
@@ -30,16 +30,17 @@ def stack_specs(tree, n: int):
 def block_specs(cfg: ModelConfig) -> dict:
     return {
         "ln1": L.norm_spec(cfg),
-        "attn": L.attention_specs(cfg),
+        "attn": L.mla_specs(cfg) if cfg.attention == "mla" else L.attention_specs(cfg),
         "ln2": L.norm_spec(cfg),
         "ffn": moe_specs(cfg) if cfg.num_experts else L.mlp_specs(cfg),
     }
 
 
 def decoder_specs(cfg: ModelConfig) -> dict:
-    if cfg.attention != "gqa" or cfg.norm != "rmsnorm":
+    if cfg.attention not in ("gqa", "mla") or cfg.norm != "rmsnorm":
         raise NotImplementedError(
-            "MLA attention and layernorm come with their slices of the port"
+            f"{cfg.attention!r} attention with {cfg.norm!r} comes with its slice of the "
+            "port (ported: 'gqa' and 'mla' with 'rmsnorm')"
         )
     if cfg.sliding_window is not None:
         raise NotImplementedError("sliding-window rings come with the mixtral slice")
@@ -77,7 +78,8 @@ def _block_apply(p, x, ctx: Ctx, positions, layer_cache):
     """One block -> (x, the router's aux loss: 0 for a dense FFN)."""
     cfg = ctx.cfg
     h = L.apply_norm(p["ln1"], x, cfg)
-    x = x + L.attention(p["attn"], h, ctx, positions, cache=layer_cache)
+    attend = L.mla_attention if cfg.attention == "mla" else L.attention
+    x = x + attend(p["attn"], h, ctx, positions, cache=layer_cache)
     h = L.apply_norm(p["ln2"], x, cfg)
     if cfg.num_experts:
         h, aux = moe_ffn(p["ffn"], h, ctx)

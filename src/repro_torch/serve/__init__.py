@@ -6,7 +6,8 @@ Engine / generation: :class:`BatchingEngine`, :class:`Request`,
 :func:`generate`, :class:`SampleCfg`, :func:`make_prefill_step`,
 :func:`make_decode_step`.  Cache construction and contracts:
 :func:`make_cache`, :func:`cache_specs`, :func:`advance_meta` ->
-:class:`CacheWrite`, :func:`update_kv_cache`, :class:`CacheOverflowError`.
+:class:`CacheWrite`, :func:`update_kv_cache`, :func:`update_mla_cache`,
+:class:`CacheOverflowError`.
 Paged mode's host side, exposed for instrumentation:
 :class:`PageAllocator` (``engine.alloc``), :class:`PagePoolExhausted`.
 """
@@ -16,6 +17,7 @@ from repro_torch.serve._cache import (
     advance_meta,
     cache_specs,
     update_kv_cache,
+    update_mla_cache,
 )
 from repro_torch.serve._engine import (
     BatchingEngine,
@@ -43,4 +45,5 @@ __all__ = [
     "make_decode_step",
     "make_prefill_step",
     "update_kv_cache",
+    "update_mla_cache",
 ]

@@ -1,13 +1,15 @@
-"""Decode caches for the GQA decoder (counterpart of the dense and paged
-halves of ``repro/serve/_cache.py``).
+"""Decode caches for the dense decoder, GQA and MLA (counterpart of the
+dense and paged halves of ``repro/serve/_cache.py``).
 
-Dense layout: ``k``/``v`` ``(L, B, T, n_kv, head_dim)`` with T = max_len,
+Dense layout: per layer-stacked leaf ``(L, B, T, ...)`` with T = max_len --
+GQA's ``k``/``v`` ``(L, B, T, n_kv, head_dim)``, MLA's latent ``c_kv``
+``(L, B, T, kv_lora)`` and shared ``k_rope`` ``(L, B, T, rope_dim)`` --
 plus ``pos`` (B, T) absolute position per slot, ``valid`` (B, T) and
 ``index`` (B,), the next write offset per slot.
 
-Paged layout (``cache_specs(..., page_size=)``): ``k``/``v`` are a pool of
+Paged layout (``cache_specs(..., page_size=)``): the leaves are a pool of
 fixed-size pages shared by all slots, ``(L, num_pages + 1, page_size,
-n_kv, head_dim)``, behind a ``page_table`` (B, max_pages) int32 that maps
+...)``, behind a ``page_table`` (B, max_pages) int32 that maps
 each slot's logical page group to a physical page (-1 = unmapped).
 ``pos``/``valid``/``index`` keep their dense (B, T) shapes, T = max_pages
 * page_size.  The pool's last page is a *sink* that no allocator maps:
@@ -86,7 +88,7 @@ def cache_specs(
 ) -> dict:
     """PSpec tree for a fresh decode cache.
 
-    With ``page_size`` set, K/V are paged: leaves (L, num_pages + 1,
+    With ``page_size`` set, the leaves are paged: (L, num_pages + 1,
     page_size, ...) -- the last page the sink -- plus a (batch, max_pages)
     int32 ``page_table``.  ``num_pages`` (the pages an allocator may map)
     defaults to ``batch * max_pages``: every slot can hold a full
@@ -94,15 +96,15 @@ def cache_specs(
     must be a whole number of pages."""
     if (
         cfg.family not in ("dense", "moe")
-        or cfg.attention != "gqa"
+        or cfg.attention not in ("gqa", "mla")
         or cfg.sliding_window
     ):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} caches and sliding-window rings come "
             "with their family's slice"
         )
-    kv = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    axes = ("layers", "batch", "seq_kv", None, None)
+    lead = (cfg.num_layers, batch, max_len)
+    axes = ("layers", "batch", "seq_kv")
     meta = ("batch", "seq_kv")
     tree = {
         "pos": PSpec((batch, max_len), meta, init="zeros", dtype=torch.int32),
@@ -118,14 +120,19 @@ def cache_specs(
         max_pages = max_len // page_size
         if num_pages is None:
             num_pages = batch * max_pages
-        kv = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
-        axes = ("layers", "seq_kv", None, None, None)
+        lead = (cfg.num_layers, num_pages + 1, page_size)
+        axes = ("layers", "seq_kv", None)
         tree["page_table"] = PSpec(
             (batch, max_pages), ("batch", None), init="zeros", dtype=torch.int32
         )
+    if cfg.attention == "mla":
+        tails = {"c_kv": (cfg.kv_lora_rank,), "k_rope": (cfg.qk_rope_head_dim,)}
+    else:
+        kv = (cfg.num_kv_heads, cfg.head_dim)
+        tails = {"k": kv, "v": kv}
     tree["layers"] = {
-        "k": PSpec(kv, axes, init="zeros"),
-        "v": PSpec(kv, axes, init="zeros"),
+        name: PSpec(lead + tail, axes + (None,) * len(tail), init="zeros")
+        for name, tail in tails.items()
     }
     return tree
 
@@ -194,7 +201,7 @@ def advance_meta(
         over = dropped
         page_ids = torch.where(dropped, -1, pid)
         mask = meta_mask = ~dropped if token_mask is None else token_mask & ~dropped
-        sink = cache["layers"]["k"].shape[1] - 1
+        sink = pool_pages(cache)  # the sink is the page past the mappable ones
         rows = write_rows(page_ids, page_offsets, mask, sink, page_size)
         view_pages, view_mapped = view_index(table)
     ok = slots < T
@@ -222,6 +229,12 @@ def advance_meta(
         view_mapped=view_mapped,
     )
     return cache, write
+
+
+def pool_pages(cache: dict) -> int:
+    """The pages of a paged cache's pool that an allocator may map: every
+    leaf's second dimension, less the sink."""
+    return next(iter(cache["layers"].values())).shape[1] - 1
 
 
 def write_rows(
@@ -281,26 +294,43 @@ def copy_pages(buf: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> None:
     buf.index_copy_(1, d, buf.index_select(1, s))
 
 
+def _update_leaves(cache: dict, new: dict) -> tuple:
+    """Write each ``new[name]`` (B, S, ...) into the layer's cache view
+    ``cache[name]`` in place and return the views attended over, in
+    ``new``'s order (paged: gathered through the page table after the
+    write).  The dense ``S == T`` fast path overwrites whole fresh rows
+    (pre-write index 0) and leaves every other row as it was."""
+    w: CacheWrite = cache["_meta"]
+    if w.page_rows is not None:
+        for name, t in new.items():
+            paged_write(cache[name], t, w.page_rows)
+        return tuple(paged_view(cache[name], w.view_pages, w.view_mapped) for name in new)
+    T = w.pos.shape[1]
+    if w.slots.shape[1] == T and w.mask is None:
+        for name, t in new.items():
+            buf = cache[name]
+            fresh = (w.index == 0).reshape((-1,) + (1,) * (buf.dim() - 1))
+            buf.copy_(torch.where(fresh, t.to(buf.dtype), buf))
+    else:
+        ok = w.slots < T
+        if w.mask is not None:
+            ok = ok & w.mask
+        for name, t in new.items():
+            scatter_rows(cache[name], t, w.slots, ok)
+    return tuple(cache[name] for name in new)
+
+
 def update_kv_cache(cache: dict, k, v, positions, ctx) -> tuple[Any, ...]:
     """Write new K/V (B, S, ...) into one layer's cache views in place and
     return ``(k_all, v_all, pos, valid)``, the views decode attends over
     (paged: gathered through the page table after the write)."""
     w: CacheWrite = cache["_meta"]
-    if w.page_rows is not None:
-        for name, new in (("k", k), ("v", v)):
-            paged_write(cache[name], new, w.page_rows)
-        views = (paged_view(cache[name], w.view_pages, w.view_mapped) for name in ("k", "v"))
-        return (*views, w.pos, w.valid)
-    T = cache["k"].shape[1]
-    if w.slots.shape[1] == T and w.mask is None:
-        fresh = (w.index == 0).reshape(-1, 1, 1, 1)
-        for name, new in (("k", k), ("v", v)):
-            buf = cache[name]
-            buf.copy_(torch.where(fresh, new.to(buf.dtype), buf))
-    else:
-        ok = w.slots < T
-        if w.mask is not None:
-            ok = ok & w.mask
-        scatter_rows(cache["k"], k, w.slots, ok)
-        scatter_rows(cache["v"], v, w.slots, ok)
-    return cache["k"], cache["v"], w.pos, w.valid
+    return (*_update_leaves(cache, {"k": k, "v": v}), w.pos, w.valid)
+
+
+def update_mla_cache(cache: dict, c_kv, k_rope, positions, ctx) -> tuple[Any, ...]:
+    """MLA's :func:`update_kv_cache`: write the latent ``c_kv`` (B, S,
+    kv_lora) and the shared ``k_rope`` (B, S, rope_dim) into one layer's
+    cache views in place and return ``(c_all, r_all, pos, valid)``."""
+    w: CacheWrite = cache["_meta"]
+    return (*_update_leaves(cache, {"c_kv": c_kv, "k_rope": k_rope}), w.pos, w.valid)

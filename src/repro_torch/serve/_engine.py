@@ -28,6 +28,10 @@ into one grouped launch.  The scheduler is agnostic to all of it.
   and :func:`generate` stay eager.  The kernels' launch counts are kept
   per replay (``kernels/common.py::replay_counted``).
 
+``generate`` and ``BatchingEngine`` serve GQA and (minicpm3) MLA trees
+alike: the cache's leaves are K/V or MLA's latents, and every cache
+operation here runs over whichever it holds.
+
 Paged mode (``page_size=``) keeps the reference's contracts too: K/V live
 in fixed-size pages behind a slot -> page table (``serve/_cache.py``); a
 host :class:`~repro_torch.serve._paging.PageAllocator` maps pages at
@@ -60,7 +64,7 @@ from repro_torch.kernels.common import captured_counts, replay_counted
 from repro_torch.models.layers import Ctx, SampleCfg, fold_key, sample_tokens
 from repro_torch.models.model import model_forward
 from repro_torch.models.params import init_params
-from repro_torch.serve._cache import CacheOverflowError, cache_specs, copy_pages
+from repro_torch.serve._cache import CacheOverflowError, cache_specs, copy_pages, pool_pages
 from repro_torch.serve._paging import PageAllocator, PagePoolExhausted, _prefix_key
 
 _ENGINE_FAMILIES = ("dense", "moe")
@@ -77,8 +81,8 @@ def make_cache(
     page_table: str = "identity",
     device: str | torch.device = "cuda",
 ) -> dict:
-    """A fresh zeroed cache on ``device`` (K/V in ``dtype``).  With
-    ``page_size``, K/V are paged (``serve/_cache.py``):
+    """A fresh zeroed cache on ``device`` (K/V, or MLA's latents, in
+    ``dtype``).  With ``page_size``, they are paged (``serve/_cache.py``):
     ``page_table="identity"`` maps slot b's group g to page ``b * max_pages
     + g``, a paged cache that behaves as the dense rectangle (``generate``
     uses it); ``"empty"`` starts unmapped, for an allocator to fill."""
@@ -88,7 +92,7 @@ def make_cache(
         table = cache["page_table"]
         max_pages = table.shape[1]
         if page_table == "identity":
-            pool = cache["layers"]["k"].shape[1] - 1  # the sink is never mapped
+            pool = pool_pages(cache)  # the sink is never mapped
             if pool < batch * max_pages:
                 raise ValueError(
                     f"identity page table needs {batch * max_pages} pages; "

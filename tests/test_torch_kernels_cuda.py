@@ -861,35 +861,38 @@ def test_tl1_classifier_head_on_card(cuda_device, act_bits):
 # config with seeded random weights, the graph engine against the eager one
 # ---------------------------------------------------------------------------
 
-GRAPH_PATHS = ["weight", "tl1", "moe", "binary"]
+GRAPH_PATHS = ["weight", "tl1", "moe", "binary", "mla"]
 GRAPH_SLOTS, GRAPH_MAX_LEN, GRAPH_MAX_NEW = 3, 32, 6
 
 
 def _graph_world(path, device):
     """(config, params, ExecCfg fields) of one served path: planned i8
-    tables (weight, MoE with its experts), TL1 tables, or bf16 projections
-    under the binary-matmul mode."""
+    tables (weight, MoE with its experts, minicpm3_4b's MLA with its latent
+    up-projections vetoed), TL1 tables, or bf16 projections under the
+    binary-matmul mode."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import convert_params
     from repro_torch.core.planner import plan_model
+    from repro_torch.models.layers import mla_convertible
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import bf16_projections, init_params
 
-    cfg = get_config("qwen2_moe_a2_7b" if path == "moe" else "granite_8b", reduced=True)
+    name = {"moe": "qwen2_moe_a2_7b", "mla": "minicpm3_4b"}.get(path, "granite_8b")
+    cfg = get_config(name, reduced=True)
     gen = torch.Generator(device=device).manual_seed(3)
     params = init_params(model_specs(cfg), gen, device=device)
     if path == "binary":
         return cfg, bf16_projections(params), dict(linear_mode="binary_matmul",
                                                    fixed_bits=8, fixed_frac=6)
+    kw = {"moe": {"convert_experts": True}, "mla": {"predicate": mla_convertible}}.get(path, {})
     if path == "tl1":
         plan = plan_model(params, float("inf"), families=("tl1",))
     else:
-        kw = {"convert_experts": True} if path == "moe" else {}
         uniform = plan_model(params, float("inf"), max_chunk=2, **kw)
         plan = plan_model(params, uniform.total_lut_bytes // 2, max_chunk=2,
                           modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
                           table_formats=(None, "i8"), **kw)
-    return cfg, convert_params(params, plan=plan, convert_experts=path == "moe")[0], {}
+    return cfg, convert_params(params, plan=plan, **kw)[0], {}
 
 
 def _graph_prompts(vocab):
@@ -1111,3 +1114,60 @@ def test_paged_decode_forward_reads_nothing_back_on_card(cuda_device):
     assert torch.isfinite(out).all()
     assert cache["index"].tolist() == [2, 0, 2]
     assert not cache["overflow"].any()
+
+
+# ---------------------------------------------------------------------------
+# minicpm3_4b's MLA attention and latent cache on the card (the graph
+# against the eager engine is GRAPH_PATHS' "mla" case above)
+# ---------------------------------------------------------------------------
+
+
+def _mla_serve(world, device, monkeypatch=None, use_kernels=True, **kw):
+    """Serve ``_paged_prompts`` on the reduced MLA tree; with
+    ``monkeypatch``, the attention's latents are rounded to bf16 first, as
+    a paged prefill reads them from its bf16 cache."""
+    from repro_torch.models import layers
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import BatchingEngine, Request
+
+    if monkeypatch is not None:
+        sdpa = layers._latent_sdpa
+
+        def rounded(q_nope, q_rope, c_kv, k_rope, *rest):
+            return sdpa(q_nope, q_rope, c_kv.to(torch.bfloat16), k_rope.to(torch.bfloat16),
+                        *rest)
+
+        monkeypatch.setattr(layers, "_latent_sdpa", rounded)
+    cfg, params, ex = world
+    eng = BatchingEngine(params, Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels,
+                                                     **ex)),
+                         GRAPH_SLOTS, GRAPH_MAX_LEN, device=device, **kw)
+    reqs = [Request(i, p, GRAPH_MAX_NEW) for i, p in enumerate(_paged_prompts(cfg.vocab_size))]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    return [r.generated for r in reqs], eng
+
+
+@pytest.mark.cuda
+def test_mla_paged_engine_is_the_dense_engine_on_bf16_latents_on_card(cuda_device, monkeypatch):
+    """The paged MLA engine (graph replays, shared prefixes, a copy-on-write
+    hit) serves the streams, whole, of the dense graph engine whose
+    attention takes its latents rounded to bf16."""
+    world = _graph_world("mla", cuda_device)
+    paged, eng = _mla_serve(world, cuda_device, page_size=PAGE)
+    dense, dense_eng = _mla_serve(world, cuda_device, monkeypatch)
+    assert eng._graph is not None and dense_eng._graph is not None
+    assert paged == dense
+    assert eng.prefill_tokens < dense_eng.prefill_tokens
+
+
+@pytest.mark.cuda
+def test_mla_kernel_path_first_tokens_match_plain_on_card(cuda_device):
+    """The reduced MLA engine on the kernels (graph) and on the plain
+    versions (eager): every request's first token equal."""
+    world = _graph_world("mla", cuda_device)
+    got, _ = _mla_serve(world, cuda_device)
+    want, _ = _mla_serve(world, cuda_device, use_kernels=False, cuda_graph=False)
+    assert [s[0] for s in got] == [s[0] for s in want]

@@ -129,8 +129,8 @@ def test_other_families_raise():
     cfg = ModelConfig("x", "ssm", 1, 8, 2, 2, 8, 16, attention="none")
     with pytest.raises(NotImplementedError):
         model_specs(cfg)
-    mla = ModelConfig("x", "moe", 1, 8, 2, 2, 8, 16, attention="mla", num_experts=2)
+    layernorm = ModelConfig("x", "moe", 1, 8, 2, 2, 8, 16, norm="layernorm", num_experts=2)
     with pytest.raises(NotImplementedError):
-        model_specs(mla)
+        model_specs(layernorm)
     with pytest.raises(NotImplementedError):
         get_config("mixtral_8x7b")
