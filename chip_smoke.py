@@ -2,8 +2,9 @@
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
     python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
-                                    mla_serve,tl1_kernel,tl1_serve,moe_kernel,
-                                    moe_serve,bmm_kernel,bmm_serve,paper]
+                                    mla_serve,phi3_serve,minitron_serve,tl1_kernel,
+                                    tl1_serve,moe_kernel,moe_serve,bmm_kernel,
+                                    bmm_serve,paper]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -80,6 +81,23 @@ Phases, one JSON object per line:
    what sharing predicts.  Last, each of the seven LUT calls (a layer's six
    and lm_head) at the decode shape, kernel against plain, its device ms
    beside its bound.
+3d. ``phi3_serve`` and ``minitron_serve``  full-width phi3_medium_14b
+   (GQA, 40 heads to 10 KV heads, SwiGLU) and minitron_4b (nemotron's
+   two-matrix squared-ReLU MLP, a 256,000-token vocabulary) at the deepest
+   cut whose recipe tables, layers and the untied lm_head, fit
+   FAMILY_TABLE_BYTES (``family_depth``, from the plan on shapes, printed
+   with its reason: 3 of 40 and 10 of 32 layers), planned by the serving
+   recipe with chunks capped at 1 (the uncapped plan beside it), converted
+   and served as ``mla_serve`` serves: launches per forward as the tree
+   plans them (phi3 3L + 1 / 2L / 5L + 1, minitron 4L + 1 / L / 5L + 1), no
+   pack off the kernel, no table copy, graph and eager streams identical;
+   first tokens kernel against plain with the plain path given the kernel
+   path's codes at every pack site (``synced_first_tokens``: the logits
+   trap, where an activation at an fp16 rounding boundary rounds the other
+   way, can flip a near-tie among 256,000 logits; the unsynchronized first
+   tokens are reported beside), prefill logits at the cut within
+   LOGITS_TOL / LOGITS_FRO_TOL; then every LUT call of a layer and lm_head
+   at the decode shape beside its bound and the bf16 ``x @ W`` it replaces.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -145,7 +163,7 @@ Phases, one JSON object per line:
    ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
    plain version.
 
-The five serve phases (3, 3c, 5, 7, 9) serve their requests on the kernels
+The seven serve phases (3, 3c, 3d, 5, 7, 9) serve their requests on the kernels
 with the engine's decode step captured as a CUDA graph and replayed (the
 engine's default on the card, the main path) and eager
 (``cuda_graph=False``), in turns: eager, graph, graph, eager, after one
@@ -165,12 +183,12 @@ copy of the tables so that it reads them from HBM as serving does, held
 behind a spin kernel until the host has enqueued them all.
 
 Every path is driven with the kernels' launch counts set to 0 just before
-it and read just after.  Then one ``kernels`` summary line (the row of
-``bitplane_pack`` sums its launches over the six paths that pack,
-``launches_by_path``, and times one binary-cell decode layer's 7 packs;
-``lut_affine`` and ``lut_tl1`` add the paper networks' launches to their
-serve phase's, the weight cell's kernels the paged engine's and the MLA
-cell's; a null
+it and read just after; each phase ends with a ``seconds`` line.  Then one
+``kernels`` summary line (the row of ``bitplane_pack`` sums its launches
+over the eight paths that pack, ``launches_by_path``, and times one
+binary-cell decode layer's 7 packs; ``lut_affine`` and ``lut_tl1`` add the
+paper networks' launches to their serve phase's, the weight cell's kernels
+the paged engine's and the MLA, phi3 and minitron cells'; a null
 ``library_ms`` comes with its ``library_reason``),
 the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero
@@ -244,6 +262,17 @@ BF16_KV_TOL = 1e-3
 # call, so not at every depth)
 MLA_LAYERS = 16
 MLA_DEPTHS = (1, 4, MLA_LAYERS)
+# the phi3_serve and minitron_serve phases: the deepest cut whose recipe
+# tables (layers and the untied lm_head) fit this budget, a little above
+# moe_serve's 44,320 MiB, leaving room for the fp32 tree while it converts;
+# each architecture's (lone, grouped) LUT calls a layer: phi3 wq, wo,
+# w_down and wk+wv, w_gate+w_up; minitron wq, wo, w_in, w_out and wk+wv
+FAMILY_TABLE_BYTES = 48 * 2**30
+# their first tokens, kernel against plain with every input code the same
+# (synced_first_tokens): the logits and each pack site's input within this x
+# max, as each kernel is held to its plain version (measured: below 1e-6)
+SYNCED_TOL = 1e-5
+FAMILY_CALLS = {"phi3_medium_14b": (3, 2), "minitron_4b": (4, 1)}
 
 # the pack_kernel phase: per cell, the model, the kind of its packs and
 # its packed inputs: (input, width, rows at decode, rows at prefill, packs
@@ -1332,70 +1361,124 @@ def paged_serve_phase(model, layers: int, max_new: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# mla_serve phase
+# recipe-planned serve cells: mla_serve, phi3_serve, minitron_serve
 # ---------------------------------------------------------------------------
 
 
-def mla_cell(layers: int):
-    """The MLA cell's model: full-width minicpm3_4b cut to ``layers``,
-    seeded random weights planned by the serving recipe (half the uniform
-    chunk-2 footprint, the widened frontier) with chunks capped at 1 and
-    ``wk_b``/``wv_b`` vetoed (``models/layers.py::mla_convertible``: the
-    absorbed form reads them as raw weights), and converted; emits the
-    ``plan`` and ``convert`` lines and returns (config, converted tree)."""
+def recipe_plans(params, **kw):
+    """The serving recipe (``benchmarks/serving.py::serving_model_plan``:
+    half the uniform chunk-2 footprint, the widened frontier) with chunks
+    capped at 1, and the uncapped recipe's plan of the same weights; ``kw``
+    further ``plan_model`` arguments (a predicate, ``convert_experts``)."""
+    from repro_torch.core.planner import plan_model
+
+    uniform = plan_model(params, float("inf"), max_chunk=2, **kw)
+    kw.update(modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
+              table_formats=(None, "i8"))
+    budget = uniform.total_lut_bytes // 2
+    return (plan_model(params, budget, max_chunk=1, **kw),
+            plan_model(params, budget, max_chunk=2, **kw))
+
+
+def meta_params(cfg):
+    """``cfg``'s parameter tree on the meta device: shapes, no memory."""
     import torch
 
-    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import tree_map
+
+    return tree_map(
+        lambda s: torch.empty(s.shape, dtype=s.dtype or torch.float32, device="meta"),
+        model_specs(cfg),
+    )
+
+
+def recipe_bytes(full, layers: int, **kw) -> tuple[int, int]:
+    """(table bytes of the blocks, of ``lm_head``) that :func:`recipe_plans`
+    plans for full-width ``full`` at ``layers`` layers, on shapes alone."""
+    plan, _ = recipe_plans(meta_params(dataclasses.replace(full, num_layers=layers)), **kw)
+    head = plan.layers["lm_head"].total_lut_bytes
+    return plan.total_lut_bytes - head, head
+
+
+def family_depth(full) -> tuple[int, dict]:
+    """The deepest cut of full-width ``full`` whose recipe-planned tables,
+    its layers plus the untied ``lm_head``, fit in FAMILY_TABLE_BYTES: from
+    a one-layer plan on shapes alone, then checked by planning that depth
+    and the next."""
+    layer, head = recipe_bytes(full, 1)
+    layers = min(full.num_layers, (FAMILY_TABLE_BYTES - head) // layer)
+    while layers >= 1 and sum(recipe_bytes(full, layers)) > FAMILY_TABLE_BYTES:
+        layers -= 1
+    if layers < 1:
+        raise AssertionError(f"not one layer of {full.name} fits {FAMILY_TABLE_BYTES} B")
+    total = sum(recipe_bytes(full, layers))
+    nxt = sum(recipe_bytes(full, layers + 1)) if layers < full.num_layers else None
+    mib, gib = 2**20, 2**30
+    return layers, {
+        "layers": layers, "published": full.num_layers,
+        "table_mib": total / mib, "next_depth_table_mib": nxt and nxt / mib,
+        "budget_mib": FAMILY_TABLE_BYTES / mib,
+        "reason": f"{layer / mib:.0f} MiB of i8 tables per layer and {head / mib:.0f} MiB "
+                  f"for the untied lm_head: {layers} layers take {total / mib:.0f} MiB"
+                  + (f", {layers + 1} would take {nxt / mib:.0f} MiB, over "
+                     f"{FAMILY_TABLE_BYTES / gib:.0f} GiB (a little above moe_serve's tables, "
+                     "leaving the card room for the fp32 tree while it converts); all "
+                     f"{full.num_layers} layers would need "
+                     f"{(head + full.num_layers * layer) / gib:.0f} GiB" if nxt else
+                     " (every published layer)") + "; widths are the published ones",
+    }
+
+
+def recipe_cell(phase: str, full, depth: dict, **kw):
+    """A recipe-planned cell's model: full-width ``full`` cut to
+    ``depth["layers"]``, seeded random weights planned by
+    :func:`recipe_plans` (``kw``: its further arguments) and converted;
+    emits the ``plan`` line (with the uncapped plan and ``depth``) and the
+    ``convert`` line and returns (config, converted tree)."""
+    import torch
+
     from repro_torch.core.convert import conversion_summary, convert_params
-    from repro_torch.core.planner import plan_model
-    from repro_torch.models.layers import MLA_RAW_WEIGHTS, mla_convertible
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import init_params
 
-    full = get_config("minicpm3_4b")
+    layers = depth["layers"]
     cfg = dataclasses.replace(full, num_layers=layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEV).manual_seed(0)
     t0 = time.perf_counter()
     params = init_params(model_specs(cfg), gen, device=DEV)
-    uniform = plan_model(params, float("inf"), max_chunk=2, predicate=mla_convertible)
-    kw = dict(modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
-              table_formats=(None, "i8"), predicate=mla_convertible)
-    budget = uniform.total_lut_bytes // 2
-    mplan = plan_model(params, budget, max_chunk=1, **kw)
-    uncapped = plan_model(params, budget, max_chunk=2, **kw)
+    mplan, uncapped = recipe_plans(params, **kw)
     kinds = sorted({
         f"{p.mode}-r{p.fmt.mantissa_radix}-{p.table_format}-c{p.chunk_size}"
         for p in mplan.layers.values()
     })
     mib = 2**20
     head = mplan.layers["lm_head"].total_lut_bytes
-    per_layer = (mplan.total_lut_bytes - head) / layers / mib
     # a stacked entry's bytes are one layer's
     entries = {key: p.total_lut_bytes / mib for key, p in mplan.layers.items()}
     wider = {key: {"chunk": p.chunk_size, "mib_per_layer": p.total_lut_bytes / mib}
              for key, p in uncapped.layers.items() if p.chunk_size > 1}
-    emit({"phase": "mla_serve", "step": "plan", "summary": mplan.summary(),
-          "table_mib": mplan.total_lut_bytes / mib, "table_mib_per_layer": per_layer,
+    emit({"phase": phase, "step": "plan", "summary": mplan.summary(),
+          "table_mib": mplan.total_lut_bytes / mib,
+          "table_mib_per_layer": (mplan.total_lut_bytes - head) / layers / mib,
           "lm_head_table_mib": head / mib, "entry_mib_per_layer": entries, "plans": kinds,
-          "groups": [list(g) for g in mplan.groups], "vetoed": list(MLA_RAW_WEIGHTS),
-          "depth": {"layers": layers, "published": full.num_layers,
-                    "reason": f"{per_layer:.1f} MiB of i8 tables per layer and "
-                              f"{head / mib:.0f} MiB for the untied lm_head: all "
-                              f"{full.num_layers} layers would need "
-                              f"{(per_layer * full.num_layers * mib + head) / 2**30:.0f} GiB, "
-                              "more than the card's 80 GB; widths are the published ones"},
+          "groups": [list(g) for g in mplan.groups], "depth": depth,
           "uncapped_recipe": {"table_mib": uncapped.total_lut_bytes / mib,
                               "entries_above_chunk_1": wider},
           "chunk_cap_reason": "chunks capped at 1 as in moe_serve: the halved uniform chunk-2 "
                               "budget is the recipe's, sized on the reduced configs; the "
                               "uncapped plan of the same weights is reported beside it"})
-    lut, report = convert_params(params, plan=mplan, predicate=mla_convertible)
+    if "table_mib" in depth and mplan.total_lut_bytes != depth["table_mib"] * mib:
+        raise AssertionError(f"{phase}: the plan of the weights takes "
+                             f"{mplan.total_lut_bytes / mib} MiB, the cut's plan on shapes "
+                             f"{depth['table_mib']} MiB")
+    lut, report = convert_params(params, plan=mplan, **kw)
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    emit({"phase": "mla_serve", "step": "convert", "summary": conversion_summary(report),
+    emit({"phase": phase, "step": "convert", "summary": conversion_summary(report),
           "seconds": time.perf_counter() - t0, "table_bytes": report.table_bytes,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "memory_allocated_after_free_gib": torch.cuda.memory_allocated() / 2**30})
@@ -1428,75 +1511,105 @@ def lut_calls_per_forward(tree, layers: int) -> dict:
     return {**calls, "bitplane_pack": sum(calls.values())}
 
 
-def mla_layer_calls(lut, iters: int) -> dict:
-    """Each of the cell's seven LUT calls at the decode shape (4 rows, on
-    layer 0's tables; lm_head's own), kernel against plain as the kernel
-    phase holds them, with its device ms beside ``bound``; returns the sums
-    over one layer's six calls."""
+@contextlib.contextmanager
+def pack_tape(codes=None):
+    """Inside a ``with`` block, each pack site of the model (``layers.pack``)
+    records its input and codes, in call order; given ``codes`` (an earlier
+    block's record), each site takes the recorded codes of the same site
+    instead of packing its own input (which it still records)."""
+    from repro_torch.models import layers
+
+    pack0, sites = layers.pack, []
+    replay = None if codes is None else iter(codes)
+
+    def pack(x, plan, use_kernels=True):
+        own = pack0(x, plan, use_kernels=use_kernels) if replay is None else next(replay)[1]
+        sites.append((x.clone(), own))
+        return own
+
+    layers.pack = pack
+    try:
+        yield sites
+    finally:
+        layers.pack = pack0
+    if replay is not None and next(replay, None) is not None:
+        raise AssertionError("a recorded pack site was not replayed")
+
+
+def synced_first_tokens(phase: str, lut, cfg, prompts, reqs, plain_reqs) -> bool:
+    """Every request's first token (the argmax at its prompt's last position
+    in an admission prefill of SLOTS prompts, as the engine admits them) on
+    the kernels and on the plain versions, the plain path given the kernel
+    path's codes at every pack site, in order.  The paths then differ only
+    by their fp32 sums' order: an activation at an fp16 rounding boundary
+    cannot take the neighbouring code in one of them, which at random init
+    can flip a near-tie among the logits (the serve phase's tolerance says
+    why).  Each site's plain input must lie within SYNCED_TOL x max of the
+    kernel's, the logits too; emits a ``first_tokens`` line beside the
+    engines' own first tokens and the kernel logits' top-2 gap at each last
+    position; returns whether every synced first token is the kernel's."""
     import torch
 
-    from repro_torch.core.convert import LUTGroup
-    from repro_torch.core.lut import pack_codes
-    from repro_torch.models.layers import _host_scales
-
-    gen = torch.Generator(device=DEV).manual_seed(2)
-    layer = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    nodes = [(name, lut["blocks"][part][name].layer(0)) for part, names in
-             (("attn", ("wq_a", "wq_b", "wkv_a", "wo")), ("ffn", ("w_gate+w_up", "w_down")))
-             for name in names] + [("lm_head", lut["lm_head"])]
-    for proj, node in nodes:
-        plan = node.plan
-        grouped = isinstance(node, LUTGroup)
-        tables = node.tables if grouped else node.tables[None]
-        x = torch.randn(4, plan.in_features, generator=gen, device=DEV)
-        codes = pack_codes(x, plan)
-        r = run_case("lut_affine_grouped" if grouped else "lut_affine", codes, tables,
-                     _host_scales(plan, node.scale), plan.shift_bits, iters, 3)
-        emit({"phase": "mla_serve", "step": "layer_call", "proj": proj, "rows": 4,
-              "G": tables.shape[0], "n": plan.num_planes, "k": plan.in_features,
-              "E": plan.num_entries, "p": plan.out_features, "table": plan.table_format, **r,
-              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
-        if proj != "lm_head":
-            for key in layer:
-                layer[key] += r[key]
-    return layer
-
-
-def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dict:
-    """Full-width minicpm3_4b (MLA attention, latent KV cache) cut to
-    ``layers``, served through ``BatchingEngine`` on the LUT kernels: dense
-    (graph and eager in turns, :func:`serve_paths`), then on the plain
-    versions (first tokens identical, prefill logits at MLA_DEPTHS), then
-    paged at PAGE_SIZE on ``paged_requests``' traffic: (a) dense graph, (b)
-    paged graph, (c) paged eager, (f) dense graph with its latents rounded
-    to bf16, which must serve (b)'s streams whole; last, the decode-shape
-    time of each LUT call of a layer beside its bound."""
-    import torch
-
-    from repro_torch.kernels.lut_affine import ops as lut_ops
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.models.model import model_forward
     from repro_torch.serve import make_cache
 
-    cfg, lut = mla_cell(layers)
-    # wq_a, wq_b, wkv_a, wo and w_down alone, w_gate+w_up grouped, lm_head;
-    # one pack each (wq_a and wkv_a pack the same x twice: sharing that pack
-    # is ROADMAP Queue 1 item 2)
-    per_forward = lut_calls_per_forward(lut, layers)
-    want = {"lut_affine": 5 * layers + 1, "lut_affine_grouped": layers,
-            "bitplane_pack": 6 * layers + 1}
-    if per_forward != want:
-        raise AssertionError(f"the converted tree makes {per_forward} calls a forward, "
-                             f"not {want}")
-    prompts = serve_requests(cfg, requests)
+    def forward(inputs, use_kernels):
+        ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
+        with torch.no_grad():
+            return model_forward(lut, inputs, ctx,
+                                 cache=make_cache(cfg, SLOTS, MAX_LEN, ctx, device=DEV))[0]
+
+    kernel, plain, gaps, site_err, logits_err = [], [], [], 0.0, 0.0
+    for b0 in range(0, len(prompts), SLOTS):
+        inputs = prefill_inputs(prompts[b0:b0 + SLOTS])
+        rows = torch.arange(SLOTS, device=DEV)
+        last = inputs["token_mask"].sum(1) - 1
+        with pack_tape() as tape:
+            got = forward(inputs, True)[rows, last]
+        with pack_tape(tape) as seen:
+            ref = forward(inputs, False)[rows, last]
+        for (x, _), (x_ref, _) in zip(seen, tape):
+            site_err = max(site_err, ((x - x_ref).abs().max() / x_ref.abs().max()).item())
+        logits_err = max(logits_err, ((got - ref).abs().max() / ref.abs().max()).item())
+        top2 = got.topk(2, dim=-1).values
+        kernel += got.argmax(-1).tolist()
+        plain += ref.argmax(-1).tolist()
+        gaps += (top2[:, 0] - top2[:, 1]).tolist()
+        del tape, seen
+    ok = kernel == plain and site_err <= SYNCED_TOL and logits_err <= SYNCED_TOL
+    emit({"phase": phase, "step": "first_tokens", "synced_identical": kernel == plain,
+          "kernel": kernel, "plain_synced": plain,
+          "engine_kernel": [r.generated[0] for r in reqs],
+          "engine_plain": [r.generated[0] for r in plain_reqs],
+          "kernel_top2_gap": gaps, "site_input_rel_err": site_err,
+          "logits_rel_err": logits_err, "tol": SYNCED_TOL,
+          "tol_reason": "the paths' fp32 sums in other orders, carried through the layers "
+                        "with every input code the same"})
+    return ok
+
+
+def serve_recipe_cell(phase: str, lut, cfg, per_forward: dict, prompts, max_new: int,
+                      synced: bool = False):
+    """A recipe cell's requests through ``BatchingEngine`` on the kernels,
+    graph and eager in turns (:func:`serve_paths`), then on the plain
+    versions: every run launches ``per_forward`` a forward with no pack off
+    the kernel and no table copy, every request's first token is the plain
+    run's (with ``synced``, in :func:`synced_first_tokens`), and the plain
+    run packs as often as the kernel run; emits the ``kernels`` and
+    ``plain`` lines and returns the main path's launches."""
+    import torch
+
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+
     torch.cuda.reset_peak_memory_stats()
     reqs, eng, wall, decode_ms, launches, uncovered = serve_paths(
-        "mla_serve", lut, cfg, prompts, max_new, per_forward)
+        phase, lut, cfg, prompts, max_new, per_forward)
     copies = lut_ops.TABLE_COPIES["table_operand"]
     forwards = eng.readbacks
     expect = {**no_launches(), **{k: v * forwards for k, v in per_forward.items()}}
     tokens = sum(len(r.generated) for r in reqs)
-    emit({"phase": "mla_serve", "step": "kernels", "requests": len(reqs), "tokens": tokens,
+    emit({"phase": phase, "step": "kernels", "requests": len(reqs), "tokens": tokens,
           "tok_per_s": tokens / wall, "wall_s": wall,
           "median_decode_step_ms": statistics.median(decode_ms),
           "forwards": forwards, "launches": launches, "expected_launches": expect,
@@ -1505,10 +1618,10 @@ def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dic
           "kv_bytes": sum(t.nbytes for t in eng.cache["layers"].values()),
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
     if launches != expect or forwards <= 0 or uncovered or copies:
-        raise AssertionError(f"launch counts {launches} != expected {expect}, or {uncovered} "
-                             f"packs off the kernel, or {copies} table copies")
+        raise AssertionError(f"{phase}: launch counts {launches} != expected {expect}, or "
+                             f"{uncovered} packs off the kernel, or {copies} table copies")
     if not all(len(r.generated) == max_new for r in reqs):
-        raise AssertionError("a request stopped short of max_new")
+        raise AssertionError(f"{phase}: a request stopped short of max_new")
 
     with count_plain_packs() as packs:
         plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
@@ -1517,15 +1630,30 @@ def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dic
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
     )
-    emit({"phase": "mla_serve", "step": "plain", "tok_per_s": tokens / plain_wall,
+    emit({"phase": phase, "step": "plain", "tok_per_s": tokens / plain_wall,
           "wall_s": plain_wall, "median_decode_step_ms": statistics.median(plain_decode),
           "first_tokens_identical": first_ok, "identical_token_share": same / tokens,
           "pack_codes_calls": packs["calls"]})
+    if synced:
+        first_ok = synced_first_tokens(phase, lut, cfg, prompts, reqs, plain_reqs)
     if not first_ok:
-        raise AssertionError("mla_serve: kernel and plain paths disagree on a first token")
+        raise AssertionError(f"{phase}: kernel and plain paths disagree on a first token")
     if packs["calls"] != launches["bitplane_pack"]:
-        raise AssertionError(f"the plain run packed {packs['calls']} times, the kernel run "
-                             f"{launches['bitplane_pack']}")
+        raise AssertionError(f"{phase}: the plain run packed {packs['calls']} times, the "
+                             f"kernel run {launches['bitplane_pack']}")
+    return launches
+
+
+def recipe_prefill_logits(phase: str, lut, cfg, prompts, depths) -> None:
+    """The first SLOTS prompts' prefill logits on the kernels against the
+    plain versions at each of ``depths`` layers, within LOGITS_TOL x
+    max|plain| and LOGITS_FRO_TOL; at the full depth beside the plain path
+    against itself in another fp32 order (the noise floor)."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
 
     inputs = prefill_inputs(prompts)
 
@@ -1538,25 +1666,99 @@ def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dic
             logits, _, _ = model_forward(params, inputs, ctx, cache=cache)
         return logits[inputs["token_mask"]]
 
-    for depth in MLA_DEPTHS:
+    for depth in depths:
         got, ref = prefill_logits(depth, True), prefill_logits(depth, False)
         res = compare_logits(got, ref)
         finite = bool(torch.isfinite(got).all().item())
         tol = LOGITS_TOL * res["max_abs_ref"]
-        line = {"phase": "mla_serve", "step": "prefill_logits", "layers": depth,
+        line = {"phase": phase, "step": "prefill_logits", "layers": depth,
                 "shape": list(got.shape), **res, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL,
                 "finite": finite, "tol_reason": "as the serve phase's: the paths sum in other "
                 "orders and each projection re-quantizes its input, so an activation near an "
                 "fp16 rounding boundary takes the neighbouring code before the next lookup"}
-        if depth == layers:
-            # noise floor: the plain path against itself in another fp32 order
+        if depth == cfg.num_layers:
             with plain_gather_bytes(64 * 2**20):
                 line["plain_vs_plain"] = compare_logits(prefill_logits(depth, False), ref)
         emit(line)
         if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
-            raise AssertionError(f"MLA prefill logits differ at {depth} layers: {res} "
+            raise AssertionError(f"{phase}: prefill logits differ at {depth} layers: {res} "
                                  f"(tol {tol}, {LOGITS_FRO_TOL})")
         del got, ref
+
+
+def recipe_layer_calls(phase: str, lut, iters: int) -> None:
+    """Each LUT call of a layer (layer 0's tables) and ``lm_head`` at the
+    decode shape (4 rows), kernel against plain as the kernel phase holds
+    them, with its device ms beside ``bound`` and the bf16 ``x @ W`` it
+    replaces; then a ``layer`` line with the sums over the layer's calls."""
+    import torch
+
+    from repro_torch.core.convert import LUTGroup, LUTLinear
+    from repro_torch.core.lut import pack_codes
+    from repro_torch.models.layers import _host_scales
+
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    layer = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "dense_matmul_ms": 0.0}
+    nodes = [(name, node.layer(0)) for part in ("attn", "ffn")
+             for name, node in lut["blocks"][part].items()
+             if isinstance(node, (LUTLinear, LUTGroup))]
+    for proj, node in nodes + [("lm_head", lut["lm_head"])]:
+        plan = node.plan
+        grouped = isinstance(node, LUTGroup)
+        tables = node.tables if grouped else node.tables[None]
+        x = torch.randn(4, plan.in_features, generator=gen, device=DEV)
+        codes = pack_codes(x, plan)
+        r = run_case("lut_affine_grouped" if grouped else "lut_affine", codes, tables,
+                     _host_scales(plan, node.scale), plan.shift_bits, iters, 3)
+        emit({"phase": phase, "step": "layer_call", "proj": proj, "rows": 4,
+              "G": tables.shape[0], "n": plan.num_planes, "k": plan.in_features,
+              "E": plan.num_entries, "p": plan.out_features, "table": plan.table_format,
+              "table_bytes": tables.numel() * tables.element_size(), **r,
+              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if proj != "lm_head":
+            for key in layer:
+                layer[key] += r[key]
+    emit({"phase": phase, "step": "layer", "calls": len(nodes), **layer,
+          "nvidia_smi": smi_line(),
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
+def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dict:
+    """Full-width minicpm3_4b (MLA attention, latent KV cache) cut to
+    ``layers``, planned by the recipe with ``wk_b``/``wv_b`` vetoed
+    (``models/layers.py::mla_convertible``: the absorbed form reads them as
+    raw weights), served through ``BatchingEngine`` on the LUT kernels:
+    dense (graph and eager in turns, :func:`serve_paths`), then on the plain
+    versions (first tokens identical, prefill logits at MLA_DEPTHS), then
+    paged at PAGE_SIZE on ``paged_requests``' traffic: (a) dense graph, (b)
+    paged graph, (c) paged eager, (f) dense graph with its latents rounded
+    to bf16, which must serve (b)'s streams whole; last, the decode-shape
+    time of each LUT call of a layer beside its bound."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import MLA_RAW_WEIGHTS, mla_convertible
+
+    full = get_config("minicpm3_4b")
+    layer, head = recipe_bytes(full, 1, predicate=mla_convertible)
+    mib = 2**20
+    depth = {"layers": layers, "published": full.num_layers, "vetoed": list(MLA_RAW_WEIGHTS),
+             "reason": f"{layer / mib:.1f} MiB of i8 tables per layer and {head / mib:.0f} MiB "
+                       f"for the untied lm_head: all {full.num_layers} layers would need "
+                       f"{(layer * full.num_layers + head) / 2**30:.0f} GiB, more than the "
+                       "card's 80 GB; widths are the published ones"}
+    cfg, lut = recipe_cell("mla_serve", full, depth, predicate=mla_convertible)
+    # wq_a, wq_b, wkv_a, wo and w_down alone, w_gate+w_up grouped, lm_head;
+    # one pack each (wq_a and wkv_a pack the same x twice)
+    per_forward = lut_calls_per_forward(lut, layers)
+    want = {"lut_affine": 5 * layers + 1, "lut_affine_grouped": layers,
+            "bitplane_pack": 6 * layers + 1}
+    if per_forward != want:
+        raise AssertionError(f"the converted tree makes {per_forward} calls a forward, "
+                             f"not {want}")
+    prompts = serve_requests(cfg, requests)
+    launches = serve_recipe_cell("mla_serve", lut, cfg, per_forward, prompts, max_new)
+    recipe_prefill_logits("mla_serve", lut, cfg, prompts, MLA_DEPTHS)
 
     # paged: the latent cache in pages of PAGE_SIZE, a shared system prompt
     pprompts = paged_requests(cfg)
@@ -1603,10 +1805,40 @@ def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dic
     if failed:
         raise AssertionError(f"mla_serve: failed paged checks {failed}")
 
-    layer = mla_layer_calls(lut, iters)
-    emit({"phase": "mla_serve", "step": "layer", "calls": 6, **layer,
-          "nvidia_smi": smi_line(),
-          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    recipe_layer_calls("mla_serve", lut, iters)
+    del lut
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def family_serve_phase(phase: str, arch: str, requests: int, max_new: int, iters: int) -> dict:
+    """Full-width ``arch`` (phi3_medium_14b: dense GQA, 40 heads to 10 KV
+    heads, SwiGLU; minitron_4b: the two-matrix squared-ReLU MLP and a
+    256,000-token vocabulary) at the deepest cut whose tables fit
+    FAMILY_TABLE_BYTES (:func:`family_depth`), planned by the recipe,
+    converted and served through ``BatchingEngine`` on the LUT kernels,
+    graph and eager in turns, then on the plain versions
+    (:func:`serve_recipe_cell`); prefill logits at the cut held kernel
+    against plain; last, the decode-shape time of each LUT call beside its
+    bound and the bf16 ``x @ W`` it replaces."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+
+    full = get_config(arch)
+    layers, depth = family_depth(full)
+    cfg, lut = recipe_cell(phase, full, depth)
+    lone, grouped = FAMILY_CALLS[arch]
+    per_forward = lut_calls_per_forward(lut, layers)
+    want = {"lut_affine": lone * layers + 1, "lut_affine_grouped": grouped * layers,
+            "bitplane_pack": (lone + grouped) * layers + 1}
+    if per_forward != want:
+        raise AssertionError(f"{phase}: the converted tree makes {per_forward} calls a "
+                             f"forward, not {want}")
+    prompts = serve_requests(cfg, requests)
+    launches = serve_recipe_cell(phase, lut, cfg, per_forward, prompts, max_new, synced=True)
+    recipe_prefill_logits(phase, lut, cfg, prompts, (layers,))
+    recipe_layer_calls(phase, lut, iters)
     del lut
     torch.cuda.empty_cache()
     return {"launches": launches}
@@ -2201,43 +2433,19 @@ def moe_kernel_phase(iters: int, prefill_tokens: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def moe_serving_plan(params):
-    """The serving recipe (``benchmarks/serving.py::serving_model_plan``:
-    half the uniform chunk-2 footprint, the widened frontier) with
-    ``convert_experts=True`` and chunks capped at 1; returns (plan, the
-    uncapped recipe's plan)."""
-    from repro_torch.core.planner import plan_model
-
-    uniform = plan_model(params, float("inf"), max_chunk=2, convert_experts=True)
-    kw = dict(modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
-              table_formats=(None, "i8"), convert_experts=True)
-    budget = uniform.total_lut_bytes // 2
-    return (plan_model(params, budget, max_chunk=1, **kw),
-            plan_model(params, budget, max_chunk=2, **kw))
-
-
 def moe_depth(full) -> tuple[int, dict]:
     """Layers of full-width ``full`` that convert on this card: a 1-layer
     plan's table bytes (on shapes alone) plus the fp32 weights held while
     converting, against the card's memory less MOE_HEADROOM."""
     import torch
 
-    from repro_torch.models.model import model_specs
-    from repro_torch.models.params import tree_map
-
-    def meta(cfg):
-        return tree_map(
-            lambda s: torch.empty(s.shape, dtype=s.dtype or torch.float32, device="meta"),
-            model_specs(cfg),
-        )
-
     def nbytes(tree):
         if isinstance(tree, dict):
             return sum(nbytes(v) for v in tree.values())
         return tree.numel() * tree.element_size()
 
-    one = meta(dataclasses.replace(full, num_layers=1))
-    plan, uncapped = moe_serving_plan(one)
+    one = meta_params(dataclasses.replace(full, num_layers=1))
+    plan, uncapped = recipe_plans(one, convert_experts=True)
     head = plan.layers["lm_head"].total_lut_bytes
     layer_tables = plan.total_lut_bytes - head
     layer_fp32 = nbytes(one["blocks"])
@@ -2292,7 +2500,7 @@ def moe_serve_phase(requests: int, max_new: int) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     t0 = time.perf_counter()
     params = init_params(model_specs(cfg), gen, device=DEV)
-    mplan, _ = moe_serving_plan(params)
+    mplan, _ = recipe_plans(params, convert_experts=True)
     kinds = sorted({
         f"{p.mode}-r{p.fmt.mantissa_radix}-{p.table_format}-c{p.chunk_size}"
         for p in mplan.layers.values()
@@ -3265,8 +3473,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases",
-        default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,tl1_kernel,tl1_serve,"
-                "moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper",
+        default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
+                "minitron_serve,tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,"
+                "paper",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -3301,27 +3510,38 @@ def main(argv=None) -> int:
           "build_seconds": build.BUILD_SECONDS, "libraries": {k: str(v) for k, v in built.items()},
           "ptxas": ptxas, "dynamic_smem_bytes": dynamic_smem,
           "lut_affine_sass_loops": sass_loops(built["lut_affine"])})
-    pkern = pack_kernel_phase(args.iters) if "pack_kernel" in phases else None
-    kern = kernel_phase(args.iters, 4 * 32) if "kernel" in phases else None
-    srv = serve_phase(LAYERS, REQUESTS, MAX_NEW) if "serve" in phases else None
+    def run(name, fn, *a):
+        """Phase ``name`` if asked for, its seconds emitted after it."""
+        if name not in phases:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*a)
+        emit({"phase": name, "step": "seconds", "seconds": time.perf_counter() - t0})
+        return out
+
+    pkern = run("pack_kernel", pack_kernel_phase, args.iters)
+    kern = run("kernel", kernel_phase, args.iters, 4 * 32)
+    srv = run("serve", serve_phase, LAYERS, REQUESTS, MAX_NEW)
     # the paged engine serves the serve phase's converted tables (26 GiB)
-    psrv = paged_serve_phase(srv and srv.pop("model"), LAYERS, MAX_NEW) \
-        if "paged_serve" in phases else None
+    psrv = run("paged_serve", paged_serve_phase, srv and srv.pop("model"), LAYERS, MAX_NEW)
     if srv is not None:
         srv.pop("model", None)
     torch.cuda.empty_cache()
-    mla = mla_serve_phase(MLA_LAYERS, REQUESTS, MAX_NEW, args.iters) \
-        if "mla_serve" in phases else None
-    tkern = tl1_kernel_phase(args.iters, 4 * 32) if "tl1_kernel" in phases else None
-    tsrv = tl1_serve_phase(TL1_LAYERS, REQUESTS, MAX_NEW) if "tl1_serve" in phases else None
+    mla = run("mla_serve", mla_serve_phase, MLA_LAYERS, REQUESTS, MAX_NEW, args.iters)
+    phi3 = run("phi3_serve", family_serve_phase, "phi3_serve", "phi3_medium_14b", REQUESTS,
+               MAX_NEW, args.iters)
+    mini = run("minitron_serve", family_serve_phase, "minitron_serve", "minitron_4b",
+               REQUESTS, MAX_NEW, args.iters)
+    tkern = run("tl1_kernel", tl1_kernel_phase, args.iters, 4 * 32)
+    tsrv = run("tl1_serve", tl1_serve_phase, TL1_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
-    mkern = moe_kernel_phase(args.iters, SLOTS * BUCKET) if "moe_kernel" in phases else None
-    msrv = moe_serve_phase(REQUESTS, MAX_NEW) if "moe_serve" in phases else None
+    mkern = run("moe_kernel", moe_kernel_phase, args.iters, SLOTS * BUCKET)
+    msrv = run("moe_serve", moe_serve_phase, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
-    bkern = bmm_kernel_phase(args.iters, SLOTS * BUCKET) if "bmm_kernel" in phases else None
-    bsrv = bmm_serve_phase(BMM_LAYERS, REQUESTS, MAX_NEW) if "bmm_serve" in phases else None
+    bkern = run("bmm_kernel", bmm_kernel_phase, args.iters, SLOTS * BUCKET)
+    bsrv = run("bmm_serve", bmm_serve_phase, BMM_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
-    paper = paper_phase(args.iters) if "paper" in phases else None
+    paper = run("paper", paper_phase, args.iters)
     rows = []
     for k, s, path, names in ((kern, srv, "serve", ("lut_affine", "lut_affine_grouped")),
                               (tkern, tsrv, "tl1_serve", ("lut_tl1", "lut_tl1_grouped")),
@@ -3332,9 +3552,10 @@ def main(argv=None) -> int:
         for name in names:
             m = k["main"][name]
             # lut_affine and lut_tl1 also run the paper networks, the weight
-            # cell's kernels the paged engine and the MLA cell
+            # cell's kernels the paged engine, the MLA, phi3 and minitron cells
             by_path = {path: s["launches"][name]}
-            for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("paper", paper)):
+            for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("phi3_serve", phi3),
+                             ("minitron_serve", mini), ("paper", paper)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -3350,9 +3571,11 @@ def main(argv=None) -> int:
                 **({"prefill_ms": m["prefill_ms"], "prefill_bound_ms": m["prefill_bound_ms"]}
                    if "prefill_ms" in m else {}),
             })
-    # the packing kernel runs on four paths; its times are one binary-cell
-    # decode layer's 7 packs (layer_ms and layer_bound_ms: each cell's layer)
+    # the packing kernel runs on every weight-table and binary path; its times
+    # are one binary-cell decode layer's 7 packs (layer_ms and layer_bound_ms:
+    # each cell's layer)
     paths = {name: s for name, s in (("serve", srv), ("paged_serve", psrv), ("mla_serve", mla),
+                                     ("phi3_serve", phi3), ("minitron_serve", mini),
                                      ("moe_serve", msrv), ("bmm_serve", bsrv), ("paper", paper))
              if s is not None}
     if pkern is not None and paths:

@@ -31,7 +31,7 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     pos: str = "rope"  # rope | sinusoidal | none
     norm: str = "rmsnorm"  # rmsnorm | layernorm
-    act: str = "silu"  # silu | gelu
+    act: str = "silu"  # silu | relu2 | gelu
     # --- MoE ---
     num_experts: int = 0
     num_experts_per_tok: int = 0
@@ -75,7 +75,9 @@ class ModelConfig:
         return self.num_heads * self.head_dim
 
 
-ARCH_NAMES = ["granite_8b", "minicpm3_4b", "qwen2_moe_a2_7b"]
+ARCH_NAMES = [
+    "granite_8b", "minicpm3_4b", "minitron_4b", "phi3_medium_14b", "qwen2_moe_a2_7b",
+]
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

@@ -1,7 +1,7 @@
 """Shared model layers for the dense decoder (counterpart of the dense
 half of ``repro/models/layers.py``): norms, RoPE, linears with the TableNet
 LUT path, GQA attention and MLA latent attention over a dense or paged KV
-cache, the gated MLP and sampling.
+cache, the gated and squared-ReLU MLPs and sampling.
 
 Every projection goes through :func:`linear` (or :func:`fused_linears` for
 sibling projections over one input).  Converted trees carry
@@ -611,9 +611,20 @@ def mla_attention(
 
 
 def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    """The gated SwiGLU MLP (``act="silu"``: ``w_gate``, ``w_up``,
+    ``w_down``) or nemotron's two-matrix squared-ReLU MLP (``act="relu2"``:
+    ``w_in``, ``w_out``, no bias), with the reference's names and axes."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "relu2":
+        return {
+            "w_in": linear_spec(d, f, axes=("embed", "mlp")),
+            "w_out": linear_spec(f, d, axes=("mlp", "embed")),
+        }
     if cfg.act != "silu":
-        raise NotImplementedError(f"{cfg.act} MLPs come with their family's slice")
+        raise NotImplementedError(
+            f"{cfg.act!r} MLPs (whisper's biased GELU) come with the enc-dec slice of the "
+            "port (ported: 'silu', 'relu2')"
+        )
     return {
         "w_gate": linear_spec(d, f, axes=("embed", "mlp")),
         "w_up": linear_spec(d, f, axes=("embed", "mlp")),
@@ -622,5 +633,11 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """``w_down(silu(w_gate x) * w_up x)``, or ``w_out(relu(w_in x)**2)``
+    for a two-matrix tree; every projection through :func:`linear` /
+    :func:`fused_linears`, so each linear kind runs here."""
+    if "w_in" in p:
+        h = torch.square(F.relu(linear(p["w_in"], x, ctx)))
+        return linear(p["w_out"], h, ctx)
     g, u = fused_linears(p, ("w_gate", "w_up"), x, ctx)
     return linear(p["w_down"], F.silu(g) * u, ctx)

@@ -800,6 +800,79 @@ def test_lut_affine_at_the_paper_shapes_on_card(cuda_device, B, k, E, p):
         assert torch.equal(again, got)
 
 
+# ---------------------------------------------------------------------------
+# The dense kernels at full-width phi3_medium_14b and minitron_4b: every new
+# call shape at decode (4 rows, the serving recipe's 3 planes of 32-entry i8
+# tables with shift_bits 5), and the untied heads at decode and prefill;
+# minitron's head (25.2 GB) is the largest table any kernel has read
+# ---------------------------------------------------------------------------
+
+# name -> (G, k, p)
+FAMILY_CALLS = {
+    "phi3_wq_wo": (1, 5120, 5120), "phi3_wk_wv": (2, 5120, 1280),
+    "phi3_w_gate_w_up": (2, 5120, 17920), "phi3_w_down": (1, 17920, 5120),
+    "minitron_wq_wo": (1, 3072, 3072), "minitron_wk_wv": (2, 3072, 1024),
+    "minitron_w_in": (1, 3072, 9216), "minitron_w_out": (1, 9216, 3072),
+}
+FAMILY_SCALES = np.asarray([2.0**-3, 2.0**-5, -(2.0**-7)])  # radix-4 planes, signed top
+
+
+def _family_case(device, seed, B, G, k, p):
+    """Codes (B, 3, k) with exponents in their high bits and i8 tables (G, k,
+    32, p), drawn on the card (the heads' tables would take minutes from the
+    host)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    codes = torch.randint(0, 32, (B, 3, k), generator=gen, device=device, dtype=torch.int32)
+    codes += torch.randint(0, 31, (B, 1, k), generator=gen, device=device,
+                           dtype=torch.int32) << 5
+    tables = torch.randint(-127, 128, (G, k, 32, p), generator=gen, device=device,
+                           dtype=torch.int8)
+    return codes, tables
+
+
+def _family_call(codes, tables, use_kernels=True):
+    if tables.shape[0] == 1:
+        return ops.lut_affine(codes, tables[0], FAMILY_SCALES, shift_bits=5,
+                              use_kernels=use_kernels)[None]
+    return ops.lut_affine_grouped(codes, tables, FAMILY_SCALES, shift_bits=5,
+                                  use_kernels=use_kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FAMILY_CALLS))
+def test_family_decode_shapes_match_plain_on_card(cuda_device, name):
+    """Each call at its decode shape: the decode kernel, k split for one
+    wave (phi3's w_down cuts the longest k yet, 17,920 chunks), one launch,
+    no table copy, within 1e-5 x max|plain|."""
+    G, k, p = FAMILY_CALLS[name]
+    codes, tables = _family_case(cuda_device, len(name), 4, G, k, p)
+    t = _regime(4, 3, k, 32, tables)
+    assert t.regime == "decode" and t.splits > 1
+    entry = "lut_affine" if G == 1 else "lut_affine_grouped"
+    launches, copies = ops.LAUNCHES[entry], ops.TABLE_COPIES["table_operand"]
+    got = _family_call(codes, tables)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[entry] == launches + 1
+    assert ops.TABLE_COPIES["table_operand"] == copies
+    _close(got, _family_call(codes, tables, use_kernels=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 128], ids=["decode", "prefill"])
+@pytest.mark.parametrize("k,p", [(5120, 100352), (3072, 256000)], ids=["phi3", "minitron"])
+def test_family_heads_match_plain_on_card(cuda_device, k, p, B):
+    """The untied heads, 5120 -> 100,352 (16.4 GB of tables) and 3072 ->
+    256,000 (25.2 GB), each past 2**32 bytes (a table offset needs 64
+    bits): decode rows and a 128-row prefill (the tensor map over all
+    k x 32 table rows), within 1e-5 x max|plain|."""
+    codes, tables = _family_case(cuda_device, p + B, B, 1, k, p)
+    assert tables.numel() > 2**32
+    assert _regime(B, 3, k, 32, tables).regime == ("decode" if B == 4 else "prefill")
+    got = _family_call(codes, tables)
+    torch.cuda.synchronize()
+    _close(got, _family_call(codes, tables, use_kernels=False))
+
+
 # (B, q, m): unsigned fp16 bitplanes of LeNet conv1 / the 784-wide inputs /
 # conv2 / LeNet fc1, chunk 1 (conv1's q = 25 takes the scalar path) and
 # chunk 2
@@ -861,15 +934,16 @@ def test_tl1_classifier_head_on_card(cuda_device, act_bits):
 # config with seeded random weights, the graph engine against the eager one
 # ---------------------------------------------------------------------------
 
-GRAPH_PATHS = ["weight", "tl1", "moe", "binary", "mla"]
+GRAPH_PATHS = ["weight", "tl1", "moe", "binary", "mla", "phi3", "relu2"]
 GRAPH_SLOTS, GRAPH_MAX_LEN, GRAPH_MAX_NEW = 3, 32, 6
 
 
 def _graph_world(path, device):
     """(config, params, ExecCfg fields) of one served path: planned i8
     tables (weight, MoE with its experts, minicpm3_4b's MLA with its latent
-    up-projections vetoed), TL1 tables, or bf16 projections under the
-    binary-matmul mode."""
+    up-projections vetoed, phi3_medium_14b with its G = 3 ``wq+wk+wv``
+    group, minitron_4b's two-matrix squared-ReLU MLP), TL1 tables, or bf16
+    projections under the binary-matmul mode."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import convert_params
     from repro_torch.core.planner import plan_model
@@ -877,7 +951,8 @@ def _graph_world(path, device):
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import bf16_projections, init_params
 
-    name = {"moe": "qwen2_moe_a2_7b", "mla": "minicpm3_4b"}.get(path, "granite_8b")
+    name = {"moe": "qwen2_moe_a2_7b", "mla": "minicpm3_4b", "phi3": "phi3_medium_14b",
+            "relu2": "minitron_4b"}.get(path, "granite_8b")
     cfg = get_config(name, reduced=True)
     gen = torch.Generator(device=device).manual_seed(3)
     params = init_params(model_specs(cfg), gen, device=device)

@@ -1,6 +1,8 @@
 """``repro_torch.models`` against ``repro.models`` on the same weights and
 tokens: reduced granite_8b logits for dense, LUT per-projection and
-LUT-grouped params, plus the init rules and the explicit-device contract."""
+LUT-grouped params, plus the init rules, the explicit-device contract, every
+ported config's parameter count and the MLPs not ported yet."""
+import dataclasses
 import math
 
 import jax
@@ -17,7 +19,7 @@ from repro.models.layers import ExecCfg as JExecCfg
 from repro.models.model import model_forward as jforward
 from repro.models.model import model_specs as jmodel_specs
 from repro.models.params import init_params as jinit_params
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ARCH_NAMES, get_config
 from repro_torch.core.convert import convert_params
 from repro_torch.core.planner import ModelPlan
 from repro_torch.models.layers import Ctx, ExecCfg
@@ -134,3 +136,36 @@ def test_other_families_raise():
         model_specs(layernorm)
     with pytest.raises(NotImplementedError):
         get_config("mixtral_8x7b")
+
+
+# each published config's parameter count (tests/test_models_smoke.py's ranges)
+PARAM_RANGES = {
+    "granite_8b": (7.3e9, 8.6e9),
+    "minicpm3_4b": (3.6e9, 4.8e9),
+    "minitron_4b": (3.7e9, 4.8e9),
+    "phi3_medium_14b": (13e9, 15e9),
+    "qwen2_moe_a2_7b": (13e9, 15.5e9),
+}
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_param_counts_full_config(arch):
+    """Every ported architecture at its published widths: the parameter
+    count of its spec tree, counted on the shapes without allocating, lands
+    in the reference's ballpark."""
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        return math.prod(tree.shape)
+
+    lo, hi = PARAM_RANGES[arch]
+    n = count(model_specs(get_config(arch)))
+    assert lo <= n <= hi, f"{arch}: {n / 1e9:.2f}B params"
+
+
+def test_gelu_mlp_raises_naming_its_slice():
+    """whisper's biased GELU MLP is not ported: its spec raises, naming the
+    enc-dec slice."""
+    cfg = dataclasses.replace(get_config("granite_8b", reduced=True), act="gelu")
+    with pytest.raises(NotImplementedError, match="enc-dec slice"):
+        model_specs(cfg)
