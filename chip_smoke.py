@@ -2,9 +2,9 @@
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
     python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
-                                    mla_serve,phi3_serve,minitron_serve,tl1_kernel,
-                                    tl1_serve,moe_kernel,moe_serve,bmm_kernel,
-                                    bmm_serve,paper]
+                                    mla_serve,phi3_serve,minitron_serve,mixtral_serve,
+                                    tl1_kernel,tl1_serve,moe_kernel,moe_serve,
+                                    bmm_kernel,bmm_serve,paper]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -98,6 +98,31 @@ Phases, one JSON object per line:
    tokens are reported beside), prefill logits at the cut within
    LOGITS_TOL / LOGITS_FRO_TOL; then every LUT call of a layer and lm_head
    at the decode shape beside its bound and the bf16 ``x @ W`` it replaces.
+3e. ``mixtral_serve``  full-width mixtral_8x7b (GQA 32 to 8 heads, a
+   4096-token sliding window kept as a ring KV cache, 8 routed experts
+   top-2 of width 14,336 and no shared experts, vocab 32,000) at the cut
+   ``family_depth`` computes with its experts converted (1 of 32 layers;
+   ``moe_depth``'s conversion peak beside it), planned by the recipe with
+   ``convert_experts=True`` and chunks capped at 1, served as ``phi3_serve``
+   serves (launches 2L + 1 / L / 2L experts / 5L + 1 per forward, first
+   tokens synchronized, prefill logits at the cut); the same requests paged
+   at PAGE_SIZE, every page of a slot mapped at admission and no prefix
+   shared: (a) dense graph, (b) paged graph, (c) paged eager, streams
+   identical whole (the ring holds min(4096, MAX_LEN) = MAX_LEN slots here
+   and never wraps); a decode-shaped forward past the wrap, dense and
+   paged, under ``set_sync_debug_mode("error")``; each LUT call of a layer
+   at the decode shape, the experts routed by the layer's router.  Then the
+   ring at the published window, on the kernels only: two slots of 4096
+   (512 pages of 8 each when paged), requests of 4,072 and 4,088 prompt
+   tokens and 40 new tokens each, which write past slot 4095 mid-decode:
+   dense and paged, graph and eager, all four streams identical whole, each
+   slot's pos and valid what the ring must hold, 512 pages mapped a live
+   slot and none after; a 4,072-token prefill then 40 fed decode steps
+   against the windowed full forward of the 4,112-token sequence (norm
+   error within LOGITS_FRO_TOL at every position; reported beside it on
+   bf16-rounded K/V and, not gated, with no window mask); and
+   ``generate()`` on a 4,200-token prompt (its ring exact, its first token
+   the no-cache forward's).  The peak memory is reckoned before the run.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -163,7 +188,7 @@ Phases, one JSON object per line:
    ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
    plain version.
 
-The seven serve phases (3, 3c, 3d, 5, 7, 9) serve their requests on the kernels
+The eight serve phases (3, 3c, 3d, 3e, 5, 7, 9) serve their requests on the kernels
 with the engine's decode step captured as a CUDA graph and replayed (the
 engine's default on the card, the main path) and eager
 (``cuda_graph=False``), in turns: eager, graph, graph, eager, after one
@@ -185,10 +210,11 @@ behind a spin kernel until the host has enqueued them all.
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each phase ends with a ``seconds`` line.  Then one
 ``kernels`` summary line (the row of ``bitplane_pack`` sums its launches
-over the eight paths that pack, ``launches_by_path``, and times one
+over the nine paths that pack, ``launches_by_path``, and times one
 binary-cell decode layer's 7 packs; ``lut_affine`` and ``lut_tl1`` add the
 paper networks' launches to their serve phase's, the weight cell's kernels
-the paged engine's and the MLA, phi3 and minitron cells'; a null
+the paged engine's and the MLA, phi3, minitron and mixtral cells', the
+experts kernel the mixtral cell's to the MoE cell's; a null
 ``library_ms`` comes with its ``library_reason``),
 the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero
@@ -273,6 +299,17 @@ FAMILY_TABLE_BYTES = 48 * 2**30
 # max, as each kernel is held to its plain version (measured: below 1e-6)
 SYNCED_TOL = 1e-5
 FAMILY_CALLS = {"phi3_medium_14b": (3, 2), "minitron_4b": (4, 1)}
+# the mixtral_serve phase: full-width mixtral_8x7b (a 4096-token sliding
+# window, 8 experts top-2 of width 14,336, no shared experts) at the cut
+# family_depth computes with its experts converted (1 of 32 layers); then its
+# ring at the published window: RING_SLOTS slots of RING_LEN (the window; 512
+# pages of PAGE_SIZE a slot when paged), two requests of RING_PROMPTS tokens
+# and RING_NEW new tokens each (both write past slot 4095 mid-decode); a
+# decode of RING_NEW fed tokens after a RING_PROMPTS[0]-token prefill, held
+# to a windowed full forward; ``generate()`` on a RING_GENERATE-token prompt
+RING_SLOTS, RING_LEN, RING_NEW = 2, 4096, 40
+RING_PROMPTS = (4072, 4088)
+RING_GENERATE, RING_GENERATE_NEW = 4200, 8
 
 # the pack_kernel phase: per cell, the model, the kind of its packs and
 # its packed inputs: (input, width, rows at decode, rows at prefill, packs
@@ -1401,19 +1438,19 @@ def recipe_bytes(full, layers: int, **kw) -> tuple[int, int]:
     return plan.total_lut_bytes - head, head
 
 
-def family_depth(full) -> tuple[int, dict]:
+def family_depth(full, **kw) -> tuple[int, dict]:
     """The deepest cut of full-width ``full`` whose recipe-planned tables,
     its layers plus the untied ``lm_head``, fit in FAMILY_TABLE_BYTES: from
     a one-layer plan on shapes alone, then checked by planning that depth
-    and the next."""
-    layer, head = recipe_bytes(full, 1)
+    and the next (``kw``: further ``plan_model`` arguments)."""
+    layer, head = recipe_bytes(full, 1, **kw)
     layers = min(full.num_layers, (FAMILY_TABLE_BYTES - head) // layer)
-    while layers >= 1 and sum(recipe_bytes(full, layers)) > FAMILY_TABLE_BYTES:
+    while layers >= 1 and sum(recipe_bytes(full, layers, **kw)) > FAMILY_TABLE_BYTES:
         layers -= 1
     if layers < 1:
         raise AssertionError(f"not one layer of {full.name} fits {FAMILY_TABLE_BYTES} B")
-    total = sum(recipe_bytes(full, layers))
-    nxt = sum(recipe_bytes(full, layers + 1)) if layers < full.num_layers else None
+    total = sum(recipe_bytes(full, layers, **kw))
+    nxt = sum(recipe_bytes(full, layers + 1, **kw)) if layers < full.num_layers else None
     mib, gib = 2**20, 2**30
     return layers, {
         "layers": layers, "published": full.num_layers,
@@ -1487,24 +1524,29 @@ def recipe_cell(phase: str, full, depth: dict, **kw):
     return cfg, lut
 
 
-def lut_calls_per_forward(tree, layers: int) -> dict:
+def lut_calls_per_forward(tree, layers: int, experts: bool = False) -> dict:
     """The LUT launches one forward of a converted decoder of ``layers``
     layers makes, from its tree: one ``lut_affine`` per lone projection and
     layer, one ``lut_affine_grouped`` per group and layer, and one pack
     before each (``linear`` packs its input, ``fused_linears`` once per
-    group)."""
+    group).  With ``experts``, the nodes of a block's ``ffn`` are routed
+    experts: one ``lut_affine_experts`` each (the pre-stacked
+    ``w_gate+w_up`` and ``w_down``), each after one pack (``moe.py`` packs
+    a token once and gathers its codes)."""
     from repro_torch.core.convert import LUTGroup, LUTLinear
 
     calls = {"lut_affine": 0, "lut_affine_grouped": 0}
+    if experts:
+        calls["lut_affine_experts"] = 0
 
-    def walk(node, n):
+    def walk(node, n, ragged=False):
         if isinstance(node, dict):
-            for v in node.values():
-                walk(v, n)
-        elif isinstance(node, LUTLinear):
-            calls["lut_affine"] += n
-        elif isinstance(node, LUTGroup):
-            calls["lut_affine_grouped"] += n
+            for key, v in node.items():
+                walk(v, n, experts and key == "ffn" if isinstance(v, dict) else ragged)
+        elif isinstance(node, (LUTLinear, LUTGroup)):
+            kind = ("lut_affine_experts" if ragged else
+                    "lut_affine" if isinstance(node, LUTLinear) else "lut_affine_grouped")
+            calls[kind] += n
 
     for key, node in tree.items():
         walk(node, layers if key == "blocks" else 1)
@@ -1514,10 +1556,11 @@ def lut_calls_per_forward(tree, layers: int) -> dict:
 @contextlib.contextmanager
 def pack_tape(codes=None):
     """Inside a ``with`` block, each pack site of the model (``layers.pack``)
-    records its input and codes, in call order; given ``codes`` (an earlier
-    block's record), each site takes the recorded codes of the same site
-    instead of packing its own input (which it still records)."""
-    from repro_torch.models import layers
+    records its input and codes, in call order (the MoE FFN's sites among
+    them); given ``codes`` (an earlier block's record), each site takes the
+    recorded codes of the same site instead of packing its own input (which
+    it still records)."""
+    from repro_torch.models import layers, moe
 
     pack0, sites = layers.pack, []
     replay = None if codes is None else iter(codes)
@@ -1527,11 +1570,11 @@ def pack_tape(codes=None):
         sites.append((x.clone(), own))
         return own
 
-    layers.pack = pack
+    layers.pack = moe.pack = pack
     try:
         yield sites
     finally:
-        layers.pack = pack0
+        layers.pack = moe.pack = pack0
     if replay is not None and next(replay, None) is not None:
         raise AssertionError("a recorded pack site was not replayed")
 
@@ -1686,11 +1729,12 @@ def recipe_prefill_logits(phase: str, lut, cfg, prompts, depths) -> None:
         del got, ref
 
 
-def recipe_layer_calls(phase: str, lut, iters: int) -> None:
-    """Each LUT call of a layer (layer 0's tables) and ``lm_head`` at the
-    decode shape (4 rows), kernel against plain as the kernel phase holds
-    them, with its device ms beside ``bound`` and the bf16 ``x @ W`` it
-    replaces; then a ``layer`` line with the sums over the layer's calls."""
+def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn")) -> dict:
+    """Each LUT call of a layer's ``parts`` (layer 0's tables) and
+    ``lm_head`` at the decode shape (4 rows), kernel against plain as the
+    kernel phase holds them, with its device ms beside ``bound`` and the
+    bf16 ``x @ W`` it replaces; then a ``layer`` line with the sums over
+    the layer's calls, which it returns."""
     import torch
 
     from repro_torch.core.convert import LUTGroup, LUTLinear
@@ -1699,7 +1743,7 @@ def recipe_layer_calls(phase: str, lut, iters: int) -> None:
 
     gen = torch.Generator(device=DEV).manual_seed(2)
     layer = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "dense_matmul_ms": 0.0}
-    nodes = [(name, node.layer(0)) for part in ("attn", "ffn")
+    nodes = [(name, node.layer(0)) for part in parts
              for name, node in lut["blocks"][part].items()
              if isinstance(node, (LUTLinear, LUTGroup))]
     for proj, node in nodes + [("lm_head", lut["lm_head"])]:
@@ -1721,6 +1765,35 @@ def recipe_layer_calls(phase: str, lut, iters: int) -> None:
     emit({"phase": phase, "step": "layer", "calls": len(nodes), **layer,
           "nvidia_smi": smi_line(),
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return layer
+
+
+def counted_run(phase, name, lut, cfg, prompts, max_new, per_forward, paged,
+                cuda_graph=None, engine=None, watch=None):
+    """One engine run on the kernels (paged at PAGE_SIZE or dense; graph by
+    default, or ``cuda_graph``; ``engine``: further engine arguments), its
+    launch counts set to 0 just before and read just after: ``per_forward``
+    of each kernel a forward, no pack off the kernel, the step as asked;
+    emits a ``paged_run`` line and returns (streams, engine)."""
+    reset_launches()
+    kw = {**({"page_size": PAGE_SIZE} if paged else {}), **(engine or {})}
+    reqs, eng, wall, decode_ms = run_engine(lut, cfg, prompts, max_new, True,
+                                            cuda_graph=cuda_graph, engine=kw, watch=watch)
+    launches, uncovered = read_launches(), plain_pack_codes_calls()
+    expect = {**no_launches(), **{k: v * eng.readbacks for k, v in per_forward.items()}}
+    if launches != expect or uncovered or eng.readbacks <= 0:
+        raise AssertionError(f"{phase} {name}: launch counts {launches} != expected "
+                             f"{expect}, or {uncovered} packs off the kernel")
+    if (cuda_graph is None) is not (eng._graph is not None):
+        raise AssertionError(f"{phase} {name}: the decode step did not run as asked")
+    tokens = sum(len(r.generated) for r in reqs)
+    emit({"phase": phase, "step": "paged_run", "name": name, "paged": paged,
+          "cuda_graph": eng._graph is not None,
+          "median_decode_step_ms": statistics.median(decode_ms), "tok_per_s": tokens / wall,
+          "wall_s": wall, "forwards": eng.readbacks, "prefill_tokens": eng.prefill_tokens,
+          "launches": launches,
+          "kv_bytes": sum(t.nbytes for t in eng.cache["layers"].values())})
+    return [r.generated for r in reqs], eng
 
 
 def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dict:
@@ -1764,25 +1837,9 @@ def mla_serve_phase(layers: int, requests: int, max_new: int, iters: int) -> dic
     pprompts = paged_requests(cfg)
 
     def served(name, paged, cuda_graph=None):
-        reset_launches()
-        reqs, eng, wall, decode_ms = run_engine(
-            lut, cfg, pprompts, max_new, True, cuda_graph=cuda_graph,
-            engine={"page_size": PAGE_SIZE} if paged else None)
-        launches, uncovered = read_launches(), plain_pack_codes_calls()
-        expect = {**no_launches(), **{k: v * eng.readbacks for k, v in per_forward.items()}}
-        if launches != expect or uncovered or eng.readbacks <= 0:
-            raise AssertionError(f"mla_serve {name}: launch counts {launches} != expected "
-                                 f"{expect}, or {uncovered} packs off the kernel")
-        if (cuda_graph is None) is not (eng._graph is not None):
-            raise AssertionError(f"mla_serve {name}: the decode step did not run as asked")
-        tokens = sum(len(r.generated) for r in reqs)
-        emit({"phase": "mla_serve", "step": "paged_run", "name": name, "paged": paged,
-              "cuda_graph": eng._graph is not None,
-              "median_decode_step_ms": statistics.median(decode_ms), "tok_per_s": tokens / wall,
-              "forwards": eng.readbacks, "prefill_tokens": eng.prefill_tokens,
-              "launches": launches,
-              "kv_bytes": sum(t.nbytes for t in eng.cache["layers"].values())})
-        return [r.generated for r in reqs], eng.prefill_tokens
+        streams, eng = counted_run("mla_serve", name, lut, cfg, pprompts, max_new,
+                                   per_forward, paged, cuda_graph)
+        return streams, eng.prefill_tokens
 
     a, _ = served("a_dense_graph", False)
     b, b_prefilled = served("b_paged_graph", True)
@@ -1844,6 +1901,329 @@ def family_serve_phase(phase: str, arch: str, requests: int, max_new: int, iters
     return {"launches": launches}
 
 
+def ring_positions(last: int, T: int) -> list:
+    """Slot j of a ring of T slots after positions 0..``last`` were written:
+    the latest p <= last with p % T == j, or -1 where none was."""
+    return [j + (last - j) // T * T if j <= last else -1 for j in range(T)]
+
+
+def ring_holds(cache, last_by_row: dict) -> bool:
+    """Whether each row's ``pos`` and ``valid``, read back once, are what
+    :func:`ring_positions` works out from the row's last written position."""
+    import numpy as np
+
+    T = cache["pos"].shape[1]
+    pos, valid = cache["pos"].cpu().numpy(), cache["valid"].cpu().numpy()
+    ok = True
+    for row, last in last_by_row.items():
+        want = np.asarray(ring_positions(last, T))
+        ok &= bool((valid[row] == (want >= 0)).all() and (pos[row][want >= 0] ==
+                                                          want[want >= 0]).all())
+    return ok
+
+
+def mapped_pages(counts: list):
+    """A ``run_engine`` watch that appends, after every step, the pages each
+    live slot maps in the allocator's table to ``counts``."""
+    def watch(eng):
+        def after():
+            live = [s for s, r in enumerate(eng.slots) if r is not None]
+            counts.extend((eng.alloc.table[live] >= 0).sum(1).tolist())
+        return after
+    return watch
+
+
+def experts_layer_calls(phase: str, lut, cfg, iters: int) -> dict:
+    """Layer 0's two routed-expert calls at the decode shape: SLOTS tokens
+    routed by the layer's own router into 2 x SLOTS expert-sorted rows,
+    ``w_gate+w_up`` on the tokens' gathered codes and ``w_down`` on the
+    sorted rows, kernel against plain (:func:`run_experts_case`) beside the
+    bound; returns the sums over both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.convert import LUTGroup
+    from repro_torch.core.lut import pack_codes, plane_scales
+    from repro_torch.models.moe import dispatch
+    from repro_torch.models.transformer import layer_params
+
+    ffn = layer_params(lut["blocks"]["ffn"], 0)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    x = torch.randn(SLOTS, cfg.d_model, generator=gen, device=DEV)
+    _, _, _, token_of, gs = dispatch(x, ffn["router"], cfg)
+    h = torch.randn(token_of.numel(), cfg.moe_d_ff, generator=gen, device=DEV)
+    total = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name, src in (("w_gate+w_up", x), ("w_down", h)):
+        node = ffn[name]
+        plan = node.plan
+        codes = pack_codes(src, plan)
+        if name == "w_gate+w_up":
+            codes = codes[token_of]
+        tables = node.tables if isinstance(node, LUTGroup) else node.tables[:, None]
+        scales = plane_scales(plan).astype(np.float32)
+        if node.scale is not None:
+            scales = scales * np.float32(float(node.scale))
+        r = run_experts_case(codes, tables, scales, gs, plan.shift_bits, iters, 3)
+        emit({"phase": phase, "step": "layer_call", "proj": name, "rows": codes.shape[0],
+              "experts_used": int((gs > 0).sum().item()), "E": tables.shape[0],
+              "G": tables.shape[1], "n": plan.num_planes, "k": plan.in_features,
+              "p": plan.out_features, "table_bytes": tables.numel() * tables.element_size(),
+              **r})
+        for key in total:
+            total[key] += r[key]
+    return total
+
+
+def mixtral_ring(phase: str, lut, cfg, per_forward: dict) -> None:
+    """The ring at the published window, on the kernels (the plain versions
+    cost ~40x at these row counts): ``BatchingEngine(RING_SLOTS, RING_LEN)``
+    dense and paged, graph and eager, on two requests that write past slot
+    4095 (streams identical whole; each slot's pos and valid exactly the
+    ring's; a paged slot maps all 512 pages at admission and none after);
+    a decode past the window against the windowed full forward of the same
+    sequence (norm error per position within LOGITS_FRO_TOL; beside it the
+    forward on bf16-rounded K/V and, not gated, with no window mask); and
+    ``generate()`` on a prompt longer than the window (its ring exact, its
+    first token the no-cache forward's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import (
+        _engine,
+        generate,
+        make_cache,
+        make_decode_step,
+        make_prefill_step,
+    )
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in RING_PROMPTS]
+    # the peak, reckoned before the run: what is resident, plus the larger of
+    # the admission prefill's fp32 attention (scores, their masked copy and
+    # the probabilities over RING_SLOTS x heads x RING_LEN^2) and its expert
+    # activations (gate, up, their product and w_down's int32 codes over
+    # 2 x RING_SLOTS x RING_LEN rows), plus its fp32 logits
+    gib, S = 2**30, RING_SLOTS * RING_LEN
+    planes = lut["blocks"]["ffn"]["w_down"].plan.num_planes
+    attn = 3 * RING_SLOTS * cfg.num_heads * RING_LEN**2 * 4
+    moe_act = 2 * S * cfg.moe_d_ff * 4 * (4 + planes)
+    logits = S * cfg.padded_vocab * 4
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    predicted = resident + max(attn, moe_act) + logits
+    emit({"phase": phase, "step": "ring_memory", "resident_gib": resident / gib,
+          "attention_gib": attn / gib, "expert_activations_gib": moe_act / gib,
+          "logits_gib": logits / gib, "predicted_peak_gib": predicted / gib,
+          "card_gib": torch.cuda.get_device_properties(0).total_memory / gib})
+    torch.cuda.reset_peak_memory_stats()
+
+    engine = {"num_slots": RING_SLOTS, "max_len": RING_LEN, "prefill_bucket": None}
+    last = {i: n + RING_NEW - 2 for i, n in enumerate(RING_PROMPTS)}
+    pages = RING_LEN // PAGE_SIZE
+    streams, checks = {}, {}
+    for name, paged, graph in (("dense_graph", False, None), ("dense_eager", False, False),
+                               ("paged_graph", True, None), ("paged_eager", True, False)):
+        mapped = []
+        streams[name], eng = counted_run(phase, f"ring_{name}", lut, cfg, prompts, RING_NEW,
+                                         per_forward, paged, graph, engine=engine,
+                                         watch=mapped_pages(mapped) if paged else None)
+        checks[f"ring_holds_{name}"] = ring_holds(eng.cache, last)
+        if paged:
+            checks[f"pages_mapped_{name}"] = bool(mapped) and set(mapped) == {pages}
+            checks[f"no_page_in_use_after_{name}"] = eng.alloc.pages_in_use == 0
+        del eng
+    checks["graph_eager_streams_identical"] = (streams["dense_graph"] == streams["dense_eager"]
+                                               and streams["paged_graph"]
+                                               == streams["paged_eager"])
+    checks["paged_dense_streams_identical"] = streams["paged_graph"] == streams["dense_graph"]
+    engines_peak = torch.cuda.max_memory_allocated()
+
+    # decode past the window against the windowed full forward
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
+    n0 = RING_PROMPTS[0]
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, n0 + RING_NEW).astype(np.int32))
+    tok = seq.to(DEV)[None]
+    cache = make_cache(cfg, 1, RING_LEN, ctx, device=DEV)
+    with torch.no_grad():
+        _, cache = make_prefill_step(ctx)(lut, {"tokens": tok[:, :n0]}, cache)
+        decode, steps = make_decode_step(ctx), []
+        for t in range(n0, n0 + RING_NEW):
+            _, lg, cache = decode(lut, cache, tok[:, t:t + 1])
+            steps.append(lg[0, -1])
+        got = torch.stack(steps)
+        checks["ring_holds_decode"] = ring_holds(cache, {0: n0 + RING_NEW - 1})
+        del cache
+
+        def full(c=cfg):
+            ctx_c = Ctx(c, ex=ExecCfg(lut_grouped=True))
+            return model_forward(lut, {"tokens": tok}, ctx_c)[0][0, n0:]
+
+        refs = {"windowed": full()}
+        with bf16_attention_inputs():
+            refs["windowed_bf16_kv"] = full()
+        refs["no_window"] = full(dataclasses.replace(cfg, sliding_window=None))
+    past = torch.arange(n0, n0 + RING_NEW, device=DEV) >= cfg.sliding_window
+    line = {"phase": phase, "step": "ring_decode", "prefill": n0, "decoded": RING_NEW,
+            "positions": [n0, n0 + RING_NEW - 1], "window": cfg.sliding_window,
+            "positions_past_window": int(past.sum().item()),
+            "rel_fro_tol": LOGITS_FRO_TOL,
+            "argmax_not_gated": f"the logits trap: a 1-row decode and a {n0 + RING_NEW}-row "
+                                "forward run different kernels, other fp32 orders"}
+    for name, ref in refs.items():
+        per_pos = ((got - ref).norm(dim=-1) / ref.norm(dim=-1))
+        line[name] = {**compare_logits(got, ref),
+                      "max_rel_fro_err_per_position": per_pos.max().item(),
+                      "max_rel_fro_err_past_window": per_pos[past].max().item(),
+                      "max_rel_fro_err_inside_window": per_pos[~past].max().item()}
+    emit(line)
+    checks["decode_within_tol_of_windowed_forward"] = (
+        line["windowed"]["max_rel_fro_err_per_position"] <= LOGITS_FRO_TOL
+        and bool(torch.isfinite(got).all().item()))
+    del got, refs
+
+    # generate() past the window: its cache, seen through make_cache
+    gprompt = rng.integers(0, cfg.vocab_size, RING_GENERATE).astype(np.int32)
+    made, make = [], _engine.make_cache
+
+    def keep(*a, **kw):
+        made.append(make(*a, **kw))
+        return made[-1]
+
+    _engine.make_cache = keep
+    try:
+        toks = generate(lut, ctx, gprompt[None], RING_GENERATE_NEW, device=DEV)
+    finally:
+        _engine.make_cache = make
+    checks["ring_holds_generate"] = ring_holds(
+        made[0], {0: RING_GENERATE + RING_GENERATE_NEW - 2})
+    with torch.no_grad():
+        last_logits = model_forward(lut, {"tokens": torch.from_numpy(gprompt).to(DEV)[None]},
+                                    ctx)[0][0, -1]
+    checks["generate_first_token_is_forward_argmax"] = int(toks[0, 0]) == int(
+        last_logits.argmax().item())
+    del made
+    emit({"phase": phase, "step": "ring_checks", **checks,
+          "ring": {"T": min(cfg.sliding_window, RING_LEN), "slots": RING_SLOTS,
+                   "prompts": list(RING_PROMPTS), "new_tokens": RING_NEW,
+                   "last_positions": list(last.values()), "pages_per_slot": pages,
+                   "generate_prompt": RING_GENERATE, "generate_tokens": toks[0].tolist()},
+          "predicted_peak_gib": predicted / gib, "engines_peak_gib": engines_peak / gib,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / gib,
+          "seconds": time.perf_counter() - t0})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase}: failed ring checks {failed}")
+
+
+def mixtral_serve_phase(requests: int, max_new: int, iters: int) -> dict:
+    """Full-width mixtral_8x7b at the cut :func:`family_depth` computes
+    with its experts converted (the conversion's peak from
+    :func:`moe_depth` beside it), planned by the recipe with
+    ``convert_experts=True`` and chunks capped at 1, converted and served
+    through ``BatchingEngine`` on the LUT kernels: the serve cell's requests
+    (a ring of min(4096, MAX_LEN) = MAX_LEN slots, which they never wrap),
+    graph and eager in turns, then on the plain versions, first tokens
+    synchronized (:func:`serve_recipe_cell`); prefill logits at the cut;
+    paged at PAGE_SIZE (every page mapped at admission, no sharing): (a)
+    dense graph, (b) paged graph, (c) paged eager, all three streams
+    identical whole; one decode-shaped forward past the ring's wrap, dense
+    and paged, under ``set_sync_debug_mode("error")``; each LUT call of a
+    layer at the decode shape; last, the ring at the published window
+    (:func:`mixtral_ring`)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
+
+    phase = "mixtral_serve"
+    full = get_config("mixtral_8x7b")
+    layers, depth = family_depth(full, convert_experts=True)
+    conv_layers, conv = moe_depth(full)
+    depth.update(conversion_layers=conv_layers, conversion_peak_gib=conv["conversion_peak_gib"],
+                 conversion_reason=conv["reason"])
+    cfg, lut = recipe_cell(phase, full, depth, convert_experts=True)
+    # wq, wo and lm_head alone, wk+wv grouped, the routed w_gate+w_up and
+    # w_down ragged; one pack each
+    per_forward = lut_calls_per_forward(lut, layers, experts=True)
+    want = {"lut_affine": 2 * layers + 1, "lut_affine_grouped": layers,
+            "lut_affine_experts": 2 * layers, "bitplane_pack": 5 * layers + 1}
+    if per_forward != want:
+        raise AssertionError(f"{phase}: the converted tree makes {per_forward} calls a "
+                             f"forward, not {want}")
+    prompts = serve_requests(cfg, requests)
+    launches = serve_recipe_cell(phase, lut, cfg, per_forward, prompts, max_new, synced=True)
+    recipe_prefill_logits(phase, lut, cfg, prompts, (layers,))
+
+    # the same requests paged, every page of a slot mapped at admission
+    mapped = []
+    a, _ = counted_run(phase, "a_dense_graph", lut, cfg, prompts, max_new, per_forward, False)
+    b, beng = counted_run(phase, "b_paged_graph", lut, cfg, prompts, max_new, per_forward, True,
+                          watch=mapped_pages(mapped))
+    c, ceng = counted_run(phase, "c_paged_eager", lut, cfg, prompts, max_new, per_forward, True,
+                          cuda_graph=False, watch=mapped_pages(mapped))
+    T = beng.cache["pos"].shape[1]
+    checks = {
+        "paged_streams_identical_b_c": b == c,
+        "paged_dense_streams_identical_a_b": a == b,
+        "sharing_off": not beng.alloc.share,
+        "pages_mapped_at_admission": bool(mapped) and set(mapped) == {T // PAGE_SIZE},
+        "prefill_tokens_every_prompt_token": beng.prefill_tokens == ceng.prefill_tokens
+        == sum(len(p) for p in prompts),
+        "no_page_in_use_after": beng.alloc.pages_in_use == ceng.alloc.pages_in_use == 0,
+    }
+    emit({"phase": phase, "step": "paged_checks", **checks, "ring_slots": T,
+          "ring_wraps": max(len(p) for p in prompts) + max_new - 1 > T})
+    del beng, ceng
+
+    # one decode-shaped forward past the ring's wrap, reading nothing back
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
+    sync = {}
+    for name, page_size in (("dense", None), ("paged", PAGE_SIZE)):
+        cache = make_cache(cfg, SLOTS, MAX_LEN, ctx, page_size=page_size, device=DEV)
+        cache["overflow"] = torch.zeros(SLOTS, dtype=torch.bool, device=DEV)
+        cache["index"].fill_(T + 5)
+        tok = torch.arange(1, SLOTS + 1, dtype=torch.int32, device=DEV)[:, None]
+        live = torch.ones((SLOTS, 1), dtype=torch.bool, device=DEV)
+        with torch.no_grad():
+            model_forward(lut, {"tokens": tok, "token_mask": live}, ctx, cache=cache)
+            torch.cuda.synchronize()
+            reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, _, _ = model_forward(lut, {"tokens": tok, "token_mask": live}, ctx,
+                                          cache=cache)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        sync[name] = {"launches": {k: v for k, v in read_launches().items() if v},
+                      "plain_pack_codes_calls": plain_pack_codes_calls(),
+                      "table_copies": lut_ops.TABLE_COPIES["table_operand"],
+                      "finite": bool(torch.isfinite(out).all().item())}
+        del cache
+    emit({"phase": phase, "step": "sync_debug", **sync})
+    for name, r in sync.items():
+        if (r["launches"] != per_forward or r["plain_pack_codes_calls"] or r["table_copies"]
+                or not r["finite"]):
+            raise AssertionError(f"{phase}: the {name} forward under sync debug: {r}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase}: failed paged checks {failed}")
+
+    attn = recipe_layer_calls(phase, lut, iters, parts=("attn",))
+    experts = experts_layer_calls(phase, lut, cfg, iters)
+    emit({"phase": phase, "step": "layer", "calls": "attention and experts",
+          **{k: attn[k] + experts[k] for k in experts}, "nvidia_smi": smi_line()})
+    mixtral_ring(phase, lut, cfg, per_forward)
+    del lut
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def read_launches() -> dict:
     return {k: v for counts in _launch_counts() for k, v in counts.items()}
 
@@ -1867,8 +2247,9 @@ def serve_requests(cfg, requests: int):
 
 def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph=None,
                engine=None, watch=None, **ex):
-    """Serve ``prompts`` through ``BatchingEngine`` (SLOTS slots, grouped
-    launches, ``engine`` further engine arguments such as ``page_size``,
+    """Serve ``prompts`` through ``BatchingEngine`` (SLOTS slots of MAX_LEN,
+    bucket BUCKET, grouped launches; ``engine`` further engine arguments
+    such as ``page_size``, or others in their place,
     ``ex`` further ExecCfg fields) on the kernels or the plain versions, the
     decode step as graph replays (the engine's default on the card) or
     eager (``cuda_graph=False``; the plain versions copy host scales to the
@@ -1882,8 +2263,8 @@ def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph
     from repro_torch.serve import BatchingEngine, Request
 
     ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels, **ex))
-    eng = BatchingEngine(params, ctx, SLOTS, MAX_LEN, prefill_bucket=BUCKET, device=DEV,
-                         cuda_graph=cuda_graph, **(engine or {}))
+    kw = {"num_slots": SLOTS, "max_len": MAX_LEN, "prefill_bucket": BUCKET, **(engine or {})}
+    eng = BatchingEngine(params, ctx, device=DEV, cuda_graph=cuda_graph, **kw)
     after_step = watch(eng) if watch is not None else None
     reqs = [Request(i, pr, max_new) for i, pr in enumerate(prompts)]
     for r in reqs:
@@ -3474,8 +3855,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phases",
         default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
-                "minitron_serve,tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,"
-                "paper",
+                "minitron_serve,mixtral_serve,tl1_kernel,tl1_serve,moe_kernel,moe_serve,"
+                "bmm_kernel,bmm_serve,paper",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -3532,6 +3913,7 @@ def main(argv=None) -> int:
                MAX_NEW, args.iters)
     mini = run("minitron_serve", family_serve_phase, "minitron_serve", "minitron_4b",
                REQUESTS, MAX_NEW, args.iters)
+    mix = run("mixtral_serve", mixtral_serve_phase, REQUESTS, MAX_NEW, args.iters)
     tkern = run("tl1_kernel", tl1_kernel_phase, args.iters, 4 * 32)
     tsrv = run("tl1_serve", tl1_serve_phase, TL1_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
@@ -3552,10 +3934,12 @@ def main(argv=None) -> int:
         for name in names:
             m = k["main"][name]
             # lut_affine and lut_tl1 also run the paper networks, the weight
-            # cell's kernels the paged engine, the MLA, phi3 and minitron cells
+            # cell's kernels the paged engine, the MLA, phi3, minitron and
+            # mixtral cells, the experts kernel the mixtral cell
             by_path = {path: s["launches"][name]}
             for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("phi3_serve", phi3),
-                             ("minitron_serve", mini), ("paper", paper)):
+                             ("minitron_serve", mini), ("mixtral_serve", mix),
+                             ("paper", paper)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -3576,7 +3960,8 @@ def main(argv=None) -> int:
     # each cell's layer)
     paths = {name: s for name, s in (("serve", srv), ("paged_serve", psrv), ("mla_serve", mla),
                                      ("phi3_serve", phi3), ("minitron_serve", mini),
-                                     ("moe_serve", msrv), ("bmm_serve", bsrv), ("paper", paper))
+                                     ("mixtral_serve", mix), ("moe_serve", msrv),
+                                     ("bmm_serve", bsrv), ("paper", paper))
              if s is not None}
     if pkern is not None and paths:
         m = pkern["layers"]["binary"]

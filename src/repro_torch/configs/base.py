@@ -76,7 +76,8 @@ class ModelConfig:
 
 
 ARCH_NAMES = [
-    "granite_8b", "minicpm3_4b", "minitron_4b", "phi3_medium_14b", "qwen2_moe_a2_7b",
+    "granite_8b", "minicpm3_4b", "minitron_4b", "mixtral_8x7b", "phi3_medium_14b",
+    "qwen2_moe_a2_7b",
 ]
 
 

@@ -441,8 +441,11 @@ def causal_mask(
     q_pos: torch.Tensor,  # (B, Sq)
     k_pos: torch.Tensor,  # (B, Sk)
     k_valid: torch.Tensor | None = None,  # (B, Sk) bool
+    window: int | None = None,
 ) -> torch.Tensor:
     m = q_pos[:, :, None] >= k_pos[:, None, :]
+    if window is not None:
+        m &= q_pos[:, :, None] - k_pos[:, None, :] < window
     if k_valid is not None:
         m &= k_valid[:, None, :]
     return m[:, None]  # (B, 1, Sq, Sk)
@@ -464,8 +467,13 @@ def attention(
     prefill attends through the page-table view, as decode does: prefix
     sharing maps pages written earlier into the slot, so the in-flight
     keys are not the whole visible context (the causal mask and ``valid``
-    exclude what is not written yet)."""
+    exclude what is not written yet).  A sliding-window model's paged
+    prefill attends over its in-flight keys, as a dense one does: its ring
+    keeps only the last ``window`` keys, which is state for decode, not a
+    view for the early queries, and its engine shares no prefixes.  Every
+    branch masks keys ``window`` or more positions back."""
     cfg = ctx.cfg
+    window = cfg.sliding_window
     yq, yk, yv = fused_linears(p, ("wq", "wk", "wv"), x, ctx)
     q = _split_heads(yq, cfg.num_heads)
     k = _split_heads(yk, cfg.num_kv_heads)
@@ -477,13 +485,14 @@ def attention(
         from repro_torch.serve._cache import update_kv_cache
 
         k_all, v_all, k_pos, k_valid = update_kv_cache(cache, k, v, positions, ctx)
-        if x.shape[1] == 1 or cache["_meta"].page_ids is not None:
+        paged_prefill = cache["_meta"].page_ids is not None and window is None
+        if x.shape[1] == 1 or paged_prefill:
             k, v = k_all, v_all
-            mask = causal_mask(positions, k_pos, k_valid)
+            mask = causal_mask(positions, k_pos, k_valid, window)
         else:
-            mask = causal_mask(positions, positions)
+            mask = causal_mask(positions, positions, None, window)
     else:
-        mask = causal_mask(positions, positions)
+        mask = causal_mask(positions, positions, None, window)
     return linear(p["wo"], _sdpa(q, k, v, mask), ctx)
 
 

@@ -42,8 +42,6 @@ def decoder_specs(cfg: ModelConfig) -> dict:
             f"{cfg.attention!r} attention with {cfg.norm!r} comes with its slice of the "
             "port (ported: 'gqa' and 'mla' with 'rmsnorm')"
         )
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("sliding-window rings come with the mixtral slice")
     d = cfg.d_model
     s: dict[str, Any] = {
         "embed": PSpec((cfg.padded_vocab, d), ("vocab", "embed"), init="embed"),

@@ -25,8 +25,13 @@ advance ``index``; a write whose slot falls at or past T, or whose page is
 unmapped, is dropped and flags the row's ``overflow``, which the serving
 layer raises on (:class:`CacheOverflowError`); the dense ``S == T``
 fresh-row fast path overwrites whole rows whose pre-write index is 0 and
-rejects any other row as a unit.  Sliding-window rings come with their
-slice.
+rejects any other row as a unit.
+
+Sliding-window models keep a ring: T = min(window, max_len) (paged: a
+whole number of pages), a token at absolute position p lands in slot
+``p % T``, a write longer than T keeps its last T tokens, and nothing
+overflows -- ``pos`` keeps each slot's absolute position, so the window
+mask reads the ring's order from it.
 
 Every write lands in place, in the buffer the cache was made with, never
 in a new tensor bound to its key, and nothing is read back to the host: a
@@ -51,8 +56,9 @@ class CacheOverflowError(ValueError):
 
 class CacheWrite(NamedTuple):
     """Typed result of :func:`advance_meta`: everything a per-layer write
-    needs.  ``slots`` (B, S) explicit write slots; ``mask`` (B, S) bool or
-    None (paged: tokens whose page is unmapped are masked out here too);
+    needs.  ``slots`` (B, S) explicit write slots (a ring's: its last T
+    tokens'); ``mask`` (B, S) bool or None (paged: tokens whose page is
+    unmapped are masked out here too);
     ``positions`` written; ``overflow`` (B,) accumulated flags or None;
     ``pos``/``valid`` post-write metadata; ``index`` the PRE-write per-slot
     offset (gates the fresh-row fast path).  Paged caches also carry
@@ -92,32 +98,29 @@ def cache_specs(
     page_size, ...) -- the last page the sink -- plus a (batch, max_pages)
     int32 ``page_table``.  ``num_pages`` (the pages an allocator may map)
     defaults to ``batch * max_pages``: every slot can hold a full
-    rectangle, and prefix sharing only shrinks from there.  ``max_len``
-    must be a whole number of pages."""
-    if (
-        cfg.family not in ("dense", "moe")
-        or cfg.attention not in ("gqa", "mla")
-        or cfg.sliding_window
-    ):
+    rectangle, and prefix sharing only shrinks from there.  The capacity
+    T -- ``max_len``, or a sliding-window model's ring ``min(window,
+    max_len)`` -- must be a whole number of pages."""
+    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.family}/{cfg.attention} caches and sliding-window rings come "
-            "with their family's slice"
+            f"{cfg.family}/{cfg.attention} caches come with their family's slice"
         )
-    lead = (cfg.num_layers, batch, max_len)
+    T = max_len if cfg.sliding_window is None else min(cfg.sliding_window, max_len)
+    lead = (cfg.num_layers, batch, T)
     axes = ("layers", "batch", "seq_kv")
     meta = ("batch", "seq_kv")
     tree = {
-        "pos": PSpec((batch, max_len), meta, init="zeros", dtype=torch.int32),
-        "valid": PSpec((batch, max_len), meta, init="zeros", dtype=torch.bool),
+        "pos": PSpec((batch, T), meta, init="zeros", dtype=torch.int32),
+        "valid": PSpec((batch, T), meta, init="zeros", dtype=torch.bool),
         "index": PSpec((batch,), ("batch",), init="zeros", dtype=torch.int32),
     }
     if page_size is not None:
-        if max_len % page_size:
+        if T % page_size:
             raise ValueError(
-                f"cache capacity {max_len} must be a whole number of pages "
-                f"(page_size {page_size}); pad max_len"
+                f"cache capacity {T} must be a whole number of pages "
+                f"(page_size {page_size}); pad max_len or the window"
             )
-        max_pages = max_len // page_size
+        max_pages = T // page_size
         if num_pages is None:
             num_pages = batch * max_pages
         lead = (cfg.num_layers, num_pages + 1, page_size)
@@ -146,7 +149,7 @@ def scatter_rows(
     back the value already in their slot, so nothing syncs with the host.
     A row's slots are consecutive, hence distinct mod T over any T tokens;
     tokens past the first T are always out of range, so they are cut
-    first."""
+    first (a ring's write was cut to its last T before it came here)."""
     T = buf.shape[1]
     if slots.shape[1] > T:
         slots, new, ok = slots[:, :T], new[:, :T], ok[:, :T]
@@ -166,23 +169,35 @@ def advance_meta(
 ) -> tuple[dict, CacheWrite]:
     """Advance pos/valid/index (and ``overflow`` where the cache has it)
     for the S tokens written this step, each in its own buffer, and return
-    ``(cache, write)``.  ``window`` must be None here.  For paged caches the
-    write also carries each token's (page, offset), resolved through its
-    slot's ``page_table`` row; a token whose slot is past T or whose page
-    is unmapped is dropped from the write mask and flags ``overflow``."""
-    if window is not None:
-        raise NotImplementedError("sliding-window rings come with the mixtral slice")
-    S = positions.shape[1]
+    ``(cache, write)``.  For paged caches the write also carries each
+    token's (page, offset), resolved through its slot's ``page_table`` row;
+    a token whose slot is past T or whose page is unmapped is dropped from
+    the write mask and flags ``overflow``.
+
+    With a ``window`` the cache is a ring: the write keeps the last T of
+    the S tokens (``positions`` and the mask cut to them; T consecutive
+    positions are distinct mod T), its slots are ``positions % T``, and no
+    slot is past T -- only an unmapped page flags ``overflow``."""
     T = cache["pos"].shape[1]
     paged = "page_table" in cache
     index = cache["index"].clone()  # the pre-write offsets, kept past the advance
-    slots = index[:, None] + torch.arange(S, dtype=torch.int32, device=index.device)
+    S = positions.shape[1]
+    adv = S if token_mask is None else token_mask.sum(1).to(torch.int32)
+    mask = token_mask
+    if window is not None and S > T:
+        positions = positions[:, -T:]
+        mask = mask[:, -T:] if mask is not None else None
+        S = T
+    if window is not None:
+        slots = torch.remainder(positions, T).to(torch.int32)
+    else:
+        slots = index[:, None] + torch.arange(S, dtype=torch.int32, device=index.device)
     over = slots >= T
-    if token_mask is not None:
-        over = over & token_mask
+    if mask is not None:
+        over = over & mask
     overflow = cache.get("overflow")
-    mask = meta_mask = token_mask
-    if token_mask is None and S == T and not paged:
+    meta_mask = mask
+    if mask is None and S == T and not paged and window is None:
         # the per-layer writes take the whole-row fast path, which cannot
         # express a partially in-range write: suppress those rows' pos/valid
         # too (their overflow is flagged)
@@ -196,11 +211,11 @@ def advance_meta(
         page_offsets = slots % page_size
         pid = torch.gather(table, 1, grp.to(torch.int64))
         dropped = (slots >= T) | (pid < 0)
-        if token_mask is not None:
-            dropped = dropped & token_mask
+        if mask is not None:
+            dropped = dropped & mask
         over = dropped
         page_ids = torch.where(dropped, -1, pid)
-        mask = meta_mask = ~dropped if token_mask is None else token_mask & ~dropped
+        mask = meta_mask = ~dropped if mask is None else mask & ~dropped
         sink = pool_pages(cache)  # the sink is the page past the mappable ones
         rows = write_rows(page_ids, page_offsets, mask, sink, page_size)
         view_pages, view_mapped = view_index(table)
@@ -209,7 +224,6 @@ def advance_meta(
         ok = ok & meta_mask
     scatter_rows(cache["pos"], positions.to(torch.int32), slots, ok)
     scatter_rows(cache["valid"], torch.ones_like(ok), slots, ok)
-    adv = token_mask.sum(1).to(torch.int32) if token_mask is not None else S
     cache["index"].add_(adv)
     if overflow is not None:
         overflow |= over.any(1)
@@ -294,19 +308,23 @@ def copy_pages(buf: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> None:
     buf.index_copy_(1, d, buf.index_select(1, s))
 
 
-def _update_leaves(cache: dict, new: dict) -> tuple:
+def _update_leaves(cache: dict, new: dict, window: int | None = None) -> tuple:
     """Write each ``new[name]`` (B, S, ...) into the layer's cache view
     ``cache[name]`` in place and return the views attended over, in
     ``new``'s order (paged: gathered through the page table after the
-    write).  The dense ``S == T`` fast path overwrites whole fresh rows
-    (pre-write index 0) and leaves every other row as it was."""
+    write).  Each leaf keeps the tokens the write has slots for: a ring
+    (``window`` set) its last T.  The dense ``S == T`` fast path, which a
+    ring never takes, overwrites whole fresh rows (pre-write index 0) and
+    leaves every other row as it was."""
     w: CacheWrite = cache["_meta"]
+    S_w = w.slots.shape[1]
+    new = {name: t[:, -S_w:] for name, t in new.items()}
     if w.page_rows is not None:
         for name, t in new.items():
             paged_write(cache[name], t, w.page_rows)
         return tuple(paged_view(cache[name], w.view_pages, w.view_mapped) for name in new)
     T = w.pos.shape[1]
-    if w.slots.shape[1] == T and w.mask is None:
+    if S_w == T and w.mask is None and window is None:
         for name, t in new.items():
             buf = cache[name]
             fresh = (w.index == 0).reshape((-1,) + (1,) * (buf.dim() - 1))
@@ -325,7 +343,8 @@ def update_kv_cache(cache: dict, k, v, positions, ctx) -> tuple[Any, ...]:
     return ``(k_all, v_all, pos, valid)``, the views decode attends over
     (paged: gathered through the page table after the write)."""
     w: CacheWrite = cache["_meta"]
-    return (*_update_leaves(cache, {"k": k, "v": v}), w.pos, w.valid)
+    leaves = _update_leaves(cache, {"k": k, "v": v}, ctx.cfg.sliding_window)
+    return (*leaves, w.pos, w.valid)
 
 
 def update_mla_cache(cache: dict, c_kv, k_rope, positions, ctx) -> tuple[Any, ...]:

@@ -149,15 +149,16 @@ def generate(
     """Reference generation loop, aligned with :class:`BatchingEngine`:
     each row stops at its first ``eos_id`` (emitted), later positions are
     padded with ``eos_id``; raises :class:`CacheOverflowError` up front when
-    ``prompt + max_new - 1`` writes cannot fit in ``max_len``.  With
-    ``page_size``, K/V are paged behind an identity page table: the same
-    semantics in the paged layout."""
+    ``prompt + max_new - 1`` writes cannot fit in ``max_len`` (a
+    sliding-window model's ring never overflows: its prefill keeps the
+    prompt's last T tokens).  With ``page_size``, K/V are paged behind an
+    identity page table: the same semantics in the paged layout."""
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
     B, S = prompts.shape
     scfg = sample or SampleCfg()
     T = max_len or (S + max_new)
-    if S + max_new - 1 > T:
+    if ctx.cfg.sliding_window is None and S + max_new - 1 > T:
         raise CacheOverflowError(
             f"prompt ({S} tokens) + max_new ({max_new}) needs "
             f"{S + max_new - 1} cache slots but max_len is {T}; raise max_len"
@@ -312,7 +313,13 @@ class BatchingEngine:
     ``True`` raises) runs the decode step as replays of one captured CUDA
     graph; ``False`` keeps the eager step.  ``page_size`` pages the cache
     (``num_pages`` physical pages, default ``num_slots * max_len /
-    page_size``; ``share_prefixes`` maps registered prompt prefixes)."""
+    page_size``; ``share_prefixes`` maps registered prompt prefixes).
+
+    A sliding-window model's cache is a ring of T = min(window, max_len)
+    slots: a request may outlast T (no overflow check), a paged slot maps
+    all its pages at admission (``PageAllocator.admit_windowed``), and
+    prefixes are never shared, since a ring's contents depend on the
+    position."""
 
     def __init__(
         self,
@@ -354,6 +361,7 @@ class BatchingEngine:
         self.queue: list[Request] = []
         self.slots: list[Optional[Request]] = [None] * num_slots
         self.page_size = page_size
+        self._windowed = ctx.cfg.sliding_window is not None
         self.cache = make_cache(
             ctx.cfg, num_slots, max_len, ctx, page_size=page_size,
             num_pages=num_pages, page_table="empty", device=self.device,
@@ -364,7 +372,7 @@ class BatchingEngine:
             pages_per_slot = self._T // page_size
             self.alloc = PageAllocator(
                 num_pages or num_slots * pages_per_slot, page_size, num_slots,
-                pages_per_slot, share=share_prefixes,
+                pages_per_slot, share=share_prefixes and not self._windowed,
             )
             # the host side of the device table's in-place uploads
             self._table_host = torch.empty(
@@ -400,7 +408,7 @@ class BatchingEngine:
                 f"request {req.uid}: prompt ({plen}) exceeds the prefill "
                 f"capacity ({cap} tokens)"
             )
-        if plen + req.max_new - 1 > self.max_len:
+        if not self._windowed and plen + req.max_new - 1 > self.max_len:
             raise CacheOverflowError(
                 f"request {req.uid}: prompt ({plen}) + max_new ({req.max_new}) "
                 f"needs {plen + req.max_new - 1} cache slots but max_len is "
@@ -453,7 +461,10 @@ class BatchingEngine:
             if any(k in pending and not self.alloc.has_prefix(k) for k in keys):
                 self.queue.insert(0, req)  # share with this round's donor
                 break  # once it registers, next round
-            plan = self.alloc.admit(s, pnp)
+            if self._windowed:
+                plan = self.alloc.admit_windowed(s)
+            else:
+                plan = self.alloc.admit(s, pnp)
             if plan is None:  # pool dry: wait for retires to free pages
                 self.queue.insert(0, req)
                 break

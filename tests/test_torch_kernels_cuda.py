@@ -1,7 +1,8 @@
 """The Hopper kernels (weight family: ``lut_affine`` in both its decode
 and prefill kernels, and its ragged MoE form ``lut_affine_experts``; TL1: ``lut_tl1``; the binary-matmul mode:
 ``bitplane_pack`` and ``binary_matmul``) against their plain PyTorch
-versions, on the card.  The
+versions, on the card, and the engine's decode step as a CUDA graph on
+each served path (mixtral_8x7b's ring cache among them).  The
 kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 runs on a machine that has only the port's dependencies:
@@ -940,7 +941,8 @@ GRAPH_SLOTS, GRAPH_MAX_LEN, GRAPH_MAX_NEW = 3, 32, 6
 
 def _graph_world(path, device):
     """(config, params, ExecCfg fields) of one served path: planned i8
-    tables (weight, MoE with its experts, minicpm3_4b's MLA with its latent
+    tables (weight, MoE with its experts, mixtral_8x7b's ring and top-2
+    experts, minicpm3_4b's MLA with its latent
     up-projections vetoed, phi3_medium_14b with its G = 3 ``wq+wk+wv``
     group, minitron_4b's two-matrix squared-ReLU MLP), TL1 tables, or bf16
     projections under the binary-matmul mode."""
@@ -952,14 +954,15 @@ def _graph_world(path, device):
     from repro_torch.models.params import bf16_projections, init_params
 
     name = {"moe": "qwen2_moe_a2_7b", "mla": "minicpm3_4b", "phi3": "phi3_medium_14b",
-            "relu2": "minitron_4b"}.get(path, "granite_8b")
+            "relu2": "minitron_4b", "swa": "mixtral_8x7b"}.get(path, "granite_8b")
     cfg = get_config(name, reduced=True)
     gen = torch.Generator(device=device).manual_seed(3)
     params = init_params(model_specs(cfg), gen, device=device)
     if path == "binary":
         return cfg, bf16_projections(params), dict(linear_mode="binary_matmul",
                                                    fixed_bits=8, fixed_frac=6)
-    kw = {"moe": {"convert_experts": True}, "mla": {"predicate": mla_convertible}}.get(path, {})
+    kw = {"moe": {"convert_experts": True}, "swa": {"convert_experts": True},
+          "mla": {"predicate": mla_convertible}}.get(path, {})
     if path == "tl1":
         plan = plan_model(params, float("inf"), families=("tl1",))
     else:
@@ -982,8 +985,10 @@ def _counts_now():
     return {k: v for c in launch_counters() for k, v in c.items()}
 
 
-def _graph_serve(world, cuda_graph, sample, device):
-    """Serve the prompts; returns (streams, launches of the run, engine)."""
+def _graph_serve(world, cuda_graph, sample, device, prompts=None, max_new=GRAPH_MAX_NEW,
+                 **kw):
+    """Serve the prompts (``_graph_prompts``' by default; ``kw`` further
+    engine arguments); returns (streams, launches of the run, engine)."""
     from repro_torch.kernels.common import launch_counters
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.serve import BatchingEngine, Request
@@ -991,8 +996,10 @@ def _graph_serve(world, cuda_graph, sample, device):
     cfg, params, ex = world
     ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex))
     eng = BatchingEngine(params, ctx, GRAPH_SLOTS, GRAPH_MAX_LEN, sample=sample, seed=5,
-                         device=device, cuda_graph=cuda_graph)
-    reqs = [Request(i, p, GRAPH_MAX_NEW) for i, p in enumerate(_graph_prompts(cfg.vocab_size))]
+                         device=device, cuda_graph=cuda_graph, **kw)
+    if prompts is None:
+        prompts = _graph_prompts(cfg.vocab_size)
+    reqs = [Request(i, p, max_new) for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     for c in launch_counters():
@@ -1246,3 +1253,128 @@ def test_mla_kernel_path_first_tokens_match_plain_on_card(cuda_device):
     got, _ = _mla_serve(world, cuda_device)
     want, _ = _mla_serve(world, cuda_device, use_kernels=False, cuda_graph=False)
     assert [s[0] for s in got] == [s[0] for s in want]
+
+
+# ---------------------------------------------------------------------------
+# mixtral_8x7b's sliding-window ring: the kernels at the row counts of the
+# card's run at the published window (one slot's 4,072-token prefill, the
+# 4,112-token full forward, two 4,096-token slots admitted in one prefill),
+# at narrow widths so that the plain versions stay cheap; the ring engine's
+# graph against its eager step, dense and paged
+# ---------------------------------------------------------------------------
+
+RING_ROWS = (4072, 4112, 8192)
+RING_PROMPT_LENS = (3, 9, 12, 5, 14)
+RING_MAX_NEW = 12  # with GRAPH_MAX_LEN 32 the ring holds 16: every request wraps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", RING_ROWS)
+@pytest.mark.parametrize("G", [1, 2], ids=["lone", "grouped"])
+def test_dense_at_the_ring_row_counts_on_card(cuda_device, G, B):
+    """``lut_affine`` (``wq``, ``wo``, ``lm_head``) and
+    ``lut_affine_grouped`` (``wk+wv``) on the prefill kernel at the ring
+    run's rows: one launch, within 1e-5 x max|plain|."""
+    codes, tables = _family_case(cuda_device, B + G, B, G, 64, 256)
+    assert _regime(B, 3, 64, 32, tables).regime == "prefill"
+    entry = "lut_affine" if G == 1 else "lut_affine_grouped"
+    launches = ops.LAUNCHES[entry]
+    got = _family_call(codes, tables)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[entry] == launches + 1
+    _close(got, _family_call(codes, tables, use_kernels=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", RING_ROWS)
+@pytest.mark.parametrize("G,k,p", [(2, 64, 256), (1, 256, 64)], ids=["gate_up", "down"])
+def test_experts_at_the_ring_row_counts_on_card(cuda_device, G, k, p, tokens):
+    """``lut_affine_experts`` on mixtral's 8 experts, top-2 routed: twice
+    the ring run's tokens in expert-sorted rows (16,384 at the two-slot
+    admission), one launch, within 1e-5 x max|plain|."""
+    rng = np.random.default_rng(tokens + G)
+    routed = np.concatenate([rng.choice(8, 2, replace=False) for _ in range(tokens)])
+    sizes = tuple(int(v) for v in np.bincount(routed, minlength=8))
+    c, t, scales, gs = _full_width_case(cuda_device, tokens + G, G, 2 * tokens, k, p, sizes)
+    assert _experts_splits(G, 2 * tokens, k, t) == 1
+    launches = ops.LAUNCHES["lut_affine_experts"]
+    got = ops.lut_affine_experts(c, t, scales, gs, shift_bits=5)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lut_affine_experts"] == launches + 1
+    _close(got, ops.lut_affine_experts(c, t, scales, gs, shift_bits=5, use_kernels=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,q", [(4072, 4096), (8192, 4096), (16384, 1024)])
+@pytest.mark.parametrize("dtype", list(PACK_DTYPES))
+def test_pack_at_the_ring_row_counts_on_card(cuda_device, dtype, rows, q):
+    """The serving packs (``shift``, radix 4, signed) at the ring run's rows:
+    d_model-wide inputs of a slot and of the two-slot admission, and the
+    16,384 expert-sorted rows of ``w_down``'s input (narrowed); bit for bit."""
+    _pack_once(_pack_input(cuda_device, (rows,), q, 0, dtype, rows), PACK_KINDS["shift-r4-signed"])
+
+
+@pytest.mark.cuda
+def test_ring_graph_engine_matches_the_eager_engine_on_card(cuda_device):
+    """Reduced mixtral_8x7b (window 16, 4 experts top-2) on planned i8
+    tables, every request past the ring: dense and paged (page_size 4, all
+    pages mapped at admission, no sharing), each as graph replays and
+    eager: four runs with equal streams, whole; graph and eager with the
+    same launch counts and forwards; no page in use once drained."""
+    from repro_torch.models.layers import SampleCfg
+
+    world = _graph_world("swa", cuda_device)
+    assert world[0].sliding_window == 16
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, world[0].vocab_size, n).astype(np.int32)
+               for n in RING_PROMPT_LENS]
+    runs = {}
+    for paged in (False, True):
+        for graph in (False, None):
+            runs[paged, graph] = _graph_serve(world, graph, SampleCfg(), cuda_device, prompts,
+                                              RING_MAX_NEW,
+                                              **({"page_size": PAGE} if paged else {}))
+    streams = runs[False, False][0]
+    assert all(r[0] == streams for r in runs.values())
+    for paged in (False, True):
+        (_, eager_counts, eager_eng), (_, counts, eng) = runs[paged, False], runs[paged, None]
+        assert eng._graph is not None and eager_eng._graph is None
+        assert counts == eager_counts and counts["lut_affine_experts"] > 0
+        assert eng.readbacks == eager_eng.readbacks
+    paged_eng = runs[True, None][2]
+    assert not paged_eng.alloc.share and paged_eng.alloc.pages_in_use == 0
+    assert paged_eng.prefill_tokens == sum(RING_PROMPT_LENS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [None, PAGE], ids=["dense", "paged"])
+def test_ring_decode_forward_reads_nothing_back_on_card(cuda_device, page_size):
+    """A decode-shaped forward of the reduced mixtral tree into a ring whose
+    slots are past their wrap, under ``set_sync_debug_mode("error")``: the
+    ring's slots, the window mask, routing and the experts kernel read
+    nothing back; pos holds each row's new position at its slot."""
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
+
+    cfg, params, ex = _graph_world("swa", cuda_device)
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, **ex))
+    cache = make_cache(cfg, 3, GRAPH_MAX_LEN, ctx, page_size=page_size, device=cuda_device)
+    cache["overflow"] = torch.zeros(3, dtype=torch.bool, device=cuda_device)
+    cache["index"].copy_(torch.tensor([17, 40, 3], dtype=torch.int32))
+    tok = torch.tensor([[5], [6], [7]], dtype=torch.int32, device=cuda_device)
+    live = torch.tensor([[True], [True], [False]], device=cuda_device)
+    with torch.no_grad():
+        model_forward(params, {"tokens": tok, "token_mask": live}, ctx, cache=cache)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, _, _ = model_forward(params, {"tokens": tok, "token_mask": live}, ctx,
+                                      cache=cache)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out).all()
+    assert cache["index"].tolist() == [19, 42, 3]
+    pos = cache["pos"].cpu()
+    assert pos[0, 18 % 16] == 18 and pos[1, 41 % 16] == 41 and not cache["valid"][2].any()
+    assert not cache["overflow"].any()

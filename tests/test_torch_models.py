@@ -135,7 +135,7 @@ def test_other_families_raise():
     with pytest.raises(NotImplementedError):
         model_specs(layernorm)
     with pytest.raises(NotImplementedError):
-        get_config("mixtral_8x7b")
+        get_config("llava_next_mistral_7b")
 
 
 # each published config's parameter count (tests/test_models_smoke.py's ranges)
@@ -143,6 +143,7 @@ PARAM_RANGES = {
     "granite_8b": (7.3e9, 8.6e9),
     "minicpm3_4b": (3.6e9, 4.8e9),
     "minitron_4b": (3.7e9, 4.8e9),
+    "mixtral_8x7b": (45e9, 48e9),
     "phi3_medium_14b": (13e9, 15e9),
     "qwen2_moe_a2_7b": (13e9, 15.5e9),
 }

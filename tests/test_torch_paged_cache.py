@@ -49,6 +49,7 @@ from repro.serve import generate as jgenerate
 from repro.serve._cache import _onehot_write as j_onehot_write
 from repro.serve._cache import _paged_write as j_paged_write
 from repro.serve._cache import advance_meta as j_advance_meta
+from repro.serve._cache import cache_specs as j_cache_specs
 from repro.serve._cache import copy_pages as j_copy_pages
 from repro.serve._cache import paged_view as j_paged_view
 from repro.serve._cache import update_kv_cache as j_update_kv_cache
@@ -823,11 +824,28 @@ def test_exhausted_pool_raises_cache_overflow_as_reference(world, num_pages, max
 
 
 def test_paged_sliding_window_is_refused():
-    """Sliding-window rings (and their paged form) come with the mixtral
-    slice: the engine refuses them, paged or not."""
-    cfg = dataclasses.replace(get_config("granite_8b", reduced=True), sliding_window=8)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        cache_specs(cfg, 2, 16, page_size=4)
+    """A paged ring is refused only where the reference refuses it, when
+    its capacity T = min(window, max_len) is not a whole number of pages;
+    otherwise its specs are the reference's: T = the window, whole pages,
+    the pool one page larger (the port's sink)."""
+    for name in ("granite_8b", "mixtral_8x7b"):
+        cfg = dataclasses.replace(get_config(name, reduced=True), sliding_window=6)
+        jcfg = dataclasses.replace(jget_config(name, reduced=True), sliding_window=6)
+        with pytest.raises(ValueError, match="whole number of pages"):
+            cache_specs(cfg, 2, 16, page_size=4)
+        with pytest.raises(ValueError, match="whole number of pages"):
+            j_cache_specs(jcfg, 2, 16, page_size=4)
+    cfg, jcfg = get_config("mixtral_8x7b", reduced=True), jget_config("mixtral_8x7b", reduced=True)
+    assert cfg.sliding_window == jcfg.sliding_window == 16
+    for max_len, page_size in ((64, 4), (12, 4), (64, None)):
+        got = cache_specs(cfg, 2, max_len, page_size=page_size)
+        want = j_cache_specs(jcfg, 2, max_len, page_size=page_size)
+        for key in ("pos", "valid", "index") + (("page_table",) if page_size else ()):
+            assert got[key].shape == want[key].shape, key
+        for name in ("k", "v"):
+            g, w = got["layers"][name].shape, want["layers"][name].shape
+            assert g == ((w[0], w[1] + 1) + w[2:] if page_size else w), name
+        assert got["pos"].shape[1] == min(16, max_len)
 
 
 @pytest.mark.parametrize("params,grouped", [("tp", False), ("tlut", True)])
