@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
-                                    tl1_kernel,tl1_serve,moe_kernel,moe_serve,
+                                    vlm_serve,tl1_kernel,tl1_serve,moe_kernel,moe_serve,
                                     bmm_kernel,bmm_serve,paper]
                           [--iters 20]
 
@@ -123,6 +123,29 @@ Phases, one JSON object per line:
    bf16-rounded K/V and, not gated, with no window mask); and
    ``generate()`` on a 4,200-token prompt (its ring exact, its first token
    the no-cache forward's).  The peak memory is reckoned before the run.
+3f. ``vlm_serve``  full-width llava_next_mistral_7b (Mistral-7B's dense GQA
+   decoder, 32 heads to 8 KV heads, vocab 32,000, untied; its prompt opens
+   with 576 precomputed image patch embeddings: the vision tower is a stub,
+   as in the reference) at the cut ``family_depth`` computes (6 of 32
+   layers), planned, converted and served text-only through
+   ``BatchingEngine`` as ``phi3_serve`` serves it (a ``Request`` carries no
+   image, in either package), graph and eager, with no plain run.  Then the
+   image prefix through ``generate(embeds=...)``: 4 rows of 576 seeded
+   embeddings (at the scale of the seeded embedding rows) and a 32-token
+   prompt, 16 new tokens each (a 624-slot cache): dense on the kernels,
+   counted (launches 3L + 1 / 2L / 5L + 1 per forward for 16 forwards, no
+   pack off the kernel, no table copy); its prefill and decode steps timed
+   apart; the prefill logits of all 4 x 608 positions kernel against plain
+   at VLM_PLAIN_DEPTH layers within LOGITS_TOL / LOGITS_FRO_TOL; at the cut,
+   the same prompts without the image give text logits further apart than
+   LOGITS_FRO_TOL; first tokens kernel against plain with the plain path on
+   the kernel path's codes at every pack site (every prefill site's input
+   within SYNCED_TOL; the decode steps', whose K/V each path rounds to bf16
+   on its own, reported), and every prefill pack bit for bit with its plain version
+   (layer 0's five packs timed); paged at PAGE_SIZE (78 pages a row), whose
+   streams a dense run on bf16-rounded K/V serves whole.  Last, each LUT call
+   of a layer and lm_head at the decode shape (held to plain) and at the
+   prefill's 2,432 rows (timed), beside its bound.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -188,7 +211,7 @@ Phases, one JSON object per line:
    ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
    plain version.
 
-The eight serve phases (3, 3c, 3d, 3e, 5, 7, 9) serve their requests on the kernels
+The nine serve phases (3, 3c, 3d, 3e, 3f, 5, 7, 9) serve their requests on the kernels
 with the engine's decode step captured as a CUDA graph and replayed (the
 engine's default on the card, the main path) and eager
 (``cuda_graph=False``), in turns: eager, graph, graph, eager, after one
@@ -210,11 +233,13 @@ behind a spin kernel until the host has enqueued them all.
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each phase ends with a ``seconds`` line.  Then one
 ``kernels`` summary line (the row of ``bitplane_pack`` sums its launches
-over the nine paths that pack, ``launches_by_path``, and times one
+over the eleven paths that pack, ``launches_by_path``, and times one
 binary-cell decode layer's 7 packs; ``lut_affine`` and ``lut_tl1`` add the
 paper networks' launches to their serve phase's, the weight cell's kernels
-the paged engine's and the MLA, phi3, minitron and mixtral cells', the
-experts kernel the mixtral cell's to the MoE cell's; a null
+the paged engine's and the MLA, phi3, minitron, mixtral and VLM cells' (the
+VLM cell's engine as ``vlm_serve``, its ``generate()`` with the image prefix
+as ``vlm_generate``), the experts kernel the mixtral cell's to the MoE
+cell's; a null
 ``library_ms`` comes with its ``library_reason``),
 the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero
@@ -298,7 +323,20 @@ FAMILY_TABLE_BYTES = 48 * 2**30
 # (synced_first_tokens): the logits and each pack site's input within this x
 # max, as each kernel is held to its plain version (measured: below 1e-6)
 SYNCED_TOL = 1e-5
-FAMILY_CALLS = {"phi3_medium_14b": (3, 2), "minitron_4b": (4, 1)}
+FAMILY_CALLS = {"phi3_medium_14b": (3, 2), "minitron_4b": (4, 1),
+                "llava_next_mistral_7b": (3, 2)}
+# the vlm_serve phase: full-width llava_next_mistral_7b at the cut family_depth
+# computes (6 of 32 layers expected); VLM_ROWS rows, each 576 image patch
+# embeddings and a VLM_PROMPT-token prompt (a chat turn about one image), and
+# VLM_NEW new tokens through generate(embeds=...): a cache of 576 + 32 + 16 =
+# 624 slots, 78 pages of PAGE_SIZE when paged.  The plain versions take ~100x
+# the kernels' time at the prefill's 2,432 rows, so its logits are held kernel
+# against plain at VLM_PLAIN_DEPTH layers (and the first tokens, synchronized,
+# at the cut); VLM_TIMED prefills timed apart; the LUT calls at the prefill's
+# rows timed over VLM_PREFILL_ITERS calls
+VLM_ROWS, VLM_PROMPT, VLM_NEW, VLM_SEED = 4, 32, 16, 1
+VLM_PLAIN_DEPTH = 1
+VLM_TIMED, VLM_PREFILL_ITERS = 3, 5
 # the mixtral_serve phase: full-width mixtral_8x7b (a 4096-token sliding
 # window, 8 experts top-2 of width 14,336, no shared experts) at the cut
 # family_depth computes with its experts converted (1 of 32 layers); then its
@@ -548,6 +586,11 @@ def make_case(gen, B, n, k, E, p, G, dtype, shift_bits, scales, real_codes=None)
 
 
 def run_case(name, codes, tables, scales, shift_bits, iters, plain_iters, lib_fn=None):
+    """One LUT call, kernel against plain within KERNEL_TOL x max|plain|, with
+    the kernel's device ms, the plain version's over ``plain_iters`` calls,
+    the bound, the library call's and the dense bf16 matmul's; with
+    ``plain_iters`` 0 the kernel is timed only (its caller holds it to its
+    plain version elsewhere: ``max_abs_err`` and ``plain_ms`` are null)."""
     import torch
 
     from repro_torch.kernels.lut_affine import ops
@@ -569,17 +612,19 @@ def run_case(name, codes, tables, scales, shift_bits, iters, plain_iters, lib_fn
             codes, tables, scales, shift_bits=shift_bits, use_kernels=False
         )
 
-    got = kern()
-    torch.cuda.synchronize()
-    ref = plain()
-    err = (got - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    tol = KERNEL_TOL * scale
-    if not (err <= tol and torch.isfinite(got).all().item()):
-        raise AssertionError(f"{name} B={B} n={n} k={k} E={E} p={p}: err {err} > tol {tol}")
-    del got, ref
+    err = tol = plain_ms = None
+    if plain_iters:
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        tol = KERNEL_TOL * scale
+        if not (err <= tol and torch.isfinite(got).all().item()):
+            raise AssertionError(f"{name} B={B} n={n} k={k} E={E} p={p}: err {err} > tol {tol}")
+        del got, ref
+        plain_ms = device_ms([plain], plain_iters, warmup=1, hold=False)
     ms = device_ms([functools.partial(kern, c) for c in copies_of(tables)], iters)
-    plain_ms = device_ms([plain], plain_iters, warmup=1, hold=False)
     calls = 1 if name == "lut_affine" else G
     bms, by = bound(codes, calls, E, p, tables.element_size(), shift_bits)
     lib_ms = device_ms([lib_fn], iters) if lib_fn is not None else None
@@ -587,7 +632,8 @@ def run_case(name, codes, tables, scales, shift_bits, iters, plain_iters, lib_fn
     return {
         "regime": t.regime, "splits": t.splits,
         "max_abs_err": err, "tol": tol,
-        "tol_reason": f"{KERNEL_TOL} x max|plain|: fp32 sums in another order",
+        "tol_reason": f"{KERNEL_TOL} x max|plain|: fp32 sums in another order" if plain_iters
+        else "timed only: its caller holds it to its plain version",
         "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
         "library_ms": lib_ms,
         **({"library_reason": LIBRARY_REASONS[name]}
@@ -1556,10 +1602,10 @@ def lut_calls_per_forward(tree, layers: int, experts: bool = False) -> dict:
 @contextlib.contextmanager
 def pack_tape(codes=None):
     """Inside a ``with`` block, each pack site of the model (``layers.pack``)
-    records its input and codes, in call order (the MoE FFN's sites among
-    them); given ``codes`` (an earlier block's record), each site takes the
-    recorded codes of the same site instead of packing its own input (which
-    it still records)."""
+    records its input, codes and plan, in call order (the MoE FFN's sites
+    among them); given ``codes`` (an earlier block's record), each site takes
+    the recorded codes of the same site instead of packing its own input
+    (which it still records)."""
     from repro_torch.models import layers, moe
 
     pack0, sites = layers.pack, []
@@ -1567,7 +1613,7 @@ def pack_tape(codes=None):
 
     def pack(x, plan, use_kernels=True):
         own = pack0(x, plan, use_kernels=use_kernels) if replay is None else next(replay)[1]
-        sites.append((x.clone(), own))
+        sites.append((x.clone(), own, plan))
         return own
 
     layers.pack = moe.pack = pack
@@ -1612,7 +1658,7 @@ def synced_first_tokens(phase: str, lut, cfg, prompts, reqs, plain_reqs) -> bool
             got = forward(inputs, True)[rows, last]
         with pack_tape(tape) as seen:
             ref = forward(inputs, False)[rows, last]
-        for (x, _), (x_ref, _) in zip(seen, tape):
+        for (x, *_), (x_ref, *_) in zip(seen, tape):
             site_err = max(site_err, ((x - x_ref).abs().max() / x_ref.abs().max()).item())
         logits_err = max(logits_err, ((got - ref).abs().max() / ref.abs().max()).item())
         top2 = got.topk(2, dim=-1).values
@@ -1633,14 +1679,14 @@ def synced_first_tokens(phase: str, lut, cfg, prompts, reqs, plain_reqs) -> bool
 
 
 def serve_recipe_cell(phase: str, lut, cfg, per_forward: dict, prompts, max_new: int,
-                      synced: bool = False):
+                      synced: bool = False, plain: bool = True):
     """A recipe cell's requests through ``BatchingEngine`` on the kernels,
-    graph and eager in turns (:func:`serve_paths`), then on the plain
-    versions: every run launches ``per_forward`` a forward with no pack off
-    the kernel and no table copy, every request's first token is the plain
-    run's (with ``synced``, in :func:`synced_first_tokens`), and the plain
-    run packs as often as the kernel run; emits the ``kernels`` and
-    ``plain`` lines and returns the main path's launches."""
+    graph and eager in turns (:func:`serve_paths`), then (with ``plain``) on
+    the plain versions: every run launches ``per_forward`` a forward with no
+    pack off the kernel and no table copy, every request's first token is
+    the plain run's (with ``synced``, in :func:`synced_first_tokens`), and
+    the plain run packs as often as the kernel run; emits the ``kernels``
+    and ``plain`` lines and returns the main path's launches."""
     import torch
 
     from repro_torch.kernels.lut_affine import ops as lut_ops
@@ -1665,6 +1711,8 @@ def serve_recipe_cell(phase: str, lut, cfg, per_forward: dict, prompts, max_new:
                              f"{uncovered} packs off the kernel, or {copies} table copies")
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError(f"{phase}: a request stopped short of max_new")
+    if not plain:
+        return launches
 
     with count_plain_packs() as packs:
         plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
@@ -1729,12 +1777,14 @@ def recipe_prefill_logits(phase: str, lut, cfg, prompts, depths) -> None:
         del got, ref
 
 
-def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn")) -> dict:
+def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn"), rows: int = 4,
+                       plain: bool = True) -> dict:
     """Each LUT call of a layer's ``parts`` (layer 0's tables) and
-    ``lm_head`` at the decode shape (4 rows), kernel against plain as the
-    kernel phase holds them, with its device ms beside ``bound`` and the
-    bf16 ``x @ W`` it replaces; then a ``layer`` line with the sums over
-    the layer's calls, which it returns."""
+    ``lm_head`` at ``rows`` rows (the decode shape by default), kernel
+    against plain as the kernel phase holds them (without ``plain``, the
+    kernel timed only: its caller holds it elsewhere), with its device ms
+    beside ``bound`` and the bf16 ``x @ W`` it replaces; then a ``layer``
+    line with the sums over the layer's calls, which it returns."""
     import torch
 
     from repro_torch.core.convert import LUTGroup, LUTLinear
@@ -1742,7 +1792,8 @@ def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn")) -> di
     from repro_torch.models.layers import _host_scales
 
     gen = torch.Generator(device=DEV).manual_seed(2)
-    layer = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "dense_matmul_ms": 0.0}
+    layer = {"kernel_ms": 0.0, "bound_ms": 0.0, "dense_matmul_ms": 0.0,
+             **({"plain_ms": 0.0} if plain else {})}
     nodes = [(name, node.layer(0)) for part in parts
              for name, node in lut["blocks"][part].items()
              if isinstance(node, (LUTLinear, LUTGroup))]
@@ -1750,11 +1801,11 @@ def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn")) -> di
         plan = node.plan
         grouped = isinstance(node, LUTGroup)
         tables = node.tables if grouped else node.tables[None]
-        x = torch.randn(4, plan.in_features, generator=gen, device=DEV)
+        x = torch.randn(rows, plan.in_features, generator=gen, device=DEV)
         codes = pack_codes(x, plan)
         r = run_case("lut_affine_grouped" if grouped else "lut_affine", codes, tables,
-                     _host_scales(plan, node.scale), plan.shift_bits, iters, 3)
-        emit({"phase": phase, "step": "layer_call", "proj": proj, "rows": 4,
+                     _host_scales(plan, node.scale), plan.shift_bits, iters, 3 if plain else 0)
+        emit({"phase": phase, "step": "layer_call", "proj": proj, "rows": rows,
               "G": tables.shape[0], "n": plan.num_planes, "k": plan.in_features,
               "E": plan.num_entries, "p": plan.out_features, "table": plan.table_format,
               "table_bytes": tables.numel() * tables.element_size(), **r,
@@ -1762,7 +1813,7 @@ def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn")) -> di
         if proj != "lm_head":
             for key in layer:
                 layer[key] += r[key]
-    emit({"phase": phase, "step": "layer", "calls": len(nodes), **layer,
+    emit({"phase": phase, "step": "layer", "calls": len(nodes), "rows": rows, **layer,
           "nvidia_smi": smi_line(),
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
     return layer
@@ -1899,6 +1950,268 @@ def family_serve_phase(phase: str, arch: str, requests: int, max_new: int, iters
     del lut
     torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+def vlm_len(cfg) -> int:
+    """The VLM cell's cache length: image tokens, prompt and new tokens."""
+    return cfg.num_image_tokens + VLM_PROMPT + VLM_NEW
+
+
+def vlm_inputs(cfg, lut):
+    """VLM_ROWS prompts of VLM_PROMPT tokens, each after its num_image_tokens
+    image patch embeddings (the vision tower is a stub, as in the reference),
+    from a numpy seed: the embeddings at the scale of the seeded embedding
+    rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(VLM_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (VLM_ROWS, VLM_PROMPT)).astype(np.int32)
+    scale = lut["embed"].std().item()
+    embeds = rng.standard_normal((VLM_ROWS, cfg.num_image_tokens, cfg.d_model)) * scale
+    return prompts, torch.from_numpy(embeds.astype(np.float32)).to(DEV)
+
+
+def vlm_generate(lut, cfg, prompts, embeds, use_kernels=True, page_size=None):
+    """Greedy ``generate(embeds=...)`` of VLM_NEW tokens (the head on the
+    last position only, ``logits="last"``); returns (streams, wall ms)."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import generate
+
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels, logits="last"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = generate(lut, ctx, prompts, VLM_NEW, embeds=embeds, page_size=page_size,
+                       device=DEV)
+    streams = out.tolist()
+    return streams, (time.perf_counter() - t0) * 1e3
+
+
+def vlm_counted(phase, name, lut, cfg, prompts, embeds, per_forward, page_size=None):
+    """One :func:`vlm_generate` on the kernels, its launch counts set to 0
+    just before and read just after: ``per_forward`` of each kernel for
+    each of its VLM_NEW forwards, no pack off the kernel, no table copy;
+    emits a ``generate`` line and returns (streams, launches, wall ms)."""
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+
+    reset_launches()
+    streams, ms = vlm_generate(lut, cfg, prompts, embeds, page_size=page_size)
+    launches, uncovered = read_launches(), plain_pack_codes_calls()
+    copies = lut_ops.TABLE_COPIES["table_operand"]
+    expect = {**no_launches(), **{k: v * VLM_NEW for k, v in per_forward.items()}}
+    T = vlm_len(cfg)
+    emit({"phase": phase, "step": "generate", "name": name, "rows": VLM_ROWS,
+          "image_tokens": cfg.num_image_tokens, "prompt_tokens": VLM_PROMPT,
+          "new_tokens": VLM_NEW, "cache_len": T, "page_size": page_size,
+          "pages_per_row": page_size and T // page_size, "ms": ms,
+          "tok_per_s": VLM_ROWS * VLM_NEW / (ms / 1e3), "forwards": VLM_NEW,
+          "launches": launches, "expected_launches": expect,
+          "plain_pack_codes_calls": uncovered, "table_copies": copies,
+          "first_tokens": [row[0] for row in streams]})
+    if launches != expect or uncovered or copies:
+        raise AssertionError(f"{phase} {name}: launch counts {launches} != expected {expect}, "
+                             f"or {uncovered} packs off the kernel, or {copies} table copies")
+    if any(len(row) != VLM_NEW for row in streams):
+        raise AssertionError(f"{phase} {name}: a row stopped short of {VLM_NEW} tokens")
+    return streams, launches, ms
+
+
+def vlm_prefill_logits(lut, cfg, inputs, depth: int, use_kernels: bool = True):
+    """The prefill logits, every position, of the first ``depth`` layers
+    into a fresh cache of :func:`vlm_len` slots."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
+
+    dcfg = dataclasses.replace(cfg, num_layers=depth)
+    params = dict(lut, blocks=first_layers(lut["blocks"], depth))
+    ctx = Ctx(dcfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
+    cache = make_cache(dcfg, VLM_ROWS, vlm_len(cfg), ctx, device=DEV)
+    with torch.no_grad():
+        return model_forward(params, inputs, ctx, cache=cache)[0]
+
+
+def vlm_timing(lut, cfg, prompts, embeds) -> dict:
+    """The main path's ``generate`` split into its prefill (VLM_TIMED
+    prefills into fresh caches) and its VLM_NEW - 1 decode steps after the
+    last, at a cache length of ~600, each on the host clock from a
+    synchronize to a synchronize."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, logits="last"))
+    inputs = {"tokens": torch.from_numpy(prompts).to(DEV), "embeds": embeds}
+    prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
+    prefill_ms, decode_ms = [], []
+
+    def timed(fn, out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    with torch.no_grad():
+        for _ in range(VLM_TIMED):
+            cache = make_cache(cfg, VLM_ROWS, vlm_len(cfg), ctx, device=DEV)
+            logits, cache = timed(lambda: prefill(lut, inputs, cache), prefill_ms)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        for _ in range(VLM_NEW - 1):
+            tok, _, cache = timed(lambda: decode(lut, cache, tok), decode_ms)
+    return {"prefill_ms": prefill_ms, "median_prefill_ms": statistics.median(prefill_ms),
+            "decode_step_ms": decode_ms, "median_decode_step_ms": statistics.median(decode_ms),
+            "cache_len_at_decode": [cfg.num_image_tokens + VLM_PROMPT + i
+                                    for i in (0, VLM_NEW - 2)]}
+
+
+def vlm_serve_phase(requests: int, max_new: int, iters: int) -> dict:
+    """Full-width llava_next_mistral_7b (a dense GQA decoder, 32 heads to 8
+    KV heads, whose prompt opens with 576 image patch embeddings) at the
+    cut :func:`family_depth` computes, planned by the recipe with chunks
+    capped at 1 and converted (:func:`recipe_cell`).  The engine serves the
+    family text-only (a ``Request`` carries no image, as in the reference):
+    the serve cell's requests, graph and eager in turns
+    (:func:`serve_recipe_cell`, no plain run).  Then the image prefix
+    through ``generate(embeds=...)`` on VLM_ROWS rows (:func:`vlm_inputs`):
+    the main path dense and counted; its prefill and decode steps timed
+    apart; prefill logits of all VLM_ROWS x 608 positions kernel against
+    plain at VLM_PLAIN_DEPTH layers; at the cut the prefix moving the text
+    positions' logits; first tokens kernel against plain with the plain
+    path on the kernel path's codes at every pack site, which also holds
+    every prefill pack bit for bit to its plain version; paged at PAGE_SIZE,
+    whose streams a dense run on bf16-rounded K/V must serve whole; last,
+    each LUT call of a layer at the decode shape and at the prefill's 2,432
+    rows beside its bound."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+
+    phase, arch = "vlm_serve", "llava_next_mistral_7b"
+    full = get_config(arch)
+    layers, depth = family_depth(full)
+    cfg, lut = recipe_cell(phase, full, depth)
+    lone, grouped = FAMILY_CALLS[arch]
+    per_forward = lut_calls_per_forward(lut, layers)
+    want = {"lut_affine": lone * layers + 1, "lut_affine_grouped": grouped * layers,
+            "bitplane_pack": (lone + grouped) * layers + 1}
+    if per_forward != want:
+        raise AssertionError(f"{phase}: the converted tree makes {per_forward} calls a "
+                             f"forward, not {want}")
+    engine = serve_recipe_cell(phase, lut, cfg, per_forward, serve_requests(cfg, requests),
+                               max_new, plain=False)
+
+    torch.cuda.reset_peak_memory_stats()
+    t_gen = time.perf_counter()
+    prompts, embeds = vlm_inputs(cfg, lut)
+    a, launches, a_ms = vlm_counted(phase, "a_dense", lut, cfg, prompts, embeds, per_forward)
+    timing = vlm_timing(lut, cfg, prompts, embeds)
+    emit({"phase": phase, "step": "generate_timing", **timing, "generate_ms": a_ms,
+          "prefill_share_of_generate": timing["median_prefill_ms"] / a_ms,
+          "nvidia_smi": smi_line()})
+
+    # prefill logits: kernel against plain at VLM_PLAIN_DEPTH layers; the
+    # image prefix moving the text positions' logits at the cut
+    inputs = {"tokens": torch.from_numpy(prompts).to(DEV), "embeds": embeds}
+    got = vlm_prefill_logits(lut, cfg, inputs, VLM_PLAIN_DEPTH)
+    ref = vlm_prefill_logits(lut, cfg, inputs, VLM_PLAIN_DEPTH, use_kernels=False)
+    res = compare_logits(got, ref)
+    finite = bool(torch.isfinite(got).all().item())
+    tol = LOGITS_TOL * res["max_abs_ref"]
+    emit({"phase": phase, "step": "prefill_logits", "layers": VLM_PLAIN_DEPTH,
+          "shape": list(got.shape), **res, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL,
+          "finite": finite, "depth_reason": "the plain versions gather each call's table rows "
+          "for all 2,432 rows; the first tokens below hold the cut synchronized",
+          "tol_reason": "as the serve phase's: each projection re-quantizes its input"})
+    if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
+        raise AssertionError(f"{phase}: prefill logits differ: {res} (tol {tol}, "
+                             f"{LOGITS_FRO_TOL})")
+    del got, ref
+    S_img = cfg.num_image_tokens
+    with_image = vlm_prefill_logits(lut, cfg, inputs, layers)[:, S_img:]
+    text_only = vlm_prefill_logits(lut, cfg, {"tokens": inputs["tokens"]}, layers)
+    moved = compare_logits(with_image, text_only)
+    finite = bool(torch.isfinite(with_image).all().item())
+    emit({"phase": phase, "step": "image_prefix", "layers": layers, "shape":
+          list(with_image.shape), "finite": finite, "with_against_without": moved,
+          "last_position_argmax": with_image[:, -1].argmax(-1).tolist(),
+          "generate_first_tokens": [row[0] for row in a], "min_rel_fro": LOGITS_FRO_TOL})
+    if not (finite and moved["rel_fro_err"] > LOGITS_FRO_TOL):
+        raise AssertionError(f"{phase}: the image prefix does not move the logits: {moved}")
+    del with_image, text_only
+
+    # first tokens, the plain path on the kernel path's codes at every site
+    with pack_tape() as tape:
+        k, _ = vlm_generate(lut, cfg, prompts, embeds)
+    with pack_tape(tape) as seen:
+        p, plain_ms = vlm_generate(lut, cfg, prompts, embeds, use_kernels=False)
+    site_err = [((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                for (x, *_), (x_ref, *_) in zip(seen, tape)]
+    del seen
+    # the prefill's sites decide the first tokens; the decode steps' attend
+    # over K/V that each path rounded to bf16 on its own
+    n_prefill = per_forward["bitplane_pack"]
+    prefill_err, decode_err = max(site_err[:n_prefill]), max(site_err[n_prefill:])
+    first_ok = [r[0] for r in k] == [r[0] for r in p] and prefill_err <= SYNCED_TOL
+    emit({"phase": phase, "step": "first_tokens", "synced_identical": first_ok,
+          "kernel": [r[0] for r in k], "plain_synced": [r[0] for r in p],
+          "streams_identical_synced": k == p, "kernel_streams_main_path": k == a,
+          "prefill_site_input_rel_err": prefill_err, "tol": SYNCED_TOL,
+          "decode_site_input_rel_err": decode_err,
+          "decode_reason": "a decode step attends over the bf16 cache, whose K/V each path "
+                           "rounded from its own fp32 sums: a value at a bf16 rounding "
+                           "boundary takes the neighbouring value in one of them",
+          "plain_generate_ms": plain_ms, "sites": len(tape)})
+    if not first_ok:
+        raise AssertionError(f"{phase}: kernel and plain first tokens differ on the same "
+                             f"codes, or a prefill site's input is {prefill_err} x max off")
+    # every prefill pack of the kernel run against its plain version, bit for
+    # bit; layer 0's five packs timed
+    prefill_sites = tape[:n_prefill]
+    for i, (x, codes, plan) in enumerate(prefill_sites):
+        if not torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes):
+            raise AssertionError(f"{phase}: prefill pack site {i} differs from its plain version")
+    packs = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for i, (x, codes, plan) in enumerate(prefill_sites[:lone + grouped]):
+        r, _ = run_pack_case(x, iters, 3, **pack_ops.kernel_args(plan))
+        emit({"phase": phase, "step": "pack", "site": i, "shape": list(x.shape), **r})
+        for key in packs:
+            packs[key] += r[key]
+    emit({"phase": phase, "step": "pack_layer", "rows": VLM_ROWS * (S_img + VLM_PROMPT),
+          "sites_checked": len(prefill_sites), "max_abs_err": 0, **packs})
+    del tape, prefill_sites
+
+    # paged at PAGE_SIZE, against a dense run on bf16-rounded K/V
+    b, _, _ = vlm_counted(phase, "b_paged", lut, cfg, prompts, embeds, per_forward,
+                          page_size=PAGE_SIZE)
+    with bf16_attention_inputs():
+        f, f_ms = vlm_generate(lut, cfg, prompts, embeds)
+    checks = {"dense_bf16_kv_streams_identical_b": f == b}
+    emit({"phase": phase, "step": "paged_checks", **checks, "f_ms": f_ms,
+          "tokens_agreeing_a_b_per_row": [sum(x == y for x, y in zip(r, q))
+                                          for r, q in zip(a, b)],
+          "first_tokens": {"a": [r[0] for r in a], "b": [r[0] for r in b],
+                           "f": [r[0] for r in f]},
+          "seconds": time.perf_counter() - t_gen,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    failed = [key for key, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase}: failed paged checks {failed}")
+
+    recipe_layer_calls(phase, lut, iters)
+    recipe_layer_calls(phase, lut, VLM_PREFILL_ITERS, rows=VLM_ROWS * (S_img + VLM_PROMPT),
+                       plain=False)
+    del lut
+    torch.cuda.empty_cache()
+    return {"launches": engine, "generate_launches": launches}
 
 
 def ring_positions(last: int, T: int) -> list:
@@ -3855,8 +4168,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phases",
         default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
-                "minitron_serve,mixtral_serve,tl1_kernel,tl1_serve,moe_kernel,moe_serve,"
-                "bmm_kernel,bmm_serve,paper",
+                "minitron_serve,mixtral_serve,vlm_serve,tl1_kernel,tl1_serve,moe_kernel,"
+                "moe_serve,bmm_kernel,bmm_serve,paper",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -3914,6 +4227,8 @@ def main(argv=None) -> int:
     mini = run("minitron_serve", family_serve_phase, "minitron_serve", "minitron_4b",
                REQUESTS, MAX_NEW, args.iters)
     mix = run("mixtral_serve", mixtral_serve_phase, REQUESTS, MAX_NEW, args.iters)
+    vlm = run("vlm_serve", vlm_serve_phase, REQUESTS, MAX_NEW, args.iters)
+    vlm_gen = vlm and {"launches": vlm["generate_launches"]}
     tkern = run("tl1_kernel", tl1_kernel_phase, args.iters, 4 * 32)
     tsrv = run("tl1_serve", tl1_serve_phase, TL1_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
@@ -3934,12 +4249,13 @@ def main(argv=None) -> int:
         for name in names:
             m = k["main"][name]
             # lut_affine and lut_tl1 also run the paper networks, the weight
-            # cell's kernels the paged engine, the MLA, phi3, minitron and
-            # mixtral cells, the experts kernel the mixtral cell
+            # cell's kernels the paged engine, the MLA, phi3, minitron, mixtral
+            # and VLM cells (the VLM cell's engine and its generate() with the
+            # image prefix), the experts kernel the mixtral cell
             by_path = {path: s["launches"][name]}
             for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("phi3_serve", phi3),
                              ("minitron_serve", mini), ("mixtral_serve", mix),
-                             ("paper", paper)):
+                             ("vlm_serve", vlm), ("vlm_generate", vlm_gen), ("paper", paper)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -3960,7 +4276,8 @@ def main(argv=None) -> int:
     # each cell's layer)
     paths = {name: s for name, s in (("serve", srv), ("paged_serve", psrv), ("mla_serve", mla),
                                      ("phi3_serve", phi3), ("minitron_serve", mini),
-                                     ("mixtral_serve", mix), ("moe_serve", msrv),
+                                     ("mixtral_serve", mix), ("vlm_serve", vlm),
+                                     ("vlm_generate", vlm_gen), ("moe_serve", msrv),
                                      ("bmm_serve", bsrv), ("paper", paper))
              if s is not None}
     if pkern is not None and paths:

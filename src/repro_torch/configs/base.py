@@ -76,8 +76,8 @@ class ModelConfig:
 
 
 ARCH_NAMES = [
-    "granite_8b", "minicpm3_4b", "minitron_4b", "mixtral_8x7b", "phi3_medium_14b",
-    "qwen2_moe_a2_7b",
+    "granite_8b", "llava_next_mistral_7b", "minicpm3_4b", "minitron_4b", "mixtral_8x7b",
+    "phi3_medium_14b", "qwen2_moe_a2_7b",
 ]
 
 

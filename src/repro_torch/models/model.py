@@ -3,9 +3,11 @@
   model_specs(cfg)                              -> PSpec tree
   model_forward(params, inputs, ctx, cache=None) -> (logits, cache, aux)
 
-with ``inputs = {"tokens": (B, S)}`` and optionally ``"token_mask"``.
-The port serves the dense and MoE families so far, with GQA or (minicpm3)
-MLA attention; the other families raise until their slices arrive.
+with ``inputs = {"tokens": (B, S)}`` and optionally ``"token_mask"`` and,
+for the VLM family, ``"embeds"`` (B, S_img, d): precomputed image patch
+embeddings (the vision tower is a stub, as in the reference).  The port
+serves the dense, MoE and VLM families so far, with GQA or (minicpm3) MLA
+attention; the other families raise until their slices arrive.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Ctx
 
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg: ModelConfig):
@@ -49,5 +51,6 @@ def model_forward(
         inputs["tokens"],
         ctx,
         cache=cache,
+        embeds=inputs.get("embeds"),
         token_mask=inputs.get("token_mask"),
     )

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and MoE families, GQA or MLA
+"""Decoder-only transformer LM, dense, MoE and VLM families, GQA or MLA
 attention (counterpart of ``repro/models/transformer.py``).
 
 Layer parameters are stacked along a leading ``layers`` axis, as in the
@@ -92,16 +92,24 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[dict] = None,
     token_mask: Optional[torch.Tensor] = None,  # (B, S) bool: real tokens
+    embeds: Optional[torch.Tensor] = None,  # VLM: (B, S_img, d) patch embeddings
 ):
     """Returns ``(logits, cache, aux_loss)``; ``cache`` is updated in place
     and ``aux_loss`` is the routers' load-balance loss summed over layers.
 
     ``token_mask`` marks real tokens in a right-padded batch: masked
     positions write nothing into the cache and do not advance the per-slot
-    index, so all-False rows keep their cache state untouched."""
+    index, so all-False rows keep their cache state untouched.  ``embeds``
+    (VLM) go before the tokens (the llava layout) and count as real tokens:
+    they take positions 0..S_img-1 and advance the cache index."""
     from repro_torch.serve._cache import advance_meta
 
     x = embed_tokens(params, tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+        if token_mask is not None:
+            img = torch.ones(embeds.shape[:2], dtype=torch.bool, device=x.device)
+            token_mask = torch.cat([img, token_mask], dim=1)
     B, S, _ = x.shape
     if positions is None:
         steps = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]

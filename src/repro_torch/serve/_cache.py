@@ -101,7 +101,7 @@ def cache_specs(
     rectangle, and prefix sharing only shrinks from there.  The capacity
     T -- ``max_len``, or a sliding-window model's ring ``min(window,
     max_len)`` -- must be a whole number of pages."""
-    if cfg.family not in ("dense", "moe") or cfg.attention not in ("gqa", "mla"):
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} caches come with their family's slice"
         )

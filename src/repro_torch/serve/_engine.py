@@ -67,7 +67,7 @@ from repro_torch.models.params import init_params
 from repro_torch.serve._cache import CacheOverflowError, cache_specs, copy_pages, pool_pages
 from repro_torch.serve._paging import PageAllocator, PagePoolExhausted, _prefix_key
 
-_ENGINE_FAMILIES = ("dense", "moe")
+_ENGINE_FAMILIES = ("dense", "moe", "vlm")
 
 
 def make_cache(
@@ -145,6 +145,7 @@ def generate(
     seed: int = 0,
     page_size: int | None = None,
     device: str | torch.device = "cuda",
+    embeds=None,
 ) -> torch.Tensor:
     """Reference generation loop, aligned with :class:`BatchingEngine`:
     each row stops at its first ``eos_id`` (emitted), later positions are
@@ -152,23 +153,29 @@ def generate(
     ``prompt + max_new - 1`` writes cannot fit in ``max_len`` (a
     sliding-window model's ring never overflows: its prefill keeps the
     prompt's last T tokens).  With ``page_size``, K/V are paged behind an
-    identity page table: the same semantics in the paged layout."""
+    identity page table: the same semantics in the paged layout.  A VLM's
+    ``embeds`` (B, S_img, d) image patch embeddings go before each prompt
+    and count in the prompt's length."""
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
     B, S = prompts.shape
     scfg = sample or SampleCfg()
-    T = max_len or (S + max_new)
-    if ctx.cfg.sliding_window is None and S + max_new - 1 > T:
+    inputs = {"tokens": prompts}
+    if embeds is not None:
+        inputs["embeds"] = torch.as_tensor(embeds).to(dev)
+    pre = S + (embeds.shape[1] if embeds is not None else 0)
+    T = max_len or (pre + max_new)
+    if ctx.cfg.sliding_window is None and pre + max_new - 1 > T:
         raise CacheOverflowError(
-            f"prompt ({S} tokens) + max_new ({max_new}) needs "
-            f"{S + max_new - 1} cache slots but max_len is {T}; raise max_len"
+            f"prompt ({pre} tokens) + max_new ({max_new}) needs "
+            f"{pre + max_new - 1} cache slots but max_len is {T}; raise max_len"
         )
     cache = make_cache(ctx.cfg, B, T, ctx, page_size=page_size, device=dev)
     if scfg.mode != "greedy":
         base = torch.tensor(seed, dtype=torch.int64, device=dev)
         cache["slot_key"] = fold_key(base, torch.arange(B, device=dev))
     prefill, decode = make_prefill_step(ctx), make_decode_step(ctx, scfg)
-    logits, cache = prefill(params, {"tokens": prompts}, cache)
+    logits, cache = prefill(params, inputs, cache)
     keys = _slot_keys(cache) if scfg.mode != "greedy" else None
     tok = sample_tokens(logits[:, -1], scfg, keys)[:, None]
     out = [tok]
@@ -319,7 +326,9 @@ class BatchingEngine:
     slots: a request may outlast T (no overflow check), a paged slot maps
     all its pages at admission (``PageAllocator.admit_windowed``), and
     prefixes are never shared, since a ring's contents depend on the
-    position."""
+    position.  A VLM is served text-only, as the reference's engine serves
+    it: a :class:`Request` carries no image embeddings (``generate`` takes
+    them)."""
 
     def __init__(
         self,

@@ -935,7 +935,7 @@ def test_tl1_classifier_head_on_card(cuda_device, act_bits):
 # config with seeded random weights, the graph engine against the eager one
 # ---------------------------------------------------------------------------
 
-GRAPH_PATHS = ["weight", "tl1", "moe", "binary", "mla", "phi3", "relu2"]
+GRAPH_PATHS = ["weight", "tl1", "moe", "binary", "mla", "phi3", "relu2", "vlm"]
 GRAPH_SLOTS, GRAPH_MAX_LEN, GRAPH_MAX_NEW = 3, 32, 6
 
 
@@ -944,8 +944,9 @@ def _graph_world(path, device):
     tables (weight, MoE with its experts, mixtral_8x7b's ring and top-2
     experts, minicpm3_4b's MLA with its latent
     up-projections vetoed, phi3_medium_14b with its G = 3 ``wq+wk+wv``
-    group, minitron_4b's two-matrix squared-ReLU MLP), TL1 tables, or bf16
-    projections under the binary-matmul mode."""
+    group, minitron_4b's two-matrix squared-ReLU MLP, llava_next_mistral_7b
+    served text-only by the engine), TL1 tables, or bf16 projections under
+    the binary-matmul mode."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import convert_params
     from repro_torch.core.planner import plan_model
@@ -954,7 +955,8 @@ def _graph_world(path, device):
     from repro_torch.models.params import bf16_projections, init_params
 
     name = {"moe": "qwen2_moe_a2_7b", "mla": "minicpm3_4b", "phi3": "phi3_medium_14b",
-            "relu2": "minitron_4b", "swa": "mixtral_8x7b"}.get(path, "granite_8b")
+            "relu2": "minitron_4b", "swa": "mixtral_8x7b",
+            "vlm": "llava_next_mistral_7b"}.get(path, "granite_8b")
     cfg = get_config(name, reduced=True)
     gen = torch.Generator(device=device).manual_seed(3)
     params = init_params(model_specs(cfg), gen, device=device)
@@ -1378,3 +1380,70 @@ def test_ring_decode_forward_reads_nothing_back_on_card(cuda_device, page_size):
     pos = cache["pos"].cpu()
     assert pos[0, 18 % 16] == 18 and pos[1, 41 % 16] == 41 and not cache["valid"][2].any()
     assert not cache["overflow"].any()
+
+
+# ---------------------------------------------------------------------------
+# llava_next_mistral_7b's image prefix through generate() (the engine serving
+# it text-only is GRAPH_PATHS' "vlm" case above)
+# ---------------------------------------------------------------------------
+
+VLM_PROMPT_LEN, VLM_MAX_NEW, VLM_MAX_LEN = 6, 8, 24  # 8 image tokens + 6 + 8 - 1 <= 24
+
+
+def _vlm_generate(world, device, use_kernels, page_size, codes=None):
+    """Greedy ``generate(embeds=...)`` of the reduced llava tree on 3 rows of
+    8 seeded image embeddings and a 6-token prompt; returns (streams, the
+    launches of the run, each pack site's (input, codes) in call order).
+    Given ``codes`` (an earlier run's sites), each pack site takes the
+    recorded codes of the same site instead of its own."""
+    from repro_torch.models import layers
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import generate
+
+    cfg, params, ex = world
+    rng = np.random.default_rng(43)
+    prompts = rng.integers(0, cfg.vocab_size, (3, VLM_PROMPT_LEN)).astype(np.int32)
+    embeds = (rng.standard_normal((3, cfg.num_image_tokens, cfg.d_model)) * 0.02).astype(
+        np.float32)
+    pack0, sites = layers.pack, []
+    replay = None if codes is None else iter(codes)
+
+    def pack(x, plan, use_kernels=True):
+        own = pack0(x, plan, use_kernels=use_kernels) if replay is None else next(replay)[1]
+        sites.append((x.clone(), own))
+        return own
+
+    before = _counts_now()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "pack", pack)
+        ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels, **ex))
+        out = generate(params, ctx, prompts, VLM_MAX_NEW, max_len=VLM_MAX_LEN,
+                       page_size=page_size, device=device,
+                       embeds=torch.from_numpy(embeds).to(device))
+    torch.cuda.synchronize()
+    after = _counts_now()
+    if replay is not None:
+        assert next(replay, None) is None, "a recorded pack site was not replayed"
+    return out.tolist(), {k: after[k] - before[k] for k in after}, sites
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [None, PAGE], ids=["dense", "paged"])
+def test_vlm_generate_on_kernels_matches_plain_on_card(cuda_device, page_size):
+    """Reduced llava_next_mistral_7b on planned i8 tables, ``generate`` with
+    8 image embeddings before each prompt, dense and paged (6 identity
+    pages of 4 a row): on the kernels (each LUT call and pack a launch), and
+    on the plain versions given the kernel run's codes at every pack site,
+    in order (an input at an fp16 rounding boundary could otherwise take
+    the neighbouring code in one of them): the same streams, whole, and
+    every site's plain input within 1e-5 x max of the kernel's."""
+    world = _graph_world("vlm", cuda_device)
+    assert world[0].num_image_tokens == 8
+    got, launches, sites = _vlm_generate(world, cuda_device, True, page_size)
+    assert launches["lut_affine"] > 0 and launches["lut_affine_grouped"] > 0
+    assert launches["bitplane_pack"] == len(sites)
+    want, plain_launches, seen = _vlm_generate(world, cuda_device, False, page_size, sites)
+    assert not any(plain_launches.values())
+    assert got == want
+    for (x, _), (x_ref, _) in zip(seen, sites):
+        assert ((x - x_ref).abs().max() <= 1e-5 * x_ref.abs().max()).item()
