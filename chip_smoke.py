@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
-                                    vlm_serve,tl1_kernel,tl1_serve,moe_kernel,moe_serve,
-                                    bmm_kernel,bmm_serve,paper]
+                                    vlm_serve,rwkv_serve,tl1_kernel,tl1_serve,moe_kernel,
+                                    moe_serve,bmm_kernel,bmm_serve,paper]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -138,14 +138,40 @@ Phases, one JSON object per line:
    apart; the prefill logits of all 4 x 608 positions kernel against plain
    at VLM_PLAIN_DEPTH layers within LOGITS_TOL / LOGITS_FRO_TOL; at the cut,
    the same prompts without the image give text logits further apart than
-   LOGITS_FRO_TOL; first tokens kernel against plain with the plain path on
-   the kernel path's codes at every pack site (every prefill site's input
-   within SYNCED_TOL; the decode steps', whose K/V each path rounds to bf16
-   on its own, reported), and every prefill pack bit for bit with its plain version
-   (layer 0's five packs timed); paged at PAGE_SIZE (78 pages a row), whose
+   LOGITS_FRO_TOL; first tokens kernel against plain on the first
+   VLM_SYNC_DEPTH (2) layers of the cut, with the plain path on the kernel
+   path's codes at every pack site (every prefill site's input within
+   SYNCED_TOL; the decode steps', whose K/V each path rounds to bf16 on its
+   own, reported), and every prefill pack of those layers bit for bit with
+   its plain version (layer 0's five packs timed); paged at PAGE_SIZE (78
+   pages a row), whose
    streams a dense run on bf16-rounded K/V serves whole.  Last, each LUT call
    of a layer and lm_head at the decode shape (held to plain) and at the
    prefill's 2,432 rows (timed), beside its bound.
+3g. ``rwkv_serve``  full-width rwkv6_3b (RWKV-6 "Finch": attention-free, 40
+   heads of 64, a data-dependent decay through a rank-64 LoRA, d_ff 8,960,
+   vocab 65,536, untied) at the cut ``family_depth`` computes (16 of 32
+   layers), planned and converted, its zeroed ``mu_*``, ``u`` and
+   ``decay_base`` then drawn from a seed (a ``seeded_leaves`` line), served
+   through ``generate()`` alone (``BatchingEngine`` refuses a recurrent
+   state, as the reference's does): a ``page_size`` and the engine raise
+   before any launch; 4 rows of 512 seeded prompt tokens and 32 new tokens
+   each, counted (launches 8L + 1 / 0 / 8L + 1 a forward, no pack off the
+   kernel, no table copy); the call's prefill and eager decode steps timed
+   apart, the decode step after 64 and after 512 prompt tokens (the O(1)
+   check, reported) and a 511-token prefill (the scan at chunk 1); prefill
+   logits of all 4 x 512 positions kernel against plain at 1 layer within
+   LOGITS_TOL / LOGITS_FRO_TOL, and a layer's eight packs at those rows bit
+   for bit and timed; first tokens of 4 x 64-token prompts at the cut
+   kernel against plain with the plain path on the kernel path's codes
+   (every prefill site's input within SYNCED_TOL, every prefill pack bit
+   for bit; the decode sites', which read a bf16 shift state each path
+   rounded on its own, reported); the state across calls (a 64-token
+   prefill and 8 fed decode steps against one chunked forward over the 72
+   tokens, within RWKV_STATE_TOL on the bf16 cache, reported on fp32); a
+   profile of the eager decode step (LUT kernels, packs, PyTorch's own);
+   each LUT call of a layer and lm_head at the decode shape (held to
+   plain) and at 2,048 rows (timed), beside its bound.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -211,7 +237,7 @@ Phases, one JSON object per line:
    ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
    plain version.
 
-The nine serve phases (3, 3c, 3d, 3e, 3f, 5, 7, 9) serve their requests on the kernels
+The engine's serve phases (3, 3c, 3d, 3e, 3f, 5, 7, 9) serve their requests on the kernels
 with the engine's decode step captured as a CUDA graph and replayed (the
 engine's default on the card, the main path) and eager
 (``cuda_graph=False``), in turns: eager, graph, graph, eager, after one
@@ -233,13 +259,14 @@ behind a spin kernel until the host has enqueued them all.
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each phase ends with a ``seconds`` line.  Then one
 ``kernels`` summary line (the row of ``bitplane_pack`` sums its launches
-over the eleven paths that pack, ``launches_by_path``, and times one
+over the twelve paths that pack, ``launches_by_path``, and times one
 binary-cell decode layer's 7 packs; ``lut_affine`` and ``lut_tl1`` add the
 paper networks' launches to their serve phase's, the weight cell's kernels
-the paged engine's and the MLA, phi3, minitron, mixtral and VLM cells' (the
-VLM cell's engine as ``vlm_serve``, its ``generate()`` with the image prefix
-as ``vlm_generate``), the experts kernel the mixtral cell's to the MoE
-cell's; a null
+the paged engine's and the MLA, phi3, minitron, mixtral, VLM and RWKV cells'
+(the VLM cell's engine as ``vlm_serve``, its ``generate()`` with the image
+prefix as ``vlm_generate``; the RWKV cell's ``generate()`` as
+``rwkv_serve``), the experts kernel the mixtral cell's to the MoE cell's; a
+null
 ``library_ms`` comes with its ``library_reason``),
 the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero
@@ -324,7 +351,7 @@ FAMILY_TABLE_BYTES = 48 * 2**30
 # max, as each kernel is held to its plain version (measured: below 1e-6)
 SYNCED_TOL = 1e-5
 FAMILY_CALLS = {"phi3_medium_14b": (3, 2), "minitron_4b": (4, 1),
-                "llava_next_mistral_7b": (3, 2)}
+                "llava_next_mistral_7b": (3, 2), "rwkv6_3b": (8, 0)}
 # the vlm_serve phase: full-width llava_next_mistral_7b at the cut family_depth
 # computes (6 of 32 layers expected); VLM_ROWS rows, each 576 image patch
 # embeddings and a VLM_PROMPT-token prompt (a chat turn about one image), and
@@ -337,6 +364,26 @@ FAMILY_CALLS = {"phi3_medium_14b": (3, 2), "minitron_4b": (4, 1),
 VLM_ROWS, VLM_PROMPT, VLM_NEW, VLM_SEED = 4, 32, 16, 1
 VLM_PLAIN_DEPTH = 1
 VLM_TIMED, VLM_PREFILL_ITERS = 3, 5
+# the synchronized kernel-against-plain generate runs on the first
+# VLM_SYNC_DEPTH layers of the cut: the plain versions take ~23 s a layer at
+# the prefill's 2,432 rows, and the full call has to stay within two thirds
+# of its time limit with the rwkv_serve cell beside it
+VLM_SYNC_DEPTH = 2
+# the rwkv_serve phase: full-width rwkv6_3b at the cut family_depth computes
+# (16 of 32 expected).  The main path: RWKV_ROWS rows of RWKV_PROMPT seeded
+# prompt tokens and RWKV_NEW new tokens through generate() (long-context
+# chat or document continuation on a fixed-size state), its prefill timed
+# RWKV_TIMED times; the short traffic, RWKV_SHORT prompt tokens and
+# RWKV_SHORT_NEW new ones, for the synchronized first tokens, the state
+# across calls and the O(1) check (its decode steps interleaved with the
+# main traffic's); one prefill of RWKV_ODD tokens, whose odd length runs the
+# WKV scan at chunk 1.  The plain versions
+# take ~7 s a layer at the prefill's 2,048 rows, so the prefill logits are
+# held kernel against plain at RWKV_PLAIN_DEPTH layers
+RWKV_ROWS, RWKV_PROMPT, RWKV_NEW, RWKV_SEED = 4, 512, 32, 2
+RWKV_SHORT, RWKV_SHORT_NEW, RWKV_ODD = 64, 8, 511
+RWKV_PLAIN_DEPTH, RWKV_TIMED, RWKV_PREFILL_ITERS = 1, 2, 5
+RWKV_STATE_TOL = 5e-2  # norm error of the cached decode against one chunked forward
 # the mixtral_serve phase: full-width mixtral_8x7b (a 4096-token sliding
 # window, 8 experts top-2 of width 14,336, no shared experts) at the cut
 # family_depth computes with its experts converted (1 of 32 layers); then its
@@ -1794,9 +1841,14 @@ def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn"), rows:
     gen = torch.Generator(device=DEV).manual_seed(2)
     layer = {"kernel_ms": 0.0, "bound_ms": 0.0, "dense_matmul_ms": 0.0,
              **({"plain_ms": 0.0} if plain else {})}
-    nodes = [(name, node.layer(0)) for part in parts
+    nodes = [(part, name, node.layer(0)) for part in parts
              for name, node in lut["blocks"][part].items()
              if isinstance(node, (LUTLinear, LUTGroup))]
+    # names shared across parts (RWKV's time- and channel-mix w_k, w_r) keep
+    # their part
+    names = [name for _, name, _ in nodes]
+    nodes = [(f"{part}/{name}" if names.count(name) > 1 else name, node)
+             for part, name, node in nodes]
     for proj, node in nodes + [("lm_head", lut["lm_head"])]:
         plan = node.plan
         grouped = isinstance(node, LUTGroup)
@@ -2084,9 +2136,10 @@ def vlm_serve_phase(requests: int, max_new: int, iters: int) -> dict:
     the main path dense and counted; its prefill and decode steps timed
     apart; prefill logits of all VLM_ROWS x 608 positions kernel against
     plain at VLM_PLAIN_DEPTH layers; at the cut the prefix moving the text
-    positions' logits; first tokens kernel against plain with the plain
-    path on the kernel path's codes at every pack site, which also holds
-    every prefill pack bit for bit to its plain version; paged at PAGE_SIZE,
+    positions' logits; first tokens kernel against plain on the first
+    VLM_SYNC_DEPTH layers with the plain path on the kernel path's codes at
+    every pack site, which also holds every prefill pack of those layers bit
+    for bit to its plain version; paged at PAGE_SIZE,
     whose streams a dense run on bf16-rounded K/V must serve whole; last,
     each LUT call of a layer at the decode shape and at the prefill's 2,432
     rows beside its bound."""
@@ -2148,22 +2201,28 @@ def vlm_serve_phase(requests: int, max_new: int, iters: int) -> dict:
         raise AssertionError(f"{phase}: the image prefix does not move the logits: {moved}")
     del with_image, text_only
 
-    # first tokens, the plain path on the kernel path's codes at every site
+    # first tokens, the plain path on the kernel path's codes at every site,
+    # on the first VLM_SYNC_DEPTH layers of the cut
+    sync_cfg = dataclasses.replace(cfg, num_layers=VLM_SYNC_DEPTH)
+    sync_lut = dict(lut, blocks=first_layers(lut["blocks"], VLM_SYNC_DEPTH))
     with pack_tape() as tape:
-        k, _ = vlm_generate(lut, cfg, prompts, embeds)
+        k, _ = vlm_generate(sync_lut, sync_cfg, prompts, embeds)
     with pack_tape(tape) as seen:
-        p, plain_ms = vlm_generate(lut, cfg, prompts, embeds, use_kernels=False)
+        p, plain_ms = vlm_generate(sync_lut, sync_cfg, prompts, embeds, use_kernels=False)
     site_err = [((x - x_ref).abs().max() / x_ref.abs().max()).item()
                 for (x, *_), (x_ref, *_) in zip(seen, tape)]
     del seen
     # the prefill's sites decide the first tokens; the decode steps' attend
     # over K/V that each path rounded to bf16 on its own
-    n_prefill = per_forward["bitplane_pack"]
+    n_prefill = (lone + grouped) * VLM_SYNC_DEPTH + 1
     prefill_err, decode_err = max(site_err[:n_prefill]), max(site_err[n_prefill:])
     first_ok = [r[0] for r in k] == [r[0] for r in p] and prefill_err <= SYNCED_TOL
     emit({"phase": phase, "step": "first_tokens", "synced_identical": first_ok,
+          "layers": VLM_SYNC_DEPTH, "depth_reason": "the plain versions take ~23 s a layer "
+          "at the prefill's 2,432 rows; the first layers of the cut keep the full call "
+          "within two thirds of its time limit beside the rwkv_serve cell",
           "kernel": [r[0] for r in k], "plain_synced": [r[0] for r in p],
-          "streams_identical_synced": k == p, "kernel_streams_main_path": k == a,
+          "streams_identical_synced": k == p,
           "prefill_site_input_rel_err": prefill_err, "tol": SYNCED_TOL,
           "decode_site_input_rel_err": decode_err,
           "decode_reason": "a decode step attends over the bf16 cache, whose K/V each path "
@@ -2212,6 +2271,399 @@ def vlm_serve_phase(requests: int, max_new: int, iters: int) -> dict:
     del lut
     torch.cuda.empty_cache()
     return {"launches": engine, "generate_launches": launches}
+
+
+def rwkv_seed_leaves(params) -> dict:
+    """Redraw, in place, the raw leaves ``init_params`` zeroes in an RWKV
+    tree (at zero the token shift multiplies the carried state by 0 and the
+    bonus vanishes, so a wrong carry would show nothing): ``mu_*`` ~ U(0,
+    1), ``u`` ~ N(0, 0.5), ``decay_base`` ~ U(-6, 1), from RWKV_SEED on the
+    card.  They are raw leaves, which the plan and the conversion leave as
+    they are; both paths run the same tree, so they get the same values."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(RWKV_SEED)
+    time_mix = params["blocks"]["time"]
+    for part in (time_mix, params["blocks"]["channel"]):
+        for name, leaf in part.items():
+            if name.startswith("mu_"):
+                leaf.copy_(torch.rand(leaf.shape, generator=gen, device=DEV))
+    time_mix["u"].copy_(0.5 * torch.randn(time_mix["u"].shape, generator=gen, device=DEV))
+    base = time_mix["decay_base"]
+    base.copy_(7.0 * torch.rand(base.shape, generator=gen, device=DEV) - 6.0)
+    return {"mu_*": "U(0, 1)", "u": "N(0, 0.5)", "decay_base": "U(-6, 1)",
+            "seed": RWKV_SEED, "reason": "init_params zeroes them: a wrong token-shift "
+            "carry or bonus would show nothing; both paths run these values"}
+
+
+def rwkv_tokens(cfg, rows: int, length: int, seed: int):
+    """(rows, length) int32 seeded tokens on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (rows, length)).astype(np.int32)).to(DEV)
+
+
+def rwkv_generate(lut, cfg, prompts, max_new: int, use_kernels: bool = True, **kw):
+    """Greedy ``generate`` of ``max_new`` tokens (the head on the last
+    position, ``logits="last"``; ``kw``: further ``generate`` arguments);
+    returns (streams, wall ms)."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import generate
+
+    ctx = Ctx(cfg, ex=ExecCfg(use_kernels=use_kernels, logits="last"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = generate(lut, ctx, prompts, max_new, device=DEV, **kw)
+    streams = out.tolist()
+    return streams, (time.perf_counter() - t0) * 1e3
+
+
+def rwkv_steps(lut, cfg, prompt_sets, steps: int, prefills: int = 1) -> list:
+    """For each of ``prompt_sets``, ``prefills`` prefills into fresh caches;
+    then ``steps`` eager decode steps on each set's last cache, one step of
+    each set in turn (so that the host's drift falls on all of them alike),
+    each on the host clock from a synchronize to a synchronize (the steps of
+    ``generate``).  One dict of times per set."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+
+    ctx = Ctx(cfg, ex=ExecCfg(logits="last"))
+    prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
+
+    def timed(fn, out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    runs = []
+    with torch.no_grad():
+        for prompts in prompt_sets:
+            B, S = prompts.shape
+            run = {"prompt_tokens": S, "prefill_ms": [], "decode_step_ms": []}
+            for _ in range(prefills):
+                cache = make_cache(cfg, B, S + steps, ctx, device=DEV)
+                logits, cache = timed(lambda: prefill(lut, {"tokens": prompts}, cache),
+                                      run["prefill_ms"])
+            run["state"] = [cache, logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)]
+            runs.append(run)
+        for _ in range(steps):
+            for run in runs:
+                cache, tok = run["state"]
+                tok, _, cache = timed(lambda: decode(lut, cache, tok), run["decode_step_ms"])
+                run["state"] = [cache, tok]
+    for run in runs:
+        del run["state"]
+        run["median_prefill_ms"] = statistics.median(run["prefill_ms"])
+        run["median_decode_step_ms"] = (statistics.median(run["decode_step_ms"])
+                                        if steps else None)
+    return runs
+
+
+def rwkv_logits(lut, cfg, tokens, depth: int, use_kernels: bool = True, cache_len=None):
+    """The logits of every position of ``tokens`` through the first
+    ``depth`` layers, into a fresh (bf16) cache of ``cache_len`` slots or,
+    without ``cache_len``, with no cache."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
+
+    dcfg = dataclasses.replace(cfg, num_layers=depth)
+    params = dict(lut, blocks=first_layers(lut["blocks"], depth))
+    ctx = Ctx(dcfg, ex=ExecCfg(use_kernels=use_kernels))
+    cache = None
+    if cache_len is not None:
+        cache = make_cache(dcfg, tokens.shape[0], cache_len, ctx, device=DEV)
+    with torch.no_grad():
+        return model_forward(params, {"tokens": tokens}, ctx, cache=cache)[0]
+
+
+def rwkv_state_across_calls(lut, cfg, tokens, dtype) -> dict:
+    """A prefill of all but the last RWKV_SHORT_NEW tokens into a cache of
+    ``dtype``, then those tokens fed one decode step each: the logits at
+    their positions against one chunked forward over the whole sequence
+    without a cache, on the kernels."""
+    import torch
+
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+
+    B, S = tokens.shape
+    n = S - RWKV_SHORT_NEW
+    ctx = Ctx(cfg)
+    cache = make_cache(cfg, B, S, ctx, dtype=dtype, device=DEV)
+    prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
+    with torch.no_grad():
+        _, cache = prefill(lut, {"tokens": tokens[:, :n]}, cache)
+        got = []
+        for t in range(n, S):
+            _, logits, cache = decode(lut, cache, tokens[:, t:t + 1])
+            got.append(logits[:, -1])
+    got = torch.stack(got, 1)
+    want = rwkv_logits(lut, cfg, tokens, cfg.num_layers)[:, n:]
+    res = compare_logits(got, want)
+    per_position = ((got - want).norm(dim=(0, 2)) / want.norm(dim=(0, 2))).tolist()
+    return {"cache_dtype": str(dtype).split(".")[-1], **res,
+            "rel_fro_err_per_position": per_position,
+            "finite": bool(torch.isfinite(got).all().item()),
+            "index": cache["index"].tolist()}
+
+
+def rwkv_decode_profile(lut, cfg, prompts, steps: int = 4) -> dict:
+    """torch.profiler over ``steps`` eager decode steps of ``generate``'s
+    kind after a prefill of ``prompts`` and one untimed step: device
+    kernels per step split into LUT kernels (``lut_affine``'s decode,
+    prefill and split-sum kernels), packs and PyTorch's own, with their
+    busy ms and the idle share of the host-clock wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+
+    ctx = Ctx(cfg, ex=ExecCfg(logits="last"))
+    prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
+    B, S = prompts.shape
+    with torch.no_grad():
+        cache = make_cache(cfg, B, S + steps + 1, ctx, device=DEV)
+        logits, cache = prefill(lut, {"tokens": prompts}, cache)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        tok, _, cache = decode(lut, cache, tok)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for _ in range(steps):
+                tok, _, cache = decode(lut, cache, tok)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel")
+    lut_names = ("decode_kernel", "prefill_kernel", "sum_splits")
+    groups = {"lut": [e for e in kernels if any(n in e.key for n in lut_names)],
+              "pack": [e for e in kernels if "pack_kernel" in e.key]}
+    groups["pytorch"] = [e for e in kernels if e not in groups["lut"] + groups["pack"]]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(groups["pytorch"], key=lambda e: -e.count)[:10]
+    return {
+        "steps": steps, "wall_ms_per_step": wall_ms / steps, "busy_ms_per_step": busy / steps,
+        "idle_share": 1.0 - busy / wall_ms,
+        "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+        **{f"{name}_kernels_per_step": sum(e.count for e in g) / steps
+           for name, g in groups.items()},
+        **{f"{name}_ms_per_step": sum(e.self_device_time_total for e in g) / 1e3 / steps
+           for name, g in groups.items()},
+        "pytorch_kernels_by_count": {e.key[:60]: e.count / steps for e in top},
+    }
+
+
+def rwkv_serve_phase(iters: int) -> dict:
+    """Full-width rwkv6_3b (RWKV-6: attention-free, a data-dependent decay,
+    an O(1) recurrent state a request) at the cut :func:`family_depth`
+    computes, its zeroed raw leaves seeded (:func:`rwkv_seed_leaves`),
+    planned by the recipe with chunks capped at 1 and converted
+    (:func:`recipe_cell`): eight lone LUT projections a layer, each after
+    its own pack, and the untied head.  Served through ``generate()`` alone
+    (``BatchingEngine`` refuses a recurrent state, as the reference's does):
+    the refusals first; the main path (RWKV_ROWS x RWKV_PROMPT prompt
+    tokens, RWKV_NEW new) counted, after one untimed short generate; its
+    prefill and decode steps timed apart; the O(1) check (the decode step
+    after RWKV_SHORT and after RWKV_PROMPT prompt tokens, in turns) and the
+    odd-length prefill timed; prefill
+    logits of the main traffic kernel against plain at RWKV_PLAIN_DEPTH
+    layers, and a layer's packs at its rows; first tokens of the short
+    traffic at the cut kernel against plain with the plain path on the
+    kernel path's codes at every pack site; the state across calls (a
+    cached prefill and decode against one chunked forward); a profile of
+    the eager decode step; last each LUT call of a layer at the decode
+    shape (held to plain) and at the prefill's rows (timed)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+    from repro_torch.models.layers import Ctx
+    from repro_torch.serve import BatchingEngine
+
+    phase, arch = "rwkv_serve", "rwkv6_3b"
+    full = get_config(arch)
+    layers, depth = family_depth(full)
+    cfg, lut = recipe_cell(phase, full, depth)
+    emit({"phase": phase, "step": "seeded_leaves", **rwkv_seed_leaves(lut)})
+    lone, grouped = FAMILY_CALLS[arch]
+    per_forward = lut_calls_per_forward(lut, layers)
+    want = {"lut_affine": lone * layers + 1, "lut_affine_grouped": grouped * layers,
+            "bitplane_pack": (lone + grouped) * layers + 1}
+    if per_forward != want:
+        raise AssertionError(f"{phase}: the converted tree makes {per_forward} calls a "
+                             f"forward, not {want}")
+
+    # the refusals, before any launch
+    prompts = rwkv_tokens(cfg, RWKV_ROWS, RWKV_PROMPT, RWKV_SEED)
+    reset_launches()
+    refused = {}
+    for name, exc, call in (
+            ("generate_page_size", ValueError,
+             lambda: rwkv_generate(lut, cfg, prompts, RWKV_NEW, page_size=PAGE_SIZE)),
+            ("batching_engine", NotImplementedError,
+             lambda: BatchingEngine(lut, Ctx(cfg), SLOTS, MAX_LEN, device=DEV))):
+        try:
+            call()
+        except exc as e:
+            refused[name] = f"{type(e).__name__}: {e}"
+    launched = {k: v for k, v in read_launches().items() if v}
+    emit({"phase": phase, "step": "refusals", **refused, "launches": launched})
+    if len(refused) != 2 or launched:
+        raise AssertionError(f"{phase}: refusals {refused}, launches before them {launched}")
+
+    # the main path: generate() on the kernels, counted, after one untimed
+    # short generate (the first launch of each kernel loads its module)
+    short = rwkv_tokens(cfg, RWKV_ROWS, RWKV_SHORT + RWKV_SHORT_NEW, RWKV_SEED + 1)
+    short_prompts = short[:, :RWKV_SHORT]
+    rwkv_generate(lut, cfg, short_prompts, 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    streams, gen_ms = rwkv_generate(lut, cfg, prompts, RWKV_NEW)
+    launches, uncovered = read_launches(), plain_pack_codes_calls()
+    copies = lut_ops.TABLE_COPIES["table_operand"]
+    expect = {**no_launches(), **{k: v * RWKV_NEW for k, v in per_forward.items()}}
+    mib = 2**20
+    state_bytes = layers * RWKV_ROWS * (cfg.rwkv_heads * cfg.rwkv_head_dim**2 * 4
+                                        + 2 * cfg.d_model * 2)
+    emit({"phase": phase, "step": "generate", "rows": RWKV_ROWS,
+          "prompt_tokens": RWKV_PROMPT, "new_tokens": RWKV_NEW, "ms": gen_ms,
+          "tok_per_s": RWKV_ROWS * RWKV_NEW / (gen_ms / 1e3), "forwards": RWKV_NEW,
+          "launches": launches, "expected_launches": expect,
+          "plain_pack_codes_calls": uncovered, "table_copies": copies,
+          "state_mib": state_bytes / mib,
+          "state_mib_per_request_and_layer": state_bytes / layers / RWKV_ROWS / mib,
+          "table_mib": depth["table_mib"],
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "first_tokens": [row[0] for row in streams]})
+    if launches != expect or uncovered or copies:
+        raise AssertionError(f"{phase}: launch counts {launches} != expected {expect}, "
+                             f"or {uncovered} packs off the kernel, or {copies} table copies")
+    if any(len(row) != RWKV_NEW for row in streams):
+        raise AssertionError(f"{phase}: a row stopped short of {RWKV_NEW} tokens")
+
+    # the generate call split into its prefill and decode steps, beside the
+    # same steps after the short prompts (the O(1) check); the odd-length
+    # prefill (chunk 1)
+    timing, after_short = rwkv_steps(lut, cfg, (prompts, short_prompts), RWKV_NEW - 1,
+                                     prefills=RWKV_TIMED)
+    emit({"phase": phase, "step": "generate_timing", **timing, "generate_ms": gen_ms,
+          "prefill_share_of_generate": timing["median_prefill_ms"] / gen_ms,
+          "nvidia_smi": smi_line()})
+    odd, = rwkv_steps(lut, cfg, (prompts[:, :RWKV_ODD],), 0)
+    emit({"phase": phase, "step": "o1_check",
+          "median_decode_step_ms": {RWKV_SHORT: after_short["median_decode_step_ms"],
+                                    RWKV_PROMPT: timing["median_decode_step_ms"]},
+          "decode_step_ms_after_short": after_short["decode_step_ms"],
+          "ratio_long_to_short": timing["median_decode_step_ms"]
+          / after_short["median_decode_step_ms"],
+          "steps_interleaved": True,
+          "odd_prefill": {"prompt_tokens": RWKV_ODD, "chunk": 1, "prefill_ms": odd["prefill_ms"],
+                          "against_even_prefill_ms": timing["median_prefill_ms"]}})
+
+    # prefill logits of the main traffic, kernel against plain, at
+    # RWKV_PLAIN_DEPTH layers; the kernel run's packs recorded
+    cache_len = RWKV_PROMPT + RWKV_NEW
+    with pack_tape() as tape:
+        got = rwkv_logits(lut, cfg, prompts, RWKV_PLAIN_DEPTH, cache_len=cache_len)
+    ref = rwkv_logits(lut, cfg, prompts, RWKV_PLAIN_DEPTH, use_kernels=False,
+                      cache_len=cache_len)
+    res = compare_logits(got, ref)
+    finite = bool(torch.isfinite(got).all().item())
+    tol = LOGITS_TOL * res["max_abs_ref"]
+    emit({"phase": phase, "step": "prefill_logits", "layers": RWKV_PLAIN_DEPTH,
+          "shape": list(got.shape), **res, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL,
+          "finite": finite, "depth_reason": "the plain versions gather each call's table rows "
+          "for all 2,048 rows; the first tokens below hold the cut synchronized",
+          "tol_reason": "as the serve phase's: each projection re-quantizes its input"})
+    if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
+        raise AssertionError(f"{phase}: prefill logits differ: {res} (tol {tol}, "
+                             f"{LOGITS_FRO_TOL})")
+    del got, ref
+    # a layer's packs at the prefill's rows, bit for bit and timed
+    packs = {"kernel_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for i, (x, codes, plan) in enumerate(tape[:lone + grouped]):
+        r, got_codes = run_pack_case(x, iters, 3, **pack_ops.kernel_args(plan))
+        if not torch.equal(got_codes, codes):
+            raise AssertionError(f"{phase}: pack site {i} differs from the recorded codes")
+        emit({"phase": phase, "step": "pack", "site": i, "shape": list(x.shape), **r})
+        for key in packs:
+            packs[key] += r[key]
+    emit({"phase": phase, "step": "pack_layer", "rows": RWKV_ROWS * RWKV_PROMPT,
+          "packs": lone + grouped, "max_abs_err": 0, **packs})
+    del tape
+
+    # first tokens of the short traffic at the cut, the plain path on the
+    # kernel path's codes at every pack site
+    with pack_tape() as tape:
+        k, _ = rwkv_generate(lut, cfg, short_prompts, RWKV_SHORT_NEW)
+    with pack_tape(tape) as seen:
+        p, plain_ms = rwkv_generate(lut, cfg, short_prompts, RWKV_SHORT_NEW, use_kernels=False)
+    site_err = [((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                for (x, *_), (x_ref, *_) in zip(seen, tape)]
+    del seen
+    # the prefill's sites decide the first tokens; each decode step reads
+    # the token-shift state that each path rounded to bf16 on its own
+    n_prefill = per_forward["bitplane_pack"]
+    prefill_err, decode_err = max(site_err[:n_prefill]), max(site_err[n_prefill:])
+    bad_packs = [i for i, (x, codes, plan) in enumerate(tape[:n_prefill])
+                 if not torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)]
+    first_ok = ([r[0] for r in k] == [r[0] for r in p] and prefill_err <= SYNCED_TOL
+                and not bad_packs)
+    emit({"phase": phase, "step": "first_tokens", "synced_identical": first_ok,
+          "layers": layers, "kernel": [r[0] for r in k], "plain_synced": [r[0] for r in p],
+          "streams_identical_synced": k == p,
+          "prefill_site_input_rel_err": prefill_err, "tol": SYNCED_TOL,
+          "prefill_packs_bit_for_bit": not bad_packs, "prefill_sites": n_prefill,
+          "decode_site_input_rel_err": decode_err,
+          "decode_reason": "a decode step mixes in the token-shift state, which each path "
+                           "rounded to the bf16 cache from its own fp32 sums: a value at a "
+                           "bf16 rounding boundary takes the neighbouring value in one of them",
+          "plain_generate_ms": plain_ms, "sites": len(tape)})
+    if not first_ok:
+        raise AssertionError(f"{phase}: kernel and plain first tokens differ on the same "
+                             f"codes, a prefill site's input is {prefill_err} x max off, or "
+                             f"prefill packs {bad_packs} differ from their plain version")
+    del tape
+
+    # the state across calls: prefill then decode through the cache against
+    # one chunked forward, on the default bf16 cache (gated) and on fp32
+    across = {str(dt).split(".")[-1]: rwkv_state_across_calls(lut, cfg, short, dt)
+              for dt in (torch.bfloat16, torch.float32)}
+    gate = across["bfloat16"]
+    emit({"phase": phase, "step": "state_across_calls", "prefill_tokens": RWKV_SHORT,
+          "decode_tokens": RWKV_SHORT_NEW, "tol": RWKV_STATE_TOL, **across})
+    if not (gate["finite"] and gate["rel_fro_err"] <= RWKV_STATE_TOL):
+        raise AssertionError(f"{phase}: the cached decode is {gate['rel_fro_err']} from one "
+                             f"chunked forward (tol {RWKV_STATE_TOL})")
+
+    emit({"phase": phase, "step": "decode_profile_eager",
+          **rwkv_decode_profile(lut, cfg, short_prompts), "nvidia_smi": smi_line()})
+    parts = ("time", "channel")
+    recipe_layer_calls(phase, lut, iters, parts=parts)
+    recipe_layer_calls(phase, lut, RWKV_PREFILL_ITERS, parts=parts,
+                       rows=RWKV_ROWS * RWKV_PROMPT, plain=False)
+    emit({"phase": phase, "step": "memory",
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del lut
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def ring_positions(last: int, T: int) -> list:
@@ -4168,8 +4620,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phases",
         default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
-                "minitron_serve,mixtral_serve,vlm_serve,tl1_kernel,tl1_serve,moe_kernel,"
-                "moe_serve,bmm_kernel,bmm_serve,paper",
+                "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,tl1_kernel,tl1_serve,"
+                "moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -4229,6 +4681,7 @@ def main(argv=None) -> int:
     mix = run("mixtral_serve", mixtral_serve_phase, REQUESTS, MAX_NEW, args.iters)
     vlm = run("vlm_serve", vlm_serve_phase, REQUESTS, MAX_NEW, args.iters)
     vlm_gen = vlm and {"launches": vlm["generate_launches"]}
+    rwkv = run("rwkv_serve", rwkv_serve_phase, args.iters)
     tkern = run("tl1_kernel", tl1_kernel_phase, args.iters, 4 * 32)
     tsrv = run("tl1_serve", tl1_serve_phase, TL1_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
@@ -4249,13 +4702,14 @@ def main(argv=None) -> int:
         for name in names:
             m = k["main"][name]
             # lut_affine and lut_tl1 also run the paper networks, the weight
-            # cell's kernels the paged engine, the MLA, phi3, minitron, mixtral
-            # and VLM cells (the VLM cell's engine and its generate() with the
-            # image prefix), the experts kernel the mixtral cell
+            # cell's kernels the paged engine, the MLA, phi3, minitron, mixtral,
+            # VLM (the VLM cell's engine and its generate() with the image
+            # prefix) and RWKV cells, the experts kernel the mixtral cell
             by_path = {path: s["launches"][name]}
             for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("phi3_serve", phi3),
                              ("minitron_serve", mini), ("mixtral_serve", mix),
-                             ("vlm_serve", vlm), ("vlm_generate", vlm_gen), ("paper", paper)):
+                             ("vlm_serve", vlm), ("vlm_generate", vlm_gen),
+                             ("rwkv_serve", rwkv), ("paper", paper)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -4277,7 +4731,8 @@ def main(argv=None) -> int:
     paths = {name: s for name, s in (("serve", srv), ("paged_serve", psrv), ("mla_serve", mla),
                                      ("phi3_serve", phi3), ("minitron_serve", mini),
                                      ("mixtral_serve", mix), ("vlm_serve", vlm),
-                                     ("vlm_generate", vlm_gen), ("moe_serve", msrv),
+                                     ("vlm_generate", vlm_gen), ("rwkv_serve", rwkv),
+                                     ("moe_serve", msrv),
                                      ("bmm_serve", bsrv), ("paper", paper))
              if s is not None}
     if pkern is not None and paths:

@@ -6,8 +6,10 @@
 with ``inputs = {"tokens": (B, S)}`` and optionally ``"token_mask"`` and,
 for the VLM family, ``"embeds"`` (B, S_img, d): precomputed image patch
 embeddings (the vision tower is a stub, as in the reference).  The port
-serves the dense, MoE and VLM families so far, with GQA or (minicpm3) MLA
-attention; the other families raise until their slices arrive.
+serves the dense, MoE and VLM families, with GQA or (minicpm3) MLA
+attention, and the attention-free RWKV-6 family (``ssm``,
+``models/rwkv.py``); the hybrid and enc-dec families raise until their
+slices arrive.
 """
 from __future__ import annotations
 
@@ -19,20 +21,25 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Ctx
 
 
-_FAMILIES = ("dense", "moe", "vlm")
+_DECODERS = ("dense", "moe", "vlm")
+_SLICES = {"hybrid": "the zamba2 slice (models/ssm.py + models/hybrid.py)",
+           "encdec": "the whisper enc-dec slice"}
 
 
 def _check_family(cfg: ModelConfig):
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with its own slice of the port"
-        )
+    if cfg.family not in _DECODERS + ("ssm",):
+        where = _SLICES.get(cfg.family, "its own slice of the port")
+        raise NotImplementedError(f"family {cfg.family!r} comes with {where}")
 
 
 def model_specs(cfg: ModelConfig) -> dict:
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        from repro_torch.models.rwkv import rwkv_lm_specs
+
+        return rwkv_lm_specs(cfg)
     from repro_torch.models.transformer import decoder_specs
 
-    _check_family(cfg)
     return decoder_specs(cfg)
 
 
@@ -42,10 +49,23 @@ def model_forward(
     ctx: Ctx,
     cache: Optional[dict] = None,
 ):
-    """Returns ``(logits, new_cache, aux_loss)``."""
+    """Returns ``(logits, new_cache, aux_loss)``.  ``"token_mask"`` (the
+    engine's masked batched prefill) is defined for the attention families'
+    slot caches only: the recurrent-state family refuses it."""
+    cfg = ctx.cfg
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        if inputs.get("token_mask") is not None:
+            raise NotImplementedError(
+                f"token_mask (masked batched prefill) is not supported for "
+                f"family {cfg.family!r}: its recurrent/cross caches have no "
+                "slot-targeted write form"
+            )
+        from repro_torch.models.rwkv import forward as rwkv_forward
+
+        return rwkv_forward(params, inputs["tokens"], ctx, cache=cache)
     from repro_torch.models.transformer import forward
 
-    _check_family(ctx.cfg)
     return forward(
         params,
         inputs["tokens"],

@@ -1,5 +1,11 @@
-"""Decode caches for the dense decoder, GQA and MLA (counterpart of the
-dense and paged halves of ``repro/serve/_cache.py``).
+"""Decode caches for the dense decoder, GQA and MLA, and RWKV-6's O(1)
+recurrent state (counterpart of the dense, paged and ``ssm`` parts of
+``repro/serve/_cache.py``).
+
+RWKV-6 (``family="ssm"``) keeps per layer its token-shift states
+``shift_a`` / ``shift_c`` (L, B, d) in the cache's dtype and its WKV state
+``wkv`` (L, B, H, head_dim, head_dim) in fp32, plus ``index``: no ring, no
+``pos``/``valid``, no pages (``page_size`` raises).
 
 Dense layout: per layer-stacked leaf ``(L, B, T, ...)`` with T = max_len --
 GQA's ``k``/``v`` ``(L, B, T, n_kv, head_dim)``, MLA's latent ``c_kv``
@@ -101,6 +107,8 @@ def cache_specs(
     rectangle, and prefix sharing only shrinks from there.  The capacity
     T -- ``max_len``, or a sliding-window model's ring ``min(window,
     max_len)`` -- must be a whole number of pages."""
+    if cfg.family == "ssm":
+        return _rwkv_cache_specs(cfg, batch, page_size)
     if cfg.family not in ("dense", "moe", "vlm") or cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} caches come with their family's slice"
@@ -140,6 +148,26 @@ def cache_specs(
     return tree
 
 
+def _rwkv_cache_specs(cfg: ModelConfig, batch: int, page_size: int | None) -> dict:
+    """RWKV-6's O(1) state: per layer the token-shift states ``shift_a`` and
+    ``shift_c`` (B, d) in the cache's dtype and the WKV state ``wkv`` (B, H,
+    K, V) in fp32, and ``index``; no ``pos``/``valid`` ring and nothing to
+    page."""
+    if page_size is not None:
+        raise ValueError("page_size is meaningless for O(1)-state families")
+    L, H, hd = cfg.num_layers, cfg.rwkv_heads, cfg.rwkv_head_dim
+    shift_axes = ("layers", "batch", None)
+    return {
+        "index": PSpec((batch,), ("batch",), init="zeros", dtype=torch.int32),
+        "layers": {
+            "shift_a": PSpec((L, batch, cfg.d_model), shift_axes, init="zeros"),
+            "shift_c": PSpec((L, batch, cfg.d_model), shift_axes, init="zeros"),
+            "wkv": PSpec((L, batch, H, hd, hd), ("layers", "batch", "heads", None, None),
+                         init="zeros", dtype=torch.float32),
+        },
+    }
+
+
 def scatter_rows(
     buf: torch.Tensor, new: torch.Tensor, slots: torch.Tensor, ok: torch.Tensor
 ) -> None:
@@ -177,7 +205,15 @@ def advance_meta(
     With a ``window`` the cache is a ring: the write keeps the last T of
     the S tokens (``positions`` and the mask cut to them; T consecutive
     positions are distinct mod T), its slots are ``positions % T``, and no
-    slot is past T -- only an unmapped page flags ``overflow``."""
+    slot is past T -- only an unmapped page flags ``overflow``.
+
+    An O(1)-state cache (RWKV-6: no ``pos``) advances ``index`` only: by S,
+    or by each row's real tokens under ``token_mask``."""
+    if "pos" not in cache:
+        index = cache["index"].clone()
+        adv = positions.shape[1] if token_mask is None else token_mask.sum(1).to(torch.int32)
+        cache["index"].add_(adv)
+        return cache, CacheWrite(positions=positions, index=index)
     T = cache["pos"].shape[1]
     paged = "page_table" in cache
     index = cache["index"].clone()  # the pre-write offsets, kept past the advance

@@ -30,7 +30,10 @@ into one grouped launch.  The scheduler is agnostic to all of it.
 
 ``generate`` and ``BatchingEngine`` serve GQA and (minicpm3) MLA trees
 alike: the cache's leaves are K/V or MLA's latents, and every cache
-operation here runs over whichever it holds.
+operation here runs over whichever it holds.  RWKV-6 (``ssm``) is served
+through ``generate`` alone, on its O(1) recurrent state: as in the
+reference, ``BatchingEngine`` needs slot-targeted cache writes, which a
+recurrent state has no form for, and a ``page_size`` raises.
 
 Paged mode (``page_size=``) keeps the reference's contracts too: K/V live
 in fixed-size pages behind a slot -> page table (``serve/_cache.py``); a
@@ -328,7 +331,8 @@ class BatchingEngine:
     prefixes are never shared, since a ring's contents depend on the
     position.  A VLM is served text-only, as the reference's engine serves
     it: a :class:`Request` carries no image embeddings (``generate`` takes
-    them)."""
+    them).  The recurrent-state families (``ssm``, ``hybrid``) raise: their
+    caches have no slot-targeted writes."""
 
     def __init__(
         self,
@@ -347,6 +351,11 @@ class BatchingEngine:
         device: str | torch.device = "cuda",
         cuda_graph: bool | None = None,
     ):
+        if ctx.cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"BatchingEngine needs slot-targeted cache writes; family "
+                f"{ctx.cfg.family!r} has recurrent/cross caches without them"
+            )
         if ctx.cfg.family not in _ENGINE_FAMILIES:
             raise NotImplementedError(
                 f"BatchingEngine serves {_ENGINE_FAMILIES} so far, "

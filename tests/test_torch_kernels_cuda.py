@@ -1,8 +1,9 @@
 """The Hopper kernels (weight family: ``lut_affine`` in both its decode
 and prefill kernels, and its ragged MoE form ``lut_affine_experts``; TL1: ``lut_tl1``; the binary-matmul mode:
 ``bitplane_pack`` and ``binary_matmul``) against their plain PyTorch
-versions, on the card, and the engine's decode step as a CUDA graph on
-each served path (mixtral_8x7b's ring cache among them).  The
+versions, on the card, the engine's decode step as a CUDA graph on each
+served path (mixtral_8x7b's ring cache among them), and rwkv6_3b's
+``generate()`` on its recurrent state.  The
 kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 runs on a machine that has only the port's dependencies:
@@ -1447,3 +1448,114 @@ def test_vlm_generate_on_kernels_matches_plain_on_card(cuda_device, page_size):
     assert got == want
     for (x, _), (x_ref, _) in zip(seen, sites):
         assert ((x - x_ref).abs().max() <= 1e-5 * x_ref.abs().max()).item()
+
+
+# ---------------------------------------------------------------------------
+# rwkv6_3b through generate() on its recurrent state (BatchingEngine refuses
+# the family, as the reference's does)
+# ---------------------------------------------------------------------------
+
+RWKV_PROMPT_LEN, RWKV_MAX_NEW = 9, 6  # an odd prompt: the WKV scan at chunk 1
+
+
+def _rwkv_world(device):
+    """Reduced rwkv6_3b on planned i8 tables (the serving recipe: eight lone
+    projections a layer and the head), its zeroed ``mu_*``, ``u`` and
+    ``decay_base`` drawn from a seed (U(0, 1), N(0, 0.5), U(-6, 1)) so that
+    the token-shift carry and the bonus count."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import convert_params
+    from repro_torch.core.planner import plan_model
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("rwkv6_3b", reduced=True)
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = init_params(model_specs(cfg), gen, device=device)
+    time_mix = params["blocks"]["time"]
+    for part in (time_mix, params["blocks"]["channel"]):
+        for name, leaf in part.items():
+            if name.startswith("mu_"):
+                leaf.copy_(torch.rand(leaf.shape, generator=gen, device=device))
+    time_mix["u"].copy_(0.5 * torch.randn(time_mix["u"].shape, generator=gen, device=device))
+    base = time_mix["decay_base"]
+    base.copy_(7.0 * torch.rand(base.shape, generator=gen, device=device) - 6.0)
+    uniform = plan_model(params, float("inf"), max_chunk=2)
+    plan = plan_model(params, uniform.total_lut_bytes // 2, max_chunk=2,
+                      modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
+                      table_formats=(None, "i8"))
+    assert not plan.groups
+    return cfg, convert_params(params, plan=plan)[0]
+
+
+def _rwkv_generate(world, device, use_kernels, codes=None):
+    """Greedy ``generate`` of the reduced rwkv tree on 3 seeded prompts of
+    RWKV_PROMPT_LEN tokens; returns (streams, the launches of the run, each
+    pack site's (input, codes, plan) and each LUT call's (arguments, output)
+    in call order).  Given ``codes`` (an earlier run's sites), each pack
+    site takes the recorded codes of the same site instead of its own."""
+    from repro_torch.models import layers
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import generate
+
+    cfg, params = world
+    rng = np.random.default_rng(47)
+    prompts = rng.integers(0, cfg.vocab_size, (3, RWKV_PROMPT_LEN)).astype(np.int32)
+    pack0, lut0, sites, calls = layers.pack, layers.lut_affine, [], []
+    replay = None if codes is None else iter(codes)
+
+    def pack(x, plan, use_kernels=True):
+        own = pack0(x, plan, use_kernels=use_kernels) if replay is None else next(replay)[1]
+        sites.append((x.clone(), own, plan))
+        return own
+
+    def lut_affine(*args, **kw):
+        out = lut0(*args, **kw)
+        calls.append((args, kw, out.clone()))
+        return out
+
+    before = _counts_now()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "pack", pack)
+        mp.setattr(layers, "lut_affine", lut_affine)
+        ctx = Ctx(cfg, ex=ExecCfg(use_kernels=use_kernels))
+        out = generate(params, ctx, prompts, RWKV_MAX_NEW, device=device)
+    torch.cuda.synchronize()
+    after = _counts_now()
+    if replay is not None:
+        assert next(replay, None) is None, "a recorded pack site was not replayed"
+    return out.tolist(), {k: after[k] - before[k] for k in after}, sites, calls
+
+
+@pytest.mark.cuda
+def test_rwkv_generate_on_kernels_matches_plain_on_card(cuda_device):
+    """Reduced rwkv6_3b on planned i8 tables, greedy ``generate`` on its
+    recurrent state: on the kernels, 8L + 1 ``lut_affine`` launches and as
+    many packs a forward, no grouped launch; on the plain versions given
+    the kernel run's codes at every pack site, in order: the same streams,
+    whole, and every site's plain input within 1e-5 x max of the kernel's."""
+    world = _rwkv_world(cuda_device)
+    per_forward = 8 * world[0].num_layers + 1
+    got, launches, sites, _ = _rwkv_generate(world, cuda_device, True)
+    assert launches["lut_affine"] == launches["bitplane_pack"] == per_forward * RWKV_MAX_NEW
+    assert launches["lut_affine_grouped"] == 0 and len(sites) == launches["bitplane_pack"]
+    want, plain_launches, seen, _ = _rwkv_generate(world, cuda_device, False, sites)
+    assert not any(plain_launches.values())
+    assert got == want
+    for (x, *_), (x_ref, *_) in zip(seen, sites):
+        assert ((x - x_ref).abs().max() <= 1e-5 * x_ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_rwkv_packs_and_lut_calls_match_plain_on_card(cuda_device):
+    """Every pack and every LUT call of the reduced rwkv tree's ``generate``
+    on the kernels (8L + 1 of each a forward: the prefill's at 3 x
+    RWKV_PROMPT_LEN rows, the decode steps' at 3) against its plain version
+    on the same input: packs bit for bit, LUT calls within 1e-5 x max."""
+    world = _rwkv_world(cuda_device)
+    _, _, sites, calls = _rwkv_generate(world, cuda_device, True)
+    assert len(sites) == len(calls) == (8 * world[0].num_layers + 1) * RWKV_MAX_NEW
+    for x, codes, plan in sites:
+        assert torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)
+    for args, kw, out in calls:
+        _close(out, ops.lut_affine(*args, **{**kw, "use_kernels": False}))

@@ -128,14 +128,15 @@ def test_cuda_entry_points_raise_without_a_card():
 def test_other_families_raise():
     from repro_torch.configs.base import ModelConfig
 
-    cfg = ModelConfig("x", "ssm", 1, 8, 2, 2, 8, 16, attention="none")
-    with pytest.raises(NotImplementedError):
-        model_specs(cfg)
+    for family, slice_ in (("hybrid", "zamba2"), ("encdec", "enc-dec")):
+        cfg = ModelConfig("x", family, 1, 8, 2, 2, 8, 16)
+        with pytest.raises(NotImplementedError, match=slice_):
+            model_specs(cfg)
     layernorm = ModelConfig("x", "moe", 1, 8, 2, 2, 8, 16, norm="layernorm", num_experts=2)
     with pytest.raises(NotImplementedError):
         model_specs(layernorm)
     with pytest.raises(NotImplementedError):
-        get_config("rwkv6_3b")
+        get_config("zamba2_1_2b")
 
 
 # each published config's parameter count (tests/test_models_smoke.py's ranges)
@@ -147,6 +148,7 @@ PARAM_RANGES = {
     "mixtral_8x7b": (45e9, 48e9),
     "phi3_medium_14b": (13e9, 15e9),
     "qwen2_moe_a2_7b": (13e9, 15.5e9),
+    "rwkv6_3b": (2.7e9, 3.6e9),
 }
 
 
