@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
-                                    vlm_serve,rwkv_serve,tl1_kernel,tl1_serve,moe_kernel,
-                                    moe_serve,bmm_kernel,bmm_serve,paper]
+                                    vlm_serve,rwkv_serve,hybrid_serve,tl1_kernel,tl1_serve,
+                                    moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -159,19 +159,49 @@ Phases, one JSON object per line:
    each, counted (launches 8L + 1 / 0 / 8L + 1 a forward, no pack off the
    kernel, no table copy); the call's prefill and eager decode steps timed
    apart, the decode step after 64 and after 512 prompt tokens (the O(1)
-   check, reported) and a 511-token prefill (the scan at chunk 1); prefill
+   check, reported) and a 127-token prefill (the scan at chunk 1); prefill
    logits of all 4 x 512 positions kernel against plain at 1 layer within
    LOGITS_TOL / LOGITS_FRO_TOL, and a layer's eight packs at those rows bit
    for bit and timed; first tokens of 4 x 64-token prompts at the cut
    kernel against plain with the plain path on the kernel path's codes
    (every prefill site's input within SYNCED_TOL, every prefill pack bit
-   for bit; the decode sites', which read a bf16 shift state each path
-   rounded on its own, reported); the state across calls (a 64-token
+   for bit; the decode sites', which read the fp32 state each path carried
+   on its own, reported); the state across calls (a 64-token
    prefill and 8 fed decode steps against one chunked forward over the 72
    tokens, within RWKV_STATE_TOL on the bf16 cache, reported on fp32); a
    profile of the eager decode step (LUT kernels, packs, PyTorch's own);
    each LUT call of a layer and lm_head at the decode shape (held to
    plain) and at 2,048 rows (timed), beside its bound.
+3h. ``hybrid_serve``  full-width zamba2_1_2b (Mamba-2 SSD layers, d_inner
+   4,096, 64 heads of 64, state 64, conv 4; one shared attention + MLP
+   block, 32 heads of 64 with as many KV heads, invoked after every 6
+   layers with its own K/V cache per invocation; vocab 32,000, untied) at
+   the cut ``family_depth`` computes, all 38 layers (33,688 MiB of i8
+   tables; a layer's bytes from the plans of one and two layers, since the
+   shared block is held once), planned and converted (the shared block's
+   ``wq+wk+wv`` a G = 3 group, ``w_gate+w_up`` a G = 2 one), its zeroed
+   ``A_log`` and ``dt_bias`` drawn from a seed as Mamba-2 initialises them
+   (a ``seeded_leaves`` line), served through ``generate()`` alone: a
+   ``page_size``, the engine and a ``token_mask`` raise before any launch;
+   4 rows of 512 seeded prompt tokens and 32 new tokens each, counted
+   (launches 2L + 2S + 1 / 2S / 2L + 4S + 1 a forward for S = 6 shared
+   invocations, no pack off the kernel, no table copy); the call's prefill
+   and eager decode steps timed apart, the decode step after 64 and after
+   512 prompt tokens in turns (reported: the shared block's K/V grow) and
+   a 127-token prefill (the SSD scan at chunk 1); prefill logits of 4 x
+   128 positions kernel against plain at 7 layers (six mamba layers and one
+   shared invocation) within LOGITS_TOL / LOGITS_FRO_TOL, every pack of
+   that run bit for bit; first tokens of 4 x 64-token prompts at the cut
+   kernel against plain with the plain path on the kernel path's codes
+   (every prefill site within SYNCED_TOL and every prefill pack bit for
+   bit; the decode sites', which attend over bf16 K/V each path rounded on
+   its own, reported); the state across calls (a 64-token prefill and 8
+   fed decode steps against one chunked forward, within HYBRID_STATE_TOL on
+   the default cache, reported on fp32); a profile of the eager decode
+   step; each LUT call of a mamba layer, of the shared block and of
+   lm_head at the decode shape (held to plain) and at 2,048 rows (timed),
+   beside its bound, and the G = 3 group with i8 shift tables held to
+   plain at both.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -259,13 +289,14 @@ behind a spin kernel until the host has enqueued them all.
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each phase ends with a ``seconds`` line.  Then one
 ``kernels`` summary line (the row of ``bitplane_pack`` sums its launches
-over the twelve paths that pack, ``launches_by_path``, and times one
+over the thirteen paths that pack, ``launches_by_path``, and times one
 binary-cell decode layer's 7 packs; ``lut_affine`` and ``lut_tl1`` add the
 paper networks' launches to their serve phase's, the weight cell's kernels
-the paged engine's and the MLA, phi3, minitron, mixtral, VLM and RWKV cells'
-(the VLM cell's engine as ``vlm_serve``, its ``generate()`` with the image
-prefix as ``vlm_generate``; the RWKV cell's ``generate()`` as
-``rwkv_serve``), the experts kernel the mixtral cell's to the MoE cell's; a
+the paged engine's and the MLA, phi3, minitron, mixtral, VLM, RWKV and
+hybrid cells' (the VLM cell's engine as ``vlm_serve``, its ``generate()``
+with the image prefix as ``vlm_generate``; the RWKV cell's ``generate()``
+as ``rwkv_serve``, the hybrid cell's as ``hybrid_generate``), the experts
+kernel the mixtral cell's to the MoE cell's; a
 null
 ``library_ms`` comes with its ``library_reason``),
 the card's name and power limit as nvidia-smi prints them, and last
@@ -305,6 +336,9 @@ LOGITS_FRO_TOL = 5e-2  # ||kernel - plain|| / ||plain|| over the prefill logits
 
 # the serve phase: depth (cut by memory), requests, new tokens each
 LAYERS, REQUESTS, MAX_NEW = 4, 8, 16
+# the recipe cells' plain engine runs (first tokens, packs a forward): new
+# tokens a request (at 16 the four plain runs took 23-27 s each)
+PLAIN_NEW = 4
 SLOTS, MAX_LEN, BUCKET = 4, 64, 32  # engine slots, cache length, prefill bucket
 TL1_LAYERS = 36  # the published depth: TL1 tables take 52 MiB per layer
 TL1_TOL = 1e-5  # x max|plain| on the exact fp32 path; the int path is exact
@@ -367,8 +401,8 @@ VLM_TIMED, VLM_PREFILL_ITERS = 3, 5
 # the synchronized kernel-against-plain generate runs on the first
 # VLM_SYNC_DEPTH layers of the cut: the plain versions take ~23 s a layer at
 # the prefill's 2,432 rows, and the full call has to stay within two thirds
-# of its time limit with the rwkv_serve cell beside it
-VLM_SYNC_DEPTH = 2
+# of its time limit with the rwkv_serve and hybrid_serve cells beside it
+VLM_SYNC_DEPTH = 1
 # the rwkv_serve phase: full-width rwkv6_3b at the cut family_depth computes
 # (16 of 32 expected).  The main path: RWKV_ROWS rows of RWKV_PROMPT seeded
 # prompt tokens and RWKV_NEW new tokens through generate() (long-context
@@ -377,13 +411,35 @@ VLM_SYNC_DEPTH = 2
 # RWKV_SHORT_NEW new ones, for the synchronized first tokens, the state
 # across calls and the O(1) check (its decode steps interleaved with the
 # main traffic's); one prefill of RWKV_ODD tokens, whose odd length runs the
-# WKV scan at chunk 1.  The plain versions
+# WKV scan at chunk 1 (a token a step: at 511 tokens it took 10-12 s of the
+# call, which the full call cannot spare).  The plain versions
 # take ~7 s a layer at the prefill's 2,048 rows, so the prefill logits are
 # held kernel against plain at RWKV_PLAIN_DEPTH layers
 RWKV_ROWS, RWKV_PROMPT, RWKV_NEW, RWKV_SEED = 4, 512, 32, 2
-RWKV_SHORT, RWKV_SHORT_NEW, RWKV_ODD = 64, 8, 511
+RWKV_SHORT, RWKV_SHORT_NEW, RWKV_ODD = 64, 8, 127
 RWKV_PLAIN_DEPTH, RWKV_TIMED, RWKV_PREFILL_ITERS = 1, 2, 5
 RWKV_STATE_TOL = 5e-2  # norm error of the cached decode against one chunked forward
+# the hybrid_serve phase: full-width zamba2_1_2b at the cut family_depth
+# computes (all 38 layers expected).  The main path: HYBRID_ROWS rows of
+# HYBRID_PROMPT seeded prompt tokens and HYBRID_NEW new tokens through
+# generate() (long-context chat or document continuation on a small model: a
+# 2,048-row prefill, 8 chunks of 64 a layer), its prefill timed HYBRID_TIMED
+# times; the short traffic (HYBRID_SHORT prompt tokens, HYBRID_SHORT_NEW new)
+# for the state across calls and the decode step after a short context (its
+# steps interleaved with the main traffic's), and with HYBRID_SYNC_NEW new
+# tokens for the synchronized first tokens (the plain versions take ~1 s a
+# decode step at 38 layers); one prefill of HYBRID_ODD tokens, chunk 1.  The
+# prefill logits are held kernel against plain on HYBRID_PLAIN_PROMPT tokens a
+# row at HYBRID_PLAIN_DEPTH layers: six mamba layers and the first shared
+# invocation
+HYBRID_ROWS, HYBRID_PROMPT, HYBRID_NEW, HYBRID_SEED = 4, 512, 32, 3
+HYBRID_SHORT, HYBRID_SHORT_NEW, HYBRID_SYNC_NEW, HYBRID_ODD = 64, 8, 2, 127
+HYBRID_PLAIN_DEPTH, HYBRID_PLAIN_PROMPT = 7, 128
+HYBRID_TIMED, HYBRID_PREFILL_ITERS = 2, 5
+# the cached prefill and decode against one chunked forward, every site on
+# the forward's codes: its input within this x max of the forward's (the
+# cached decode attends over bf16 K/V, the forward over fp32)
+HYBRID_STATE_TOL = 1e-2
 # the mixtral_serve phase: full-width mixtral_8x7b (a 4096-token sliding
 # window, 8 experts top-2 of width 14,336, no shared experts) at the cut
 # family_depth computes with its experts converted (1 of 32 layers); then its
@@ -1533,11 +1589,15 @@ def recipe_bytes(full, layers: int, **kw) -> tuple[int, int]:
 
 def family_depth(full, **kw) -> tuple[int, dict]:
     """The deepest cut of full-width ``full`` whose recipe-planned tables,
-    its layers plus the untied ``lm_head``, fit in FAMILY_TABLE_BYTES: from
-    a one-layer plan on shapes alone, then checked by planning that depth
-    and the next (``kw``: further ``plan_model`` arguments)."""
-    layer, head = recipe_bytes(full, 1, **kw)
-    layers = min(full.num_layers, (FAMILY_TABLE_BYTES - head) // layer)
+    its layers plus what the tree holds once (the untied ``lm_head``; the
+    hybrid's shared block), fit in FAMILY_TABLE_BYTES: a layer's bytes from
+    the plans of one and two layers on shapes alone, then checked by
+    planning that depth and the next (``kw``: further ``plan_model``
+    arguments)."""
+    one, head = recipe_bytes(full, 1, **kw)
+    layer = recipe_bytes(full, 2, **kw)[0] - one
+    once = head + one - layer  # the head and any block held once
+    layers = min(full.num_layers, (FAMILY_TABLE_BYTES - once) // layer)
     while layers >= 1 and sum(recipe_bytes(full, layers, **kw)) > FAMILY_TABLE_BYTES:
         layers -= 1
     if layers < 1:
@@ -1545,17 +1605,20 @@ def family_depth(full, **kw) -> tuple[int, dict]:
     total = sum(recipe_bytes(full, layers, **kw))
     nxt = sum(recipe_bytes(full, layers + 1, **kw)) if layers < full.num_layers else None
     mib, gib = 2**20, 2**30
+    shared = once - head
     return layers, {
         "layers": layers, "published": full.num_layers,
         "table_mib": total / mib, "next_depth_table_mib": nxt and nxt / mib,
         "budget_mib": FAMILY_TABLE_BYTES / mib,
         "reason": f"{layer / mib:.0f} MiB of i8 tables per layer and {head / mib:.0f} MiB "
-                  f"for the untied lm_head: {layers} layers take {total / mib:.0f} MiB"
+                  "for the untied lm_head"
+                  + (f" and {shared / mib:.0f} MiB for the block held once" if shared else "")
+                  + f": {layers} layers take {total / mib:.0f} MiB"
                   + (f", {layers + 1} would take {nxt / mib:.0f} MiB, over "
                      f"{FAMILY_TABLE_BYTES / gib:.0f} GiB (a little above moe_serve's tables, "
                      "leaving the card room for the fp32 tree while it converts); all "
                      f"{full.num_layers} layers would need "
-                     f"{(head + full.num_layers * layer) / gib:.0f} GiB" if nxt else
+                     f"{(once + full.num_layers * layer) / gib:.0f} GiB" if nxt else
                      " (every published layer)") + "; widths are the published ones",
     }
 
@@ -1617,15 +1680,17 @@ def recipe_cell(phase: str, full, depth: dict, **kw):
     return cfg, lut
 
 
-def lut_calls_per_forward(tree, layers: int, experts: bool = False) -> dict:
+def lut_calls_per_forward(tree, layers: int, experts: bool = False, shared: int = 0) -> dict:
     """The LUT launches one forward of a converted decoder of ``layers``
     layers makes, from its tree: one ``lut_affine`` per lone projection and
     layer, one ``lut_affine_grouped`` per group and layer, and one pack
     before each (``linear`` packs its input, ``fused_linears`` once per
-    group).  With ``experts``, the nodes of a block's ``ffn`` are routed
-    experts: one ``lut_affine_experts`` each (the pre-stacked
-    ``w_gate+w_up`` and ``w_down``), each after one pack (``moe.py`` packs
-    a token once and gathers its codes)."""
+    group).  The stacked layers are ``blocks`` (the hybrid's ``mamba``);
+    the hybrid's ``shared`` block runs ``shared`` times a forward.  With
+    ``experts``, the nodes of a block's ``ffn`` are routed experts: one
+    ``lut_affine_experts`` each (the pre-stacked ``w_gate+w_up`` and
+    ``w_down``), each after one pack (``moe.py`` packs a token once and
+    gathers its codes)."""
     from repro_torch.core.convert import LUTGroup, LUTLinear
 
     calls = {"lut_affine": 0, "lut_affine_grouped": 0}
@@ -1641,8 +1706,9 @@ def lut_calls_per_forward(tree, layers: int, experts: bool = False) -> dict:
                     "lut_affine" if isinstance(node, LUTLinear) else "lut_affine_grouped")
             calls[kind] += n
 
+    repeats = {"blocks": layers, "mamba": layers, "shared": shared}
     for key, node in tree.items():
-        walk(node, layers if key == "blocks" else 1)
+        walk(node, repeats.get(key, 1))
     return {**calls, "bitplane_pack": sum(calls.values())}
 
 
@@ -1729,11 +1795,12 @@ def serve_recipe_cell(phase: str, lut, cfg, per_forward: dict, prompts, max_new:
                       synced: bool = False, plain: bool = True):
     """A recipe cell's requests through ``BatchingEngine`` on the kernels,
     graph and eager in turns (:func:`serve_paths`), then (with ``plain``) on
-    the plain versions: every run launches ``per_forward`` a forward with no
-    pack off the kernel and no table copy, every request's first token is
-    the plain run's (with ``synced``, in :func:`synced_first_tokens`), and
-    the plain run packs as often as the kernel run; emits the ``kernels``
-    and ``plain`` lines and returns the main path's launches."""
+    the plain versions, PLAIN_NEW tokens a request: every run launches
+    ``per_forward`` a forward with no pack off the kernel and no table
+    copy, every request's first token is the plain run's (with ``synced``,
+    in :func:`synced_first_tokens`), and the plain run packs ``per_forward``
+    times a forward too; emits the ``kernels`` and ``plain`` lines and
+    returns the main path's launches."""
     import torch
 
     from repro_torch.kernels.lut_affine import ops as lut_ops
@@ -1762,23 +1829,25 @@ def serve_recipe_cell(phase: str, lut, cfg, per_forward: dict, prompts, max_new:
         return launches
 
     with count_plain_packs() as packs:
-        plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
-                                                             False, cuda_graph=False)
+        plain_reqs, plain_eng, plain_wall, plain_decode = run_engine(
+            lut, cfg, prompts, min(max_new, PLAIN_NEW), False, cuda_graph=False)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
-    same = sum(
-        x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
-    )
-    emit({"phase": phase, "step": "plain", "tok_per_s": tokens / plain_wall,
-          "wall_s": plain_wall, "median_decode_step_ms": statistics.median(plain_decode),
-          "first_tokens_identical": first_ok, "identical_token_share": same / tokens,
-          "pack_codes_calls": packs["calls"]})
+    pairs = [(x, y) for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)]
+    plain_tokens = sum(len(r.generated) for r in plain_reqs)
+    emit({"phase": phase, "step": "plain", "new_tokens": min(max_new, PLAIN_NEW),
+          "tok_per_s": plain_tokens / plain_wall, "wall_s": plain_wall,
+          "median_decode_step_ms": statistics.median(plain_decode),
+          "first_tokens_identical": first_ok,
+          "identical_token_share": sum(x == y for x, y in pairs) / len(pairs),
+          "pack_codes_calls": packs["calls"], "forwards": plain_eng.readbacks})
     if synced:
         first_ok = synced_first_tokens(phase, lut, cfg, prompts, reqs, plain_reqs)
     if not first_ok:
         raise AssertionError(f"{phase}: kernel and plain paths disagree on a first token")
-    if packs["calls"] != launches["bitplane_pack"]:
-        raise AssertionError(f"{phase}: the plain run packed {packs['calls']} times, the "
-                             f"kernel run {launches['bitplane_pack']}")
+    if packs["calls"] != per_forward["bitplane_pack"] * plain_eng.readbacks:
+        raise AssertionError(f"{phase}: the plain run packed {packs['calls']} times in "
+                             f"{plain_eng.readbacks} forwards, not "
+                             f"{per_forward['bitplane_pack']} a forward")
     return launches
 
 
@@ -1825,12 +1894,13 @@ def recipe_prefill_logits(phase: str, lut, cfg, prompts, depths) -> None:
 
 
 def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn"), rows: int = 4,
-                       plain: bool = True) -> dict:
-    """Each LUT call of a layer's ``parts`` (layer 0's tables) and
-    ``lm_head`` at ``rows`` rows (the decode shape by default), kernel
-    against plain as the kernel phase holds them (without ``plain``, the
-    kernel timed only: its caller holds it elsewhere), with its device ms
-    beside ``bound`` and the bf16 ``x @ W`` it replaces; then a ``layer``
+                       plain: bool = True, block: str = "blocks", head: bool = True) -> dict:
+    """Each LUT call of a layer's ``parts`` (layer 0's tables of the stacked
+    ``block``, or the hybrid's ``shared`` block, held once) and, with
+    ``head``, ``lm_head`` at ``rows`` rows (the decode shape by default),
+    kernel against plain as the kernel phase holds them (without ``plain``,
+    the kernel timed only: its caller holds it elsewhere), with its device
+    ms beside ``bound`` and the bf16 ``x @ W`` it replaces; then a ``layer``
     line with the sums over the layer's calls, which it returns."""
     import torch
 
@@ -1841,15 +1911,15 @@ def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn"), rows:
     gen = torch.Generator(device=DEV).manual_seed(2)
     layer = {"kernel_ms": 0.0, "bound_ms": 0.0, "dense_matmul_ms": 0.0,
              **({"plain_ms": 0.0} if plain else {})}
-    nodes = [(part, name, node.layer(0)) for part in parts
-             for name, node in lut["blocks"][part].items()
+    nodes = [(part, name, node if block == "shared" else node.layer(0)) for part in parts
+             for name, node in lut[block][part].items()
              if isinstance(node, (LUTLinear, LUTGroup))]
     # names shared across parts (RWKV's time- and channel-mix w_k, w_r) keep
     # their part
     names = [name for _, name, _ in nodes]
     nodes = [(f"{part}/{name}" if names.count(name) > 1 else name, node)
              for part, name, node in nodes]
-    for proj, node in nodes + [("lm_head", lut["lm_head"])]:
+    for proj, node in nodes + ([("lm_head", lut["lm_head"])] if head else []):
         plan = node.plan
         grouped = isinstance(node, LUTGroup)
         tables = node.tables if grouped else node.tables[None]
@@ -1865,7 +1935,8 @@ def recipe_layer_calls(phase: str, lut, iters: int, parts=("attn", "ffn"), rows:
         if proj != "lm_head":
             for key in layer:
                 layer[key] += r[key]
-    emit({"phase": phase, "step": "layer", "calls": len(nodes), "rows": rows, **layer,
+    emit({"phase": phase, "step": "layer", "block": block, "calls": len(nodes), "rows": rows,
+          **layer,
           "nvidia_smi": smi_line(),
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
     return layer
@@ -2296,7 +2367,7 @@ def rwkv_seed_leaves(params) -> dict:
             "carry or bonus would show nothing; both paths run these values"}
 
 
-def rwkv_tokens(cfg, rows: int, length: int, seed: int):
+def seeded_tokens(cfg, rows: int, length: int, seed: int):
     """(rows, length) int32 seeded tokens on the card."""
     import numpy as np
     import torch
@@ -2306,16 +2377,16 @@ def rwkv_tokens(cfg, rows: int, length: int, seed: int):
         rng.integers(0, cfg.vocab_size, (rows, length)).astype(np.int32)).to(DEV)
 
 
-def rwkv_generate(lut, cfg, prompts, max_new: int, use_kernels: bool = True, **kw):
+def greedy_generate(lut, cfg, prompts, max_new: int, use_kernels: bool = True, **kw):
     """Greedy ``generate`` of ``max_new`` tokens (the head on the last
-    position, ``logits="last"``; ``kw``: further ``generate`` arguments);
-    returns (streams, wall ms)."""
+    position, ``logits="last"``; each pre-stacked group one grouped launch;
+    ``kw``: further ``generate`` arguments); returns (streams, wall ms)."""
     import torch
 
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.serve import generate
 
-    ctx = Ctx(cfg, ex=ExecCfg(use_kernels=use_kernels, logits="last"))
+    ctx = Ctx(cfg, ex=ExecCfg(use_kernels=use_kernels, logits="last", lut_grouped=True))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -2324,7 +2395,7 @@ def rwkv_generate(lut, cfg, prompts, max_new: int, use_kernels: bool = True, **k
     return streams, (time.perf_counter() - t0) * 1e3
 
 
-def rwkv_steps(lut, cfg, prompt_sets, steps: int, prefills: int = 1) -> list:
+def timed_steps(lut, cfg, prompt_sets, steps: int, prefills: int = 1) -> list:
     """For each of ``prompt_sets``, ``prefills`` prefills into fresh caches;
     then ``steps`` eager decode steps on each set's last cache, one step of
     each set in turn (so that the host's drift falls on all of them alike),
@@ -2335,7 +2406,7 @@ def rwkv_steps(lut, cfg, prompt_sets, steps: int, prefills: int = 1) -> list:
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
 
-    ctx = Ctx(cfg, ex=ExecCfg(logits="last"))
+    ctx = Ctx(cfg, ex=ExecCfg(logits="last", lut_grouped=True))
     prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
 
     def timed(fn, out):
@@ -2370,10 +2441,18 @@ def rwkv_steps(lut, cfg, prompt_sets, steps: int, prefills: int = 1) -> list:
     return runs
 
 
-def rwkv_logits(lut, cfg, tokens, depth: int, use_kernels: bool = True, cache_len=None):
+def cut_tree(lut, depth: int) -> dict:
+    """A converted model's tree at its first ``depth`` stacked layers
+    (``blocks``, or the hybrid's ``mamba``; a hybrid's shared block, held
+    once, stays whole)."""
+    stack = "mamba" if "mamba" in lut else "blocks"
+    return dict(lut, **{stack: first_layers(lut[stack], depth)})
+
+
+def cut_logits(lut, cfg, tokens, depth: int, use_kernels: bool = True, cache_len=None):
     """The logits of every position of ``tokens`` through the first
-    ``depth`` layers, into a fresh (bf16) cache of ``cache_len`` slots or,
-    without ``cache_len``, with no cache."""
+    ``depth`` layers (:func:`cut_tree`), into a fresh (bf16) cache of
+    ``cache_len`` slots or, without ``cache_len``, with no cache."""
     import torch
 
     from repro_torch.models.layers import Ctx, ExecCfg
@@ -2381,8 +2460,8 @@ def rwkv_logits(lut, cfg, tokens, depth: int, use_kernels: bool = True, cache_le
     from repro_torch.serve import make_cache
 
     dcfg = dataclasses.replace(cfg, num_layers=depth)
-    params = dict(lut, blocks=first_layers(lut["blocks"], depth))
-    ctx = Ctx(dcfg, ex=ExecCfg(use_kernels=use_kernels))
+    params = cut_tree(lut, depth)
+    ctx = Ctx(dcfg, ex=ExecCfg(use_kernels=use_kernels, lut_grouped=True))
     cache = None
     if cache_len is not None:
         cache = make_cache(dcfg, tokens.shape[0], cache_len, ctx, device=DEV)
@@ -2390,19 +2469,19 @@ def rwkv_logits(lut, cfg, tokens, depth: int, use_kernels: bool = True, cache_le
         return model_forward(params, {"tokens": tokens}, ctx, cache=cache)[0]
 
 
-def rwkv_state_across_calls(lut, cfg, tokens, dtype) -> dict:
-    """A prefill of all but the last RWKV_SHORT_NEW tokens into a cache of
+def state_across_calls(lut, cfg, tokens, dtype, fed: int) -> dict:
+    """A prefill of all but the last ``fed`` tokens into a cache of
     ``dtype``, then those tokens fed one decode step each: the logits at
     their positions against one chunked forward over the whole sequence
     without a cache, on the kernels."""
     import torch
 
-    from repro_torch.models.layers import Ctx
+    from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
 
     B, S = tokens.shape
-    n = S - RWKV_SHORT_NEW
-    ctx = Ctx(cfg)
+    n = S - fed
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
     cache = make_cache(cfg, B, S, ctx, dtype=dtype, device=DEV)
     prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
     with torch.no_grad():
@@ -2412,7 +2491,7 @@ def rwkv_state_across_calls(lut, cfg, tokens, dtype) -> dict:
             _, logits, cache = decode(lut, cache, tokens[:, t:t + 1])
             got.append(logits[:, -1])
     got = torch.stack(got, 1)
-    want = rwkv_logits(lut, cfg, tokens, cfg.num_layers)[:, n:]
+    want = cut_logits(lut, cfg, tokens, cfg.num_layers)[:, n:]
     res = compare_logits(got, want)
     per_position = ((got - want).norm(dim=(0, 2)) / want.norm(dim=(0, 2))).tolist()
     return {"cache_dtype": str(dtype).split(".")[-1], **res,
@@ -2421,7 +2500,85 @@ def rwkv_state_across_calls(lut, cfg, tokens, dtype) -> dict:
             "index": cache["index"].tolist()}
 
 
-def rwkv_decode_profile(lut, cfg, prompts, steps: int = 4) -> dict:
+def synced_generate(phase: str, lut, cfg, prompts, max_new: int, n_prefill: int,
+                    decode_reason: str) -> None:
+    """First tokens of ``generate`` at the cut, kernel against plain with
+    the plain path on the kernel path's codes at every pack site: every
+    prefill site's input (the first ``n_prefill``) within SYNCED_TOL x max
+    of the kernel path's and every prefill pack bit for bit with its plain
+    version; the decode sites' inputs, which read state each path carried
+    on its own, reported (``decode_reason``).  Emits a ``first_tokens``
+    line; raises when a first token, a prefill site or a pack differs."""
+    import torch
+
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+
+    with pack_tape() as tape:
+        k, _ = greedy_generate(lut, cfg, prompts, max_new)
+    with pack_tape(tape) as seen:
+        p, plain_ms = greedy_generate(lut, cfg, prompts, max_new, use_kernels=False)
+    site_err = [((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                for (x, *_), (x_ref, *_) in zip(seen, tape)]
+    del seen
+    prefill_err = max(site_err[:n_prefill])
+    decode_err = max(site_err[n_prefill:]) if len(site_err) > n_prefill else None
+    bad_packs = [i for i, (x, codes, plan) in enumerate(tape[:n_prefill])
+                 if not torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)]
+    first_ok = ([r[0] for r in k] == [r[0] for r in p] and prefill_err <= SYNCED_TOL
+                and not bad_packs)
+    emit({"phase": phase, "step": "first_tokens", "synced_identical": first_ok,
+          "layers": cfg.num_layers, "kernel": [r[0] for r in k],
+          "plain_synced": [r[0] for r in p], "streams_identical_synced": k == p,
+          "new_tokens": max_new, "prefill_site_input_rel_err": prefill_err,
+          "tol": SYNCED_TOL, "prefill_packs_bit_for_bit": not bad_packs,
+          "prefill_sites": n_prefill, "decode_site_input_rel_err": decode_err,
+          "decode_reason": decode_reason, "plain_generate_ms": plain_ms, "sites": len(tape)})
+    if not first_ok:
+        raise AssertionError(f"{phase}: kernel and plain first tokens differ on the same "
+                             f"codes, a prefill site's input is {prefill_err} x max off, or "
+                             f"prefill packs {bad_packs} differ from their plain version")
+
+
+def synced_state_across_calls(lut, cfg, tokens, dtype, fed: int) -> dict:
+    """A prefill of all but the last ``fed`` tokens into a cache of
+    ``dtype``, then those tokens fed one decode step each, on the kernels,
+    with each pack site given the codes of its rows from one chunked forward
+    over the whole sequence (so that no fp16 code rounds the other way and
+    sets the two apart, as the phase's prefill logits show they would): the
+    largest distance of a site's own input from the forward's at the same
+    rows, over the prefill's sites and over the decode steps'; beside it
+    :func:`state_across_calls`, without the codes given (reported)."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+
+    B, S = tokens.shape
+    n = S - fed
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
+    prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
+    with pack_tape() as tape:
+        cut_logits(lut, cfg, tokens, cfg.num_layers)
+    windows = [(0, n)] + [(t, t + 1) for t in range(n, S)]
+    rows = [(x[:, lo:hi], codes[:, lo:hi], plan) for lo, hi in windows
+            for x, codes, plan in tape]
+    cache = make_cache(cfg, B, S, ctx, dtype=dtype, device=DEV)
+    with torch.no_grad(), pack_tape(rows) as seen:
+        _, cache = prefill(lut, {"tokens": tokens[:, :n]}, cache)
+        for t in range(n, S):
+            _, logits, cache = decode(lut, cache, tokens[:, t:t + 1])
+    err = [((x - x_ref).abs().max() / x_ref.abs().max()).item()
+           for (x, *_), (x_ref, *_) in zip(seen, rows)]
+    unsynced = state_across_calls(lut, cfg, tokens, dtype, fed)
+    return {"cache_dtype": str(dtype).split(".")[-1], "site_input_rel_err": max(err),
+            "prefill_site_input_rel_err": max(err[:len(tape)]),
+            "decode_site_input_rel_err": max(err[len(tape):]), "sites": len(err),
+            "finite": unsynced["finite"], "index": cache["index"].tolist(),
+            "unsynced": {k: unsynced[k] for k in ("max_abs_err", "max_abs_ref",
+                                                   "rel_fro_err", "argmax_agree")}}
+
+
+def eager_decode_profile(lut, cfg, prompts, steps: int = 4) -> dict:
     """torch.profiler over ``steps`` eager decode steps of ``generate``'s
     kind after a prefill of ``prompts`` and one untimed step: device
     kernels per step split into LUT kernels (``lut_affine``'s decode,
@@ -2433,7 +2590,7 @@ def rwkv_decode_profile(lut, cfg, prompts, steps: int = 4) -> dict:
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
 
-    ctx = Ctx(cfg, ex=ExecCfg(logits="last"))
+    ctx = Ctx(cfg, ex=ExecCfg(logits="last", lut_grouped=True))
     prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
     B, S = prompts.shape
     with torch.no_grad():
@@ -2511,12 +2668,12 @@ def rwkv_serve_phase(iters: int) -> dict:
                              f"forward, not {want}")
 
     # the refusals, before any launch
-    prompts = rwkv_tokens(cfg, RWKV_ROWS, RWKV_PROMPT, RWKV_SEED)
+    prompts = seeded_tokens(cfg, RWKV_ROWS, RWKV_PROMPT, RWKV_SEED)
     reset_launches()
     refused = {}
     for name, exc, call in (
             ("generate_page_size", ValueError,
-             lambda: rwkv_generate(lut, cfg, prompts, RWKV_NEW, page_size=PAGE_SIZE)),
+             lambda: greedy_generate(lut, cfg, prompts, RWKV_NEW, page_size=PAGE_SIZE)),
             ("batching_engine", NotImplementedError,
              lambda: BatchingEngine(lut, Ctx(cfg), SLOTS, MAX_LEN, device=DEV))):
         try:
@@ -2530,18 +2687,17 @@ def rwkv_serve_phase(iters: int) -> dict:
 
     # the main path: generate() on the kernels, counted, after one untimed
     # short generate (the first launch of each kernel loads its module)
-    short = rwkv_tokens(cfg, RWKV_ROWS, RWKV_SHORT + RWKV_SHORT_NEW, RWKV_SEED + 1)
+    short = seeded_tokens(cfg, RWKV_ROWS, RWKV_SHORT + RWKV_SHORT_NEW, RWKV_SEED + 1)
     short_prompts = short[:, :RWKV_SHORT]
-    rwkv_generate(lut, cfg, short_prompts, 2)
+    greedy_generate(lut, cfg, short_prompts, 2)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    streams, gen_ms = rwkv_generate(lut, cfg, prompts, RWKV_NEW)
+    streams, gen_ms = greedy_generate(lut, cfg, prompts, RWKV_NEW)
     launches, uncovered = read_launches(), plain_pack_codes_calls()
     copies = lut_ops.TABLE_COPIES["table_operand"]
     expect = {**no_launches(), **{k: v * RWKV_NEW for k, v in per_forward.items()}}
     mib = 2**20
-    state_bytes = layers * RWKV_ROWS * (cfg.rwkv_heads * cfg.rwkv_head_dim**2 * 4
-                                        + 2 * cfg.d_model * 2)
+    state_bytes = layers * RWKV_ROWS * (cfg.rwkv_heads * cfg.rwkv_head_dim**2 + 2 * cfg.d_model) * 4
     emit({"phase": phase, "step": "generate", "rows": RWKV_ROWS,
           "prompt_tokens": RWKV_PROMPT, "new_tokens": RWKV_NEW, "ms": gen_ms,
           "tok_per_s": RWKV_ROWS * RWKV_NEW / (gen_ms / 1e3), "forwards": RWKV_NEW,
@@ -2561,12 +2717,12 @@ def rwkv_serve_phase(iters: int) -> dict:
     # the generate call split into its prefill and decode steps, beside the
     # same steps after the short prompts (the O(1) check); the odd-length
     # prefill (chunk 1)
-    timing, after_short = rwkv_steps(lut, cfg, (prompts, short_prompts), RWKV_NEW - 1,
+    timing, after_short = timed_steps(lut, cfg, (prompts, short_prompts), RWKV_NEW - 1,
                                      prefills=RWKV_TIMED)
     emit({"phase": phase, "step": "generate_timing", **timing, "generate_ms": gen_ms,
           "prefill_share_of_generate": timing["median_prefill_ms"] / gen_ms,
           "nvidia_smi": smi_line()})
-    odd, = rwkv_steps(lut, cfg, (prompts[:, :RWKV_ODD],), 0)
+    odd, = timed_steps(lut, cfg, (prompts[:, :RWKV_ODD],), 0)
     emit({"phase": phase, "step": "o1_check",
           "median_decode_step_ms": {RWKV_SHORT: after_short["median_decode_step_ms"],
                                     RWKV_PROMPT: timing["median_decode_step_ms"]},
@@ -2581,8 +2737,8 @@ def rwkv_serve_phase(iters: int) -> dict:
     # RWKV_PLAIN_DEPTH layers; the kernel run's packs recorded
     cache_len = RWKV_PROMPT + RWKV_NEW
     with pack_tape() as tape:
-        got = rwkv_logits(lut, cfg, prompts, RWKV_PLAIN_DEPTH, cache_len=cache_len)
-    ref = rwkv_logits(lut, cfg, prompts, RWKV_PLAIN_DEPTH, use_kernels=False,
+        got = cut_logits(lut, cfg, prompts, RWKV_PLAIN_DEPTH, cache_len=cache_len)
+    ref = cut_logits(lut, cfg, prompts, RWKV_PLAIN_DEPTH, use_kernels=False,
                       cache_len=cache_len)
     res = compare_logits(got, ref)
     finite = bool(torch.isfinite(got).all().item())
@@ -2611,40 +2767,14 @@ def rwkv_serve_phase(iters: int) -> dict:
 
     # first tokens of the short traffic at the cut, the plain path on the
     # kernel path's codes at every pack site
-    with pack_tape() as tape:
-        k, _ = rwkv_generate(lut, cfg, short_prompts, RWKV_SHORT_NEW)
-    with pack_tape(tape) as seen:
-        p, plain_ms = rwkv_generate(lut, cfg, short_prompts, RWKV_SHORT_NEW, use_kernels=False)
-    site_err = [((x - x_ref).abs().max() / x_ref.abs().max()).item()
-                for (x, *_), (x_ref, *_) in zip(seen, tape)]
-    del seen
-    # the prefill's sites decide the first tokens; each decode step reads
-    # the token-shift state that each path rounded to bf16 on its own
-    n_prefill = per_forward["bitplane_pack"]
-    prefill_err, decode_err = max(site_err[:n_prefill]), max(site_err[n_prefill:])
-    bad_packs = [i for i, (x, codes, plan) in enumerate(tape[:n_prefill])
-                 if not torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)]
-    first_ok = ([r[0] for r in k] == [r[0] for r in p] and prefill_err <= SYNCED_TOL
-                and not bad_packs)
-    emit({"phase": phase, "step": "first_tokens", "synced_identical": first_ok,
-          "layers": layers, "kernel": [r[0] for r in k], "plain_synced": [r[0] for r in p],
-          "streams_identical_synced": k == p,
-          "prefill_site_input_rel_err": prefill_err, "tol": SYNCED_TOL,
-          "prefill_packs_bit_for_bit": not bad_packs, "prefill_sites": n_prefill,
-          "decode_site_input_rel_err": decode_err,
-          "decode_reason": "a decode step mixes in the token-shift state, which each path "
-                           "rounded to the bf16 cache from its own fp32 sums: a value at a "
-                           "bf16 rounding boundary takes the neighbouring value in one of them",
-          "plain_generate_ms": plain_ms, "sites": len(tape)})
-    if not first_ok:
-        raise AssertionError(f"{phase}: kernel and plain first tokens differ on the same "
-                             f"codes, a prefill site's input is {prefill_err} x max off, or "
-                             f"prefill packs {bad_packs} differ from their plain version")
-    del tape
+    synced_generate(phase, lut, cfg, short_prompts, RWKV_SHORT_NEW,
+                    per_forward["bitplane_pack"],
+                    "a decode step mixes in the fp32 recurrent state each path carried "
+                    "from its own fp32 sums")
 
     # the state across calls: prefill then decode through the cache against
     # one chunked forward, on the default bf16 cache (gated) and on fp32
-    across = {str(dt).split(".")[-1]: rwkv_state_across_calls(lut, cfg, short, dt)
+    across = {str(dt).split(".")[-1]: state_across_calls(lut, cfg, short, dt, RWKV_SHORT_NEW)
               for dt in (torch.bfloat16, torch.float32)}
     gate = across["bfloat16"]
     emit({"phase": phase, "step": "state_across_calls", "prefill_tokens": RWKV_SHORT,
@@ -2654,11 +2784,277 @@ def rwkv_serve_phase(iters: int) -> dict:
                              f"chunked forward (tol {RWKV_STATE_TOL})")
 
     emit({"phase": phase, "step": "decode_profile_eager",
-          **rwkv_decode_profile(lut, cfg, short_prompts), "nvidia_smi": smi_line()})
+          **eager_decode_profile(lut, cfg, short_prompts), "nvidia_smi": smi_line()})
     parts = ("time", "channel")
     recipe_layer_calls(phase, lut, iters, parts=parts)
     recipe_layer_calls(phase, lut, RWKV_PREFILL_ITERS, parts=parts,
                        rows=RWKV_ROWS * RWKV_PROMPT, plain=False)
+    emit({"phase": phase, "step": "memory",
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del lut
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def hybrid_seed_leaves(params) -> dict:
+    """Redraw, in place, the raw SSD leaves ``init_params`` zeroes in a
+    hybrid tree (at zero every head decays at A = -1 with one step size)
+    from HYBRID_SEED on the card, as Mamba-2's published initialisation
+    draws them: A ~ U[1, 16] with ``A_log = log A``; dt log-uniform in
+    [1e-3, 1e-1] with ``dt_bias = dt + log(-expm1(-dt))``, the inverse of
+    the softplus the block applies.  Raw leaves, which the plan and the
+    conversion leave as they are; both paths run the same tree."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(HYBRID_SEED)
+    mix = params["mamba"]["mix"]
+    shape = mix["A_log"].shape
+    mix["A_log"].copy_(torch.log(1.0 + 15.0 * torch.rand(shape, generator=gen, device=DEV)))
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(shape, generator=gen, device=DEV))
+    mix["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+    return {"A": "U[1, 16], A_log = log A", "dt": "log-uniform in [1e-3, 1e-1]",
+            "dt_bias": "dt + log(-expm1(-dt))", "seed": HYBRID_SEED,
+            "reason": "init_params zeroes A_log and dt_bias (every head would decay at "
+            "A = -1 with one step size); Mamba-2's published initialisation; both paths "
+            "run these values"}
+
+
+def hybrid_serve_phase(iters: int) -> dict:
+    """Full-width zamba2_1_2b (Mamba-2 SSD layers and one shared attention +
+    MLP block invoked every 6, its K/V cached per invocation) at the cut
+    :func:`family_depth` computes (all 38 layers), its zeroed SSD leaves
+    seeded (:func:`hybrid_seed_leaves`), planned by the recipe with chunks
+    capped at 1 and converted (:func:`recipe_cell`): ``in_proj`` and
+    ``out_proj`` lone a layer, the shared block's ``wq+wk+wv`` (G = 3) and
+    ``w_gate+w_up`` grouped, ``wo`` and ``w_down`` lone, and the untied
+    head.  Served through ``generate()`` alone (``BatchingEngine`` refuses
+    a recurrent state, as the reference's does): the refusals first; the
+    main path (HYBRID_ROWS x HYBRID_PROMPT prompt tokens, HYBRID_NEW new)
+    counted, after one untimed short generate; its prefill and decode steps
+    timed apart, beside the decode step after HYBRID_SHORT prompt tokens
+    (in turns) and an odd prefill of HYBRID_ODD tokens (chunk 1); prefill
+    logits at HYBRID_PLAIN_DEPTH layers (six mamba layers and the first
+    shared invocation) kernel against plain, every pack of that run bit for
+    bit; first tokens of the short traffic at the cut kernel against plain
+    on the kernel path's codes; the state across calls; a profile of the
+    eager decode step; each LUT call of a mamba layer, of the shared block
+    and the head at the decode shape (held to plain) and at the prefill's
+    rows (timed), and the G = 3 group held to plain at both."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import LUTGroup
+    from repro_torch.core.lut import pack_codes
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+    from repro_torch.models.hybrid import segments
+    from repro_torch.models.layers import Ctx, _host_scales
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import BatchingEngine
+    from repro_torch.serve._cache import cache_specs
+
+    phase, arch = "hybrid_serve", "zamba2_1_2b"
+    full = get_config(arch)
+    layers, depth = family_depth(full)
+    if layers != full.num_layers:
+        raise AssertionError(f"{phase}: the cut is {layers} of {full.num_layers} layers")
+    cfg, lut = recipe_cell(phase, full, depth)
+    emit({"phase": phase, "step": "seeded_leaves", **hybrid_seed_leaves(lut)})
+    shared = len(segments(cfg)) - 1
+    qkv, gate_up = lut["shared"]["attn"].get("wq+wk+wv"), lut["shared"]["mlp"].get("w_gate+w_up")
+    if not (isinstance(qkv, LUTGroup) and qkv.tables.shape[0] == 3
+            and isinstance(gate_up, LUTGroup) and qkv.plan.table_format == "i8"
+            and qkv.plan.shift_bits):
+        raise AssertionError(f"{phase}: the shared block's groups are not the G = 3 i8 "
+                             "shift wq+wk+wv and w_gate+w_up")
+    per_forward = lut_calls_per_forward(lut, layers, shared=shared)
+    want = {"lut_affine": 2 * layers + 2 * shared + 1, "lut_affine_grouped": 2 * shared,
+            "bitplane_pack": 2 * layers + 4 * shared + 1}
+    if per_forward != want:
+        raise AssertionError(f"{phase}: the converted tree makes {per_forward} calls a "
+                             f"forward, not {want}")
+
+    # the refusals, before any launch
+    prompts = seeded_tokens(cfg, HYBRID_ROWS, HYBRID_PROMPT, HYBRID_SEED)
+    mask = torch.ones(prompts.shape, dtype=torch.bool, device=DEV)
+    reset_launches()
+    refused = {}
+    for name, exc, call in (
+            ("generate_page_size", ValueError,
+             lambda: greedy_generate(lut, cfg, prompts, HYBRID_NEW, page_size=PAGE_SIZE)),
+            ("batching_engine", NotImplementedError,
+             lambda: BatchingEngine(lut, Ctx(cfg), SLOTS, MAX_LEN, device=DEV)),
+            ("token_mask", NotImplementedError,
+             lambda: model_forward(lut, {"tokens": prompts, "token_mask": mask}, Ctx(cfg)))):
+        try:
+            call()
+        except exc as e:
+            refused[name] = f"{type(e).__name__}: {e}"
+    launched = {k: v for k, v in read_launches().items() if v}
+    emit({"phase": phase, "step": "refusals", **refused, "launches": launched})
+    if len(refused) != 3 or launched:
+        raise AssertionError(f"{phase}: refusals {refused}, launches before them {launched}")
+
+    # the main path: generate() on the kernels, counted, after one untimed
+    # short generate (the first launch of each kernel loads its module)
+    short = seeded_tokens(cfg, HYBRID_ROWS, HYBRID_SHORT + HYBRID_SHORT_NEW, HYBRID_SEED + 1)
+    short_prompts = short[:, :HYBRID_SHORT]
+    greedy_generate(lut, cfg, short_prompts, 2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    streams, gen_ms = greedy_generate(lut, cfg, prompts, HYBRID_NEW)
+    launches, uncovered = read_launches(), plain_pack_codes_calls()
+    copies = lut_ops.TABLE_COPIES["table_operand"]
+    expect = {**no_launches(), **{k: v * HYBRID_NEW for k, v in per_forward.items()}}
+    mib = 2**20
+    specs = cache_specs(cfg, HYBRID_ROWS, HYBRID_PROMPT + HYBRID_NEW)
+    nbytes = {part: sum(math.prod(t.shape) * (t.dtype or torch.bfloat16).itemsize
+                        for t in specs[part].values()) for part in ("layers", "shared_attn")}
+    emit({"phase": phase, "step": "generate", "rows": HYBRID_ROWS,
+          "prompt_tokens": HYBRID_PROMPT, "new_tokens": HYBRID_NEW, "ms": gen_ms,
+          "tok_per_s": HYBRID_ROWS * HYBRID_NEW / (gen_ms / 1e3), "forwards": HYBRID_NEW,
+          "launches": launches, "expected_launches": expect, "per_forward": per_forward,
+          "plain_pack_codes_calls": uncovered, "table_copies": copies,
+          "ssd_state_mib": nbytes["layers"] / mib, "shared_kv_mib": nbytes["shared_attn"] / mib,
+          "table_mib": depth["table_mib"],
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "first_tokens": [row[0] for row in streams]})
+    if launches != expect or uncovered or copies:
+        raise AssertionError(f"{phase}: launch counts {launches} != expected {expect}, "
+                             f"or {uncovered} packs off the kernel, or {copies} table copies")
+    if any(len(row) != HYBRID_NEW for row in streams):
+        raise AssertionError(f"{phase}: a row stopped short of {HYBRID_NEW} tokens")
+
+    # the generate call split into its prefill and decode steps, beside the
+    # same steps after the short prompts (in turns); the odd prefill (chunk 1)
+    timing, after_short = timed_steps(lut, cfg, (prompts, short_prompts), HYBRID_NEW - 1,
+                                      prefills=HYBRID_TIMED)
+    emit({"phase": phase, "step": "generate_timing", **timing, "generate_ms": gen_ms,
+          "prefill_share_of_generate": timing["median_prefill_ms"] / gen_ms,
+          "nvidia_smi": smi_line()})
+    odd, = timed_steps(lut, cfg, (prompts[:, :HYBRID_ODD],), 0)
+    emit({"phase": phase, "step": "context_check",
+          "median_decode_step_ms": {HYBRID_SHORT: after_short["median_decode_step_ms"],
+                                    HYBRID_PROMPT: timing["median_decode_step_ms"]},
+          "decode_step_ms_after_short": after_short["decode_step_ms"],
+          "ratio_long_to_short": timing["median_decode_step_ms"]
+          / after_short["median_decode_step_ms"], "steps_interleaved": True,
+          "reason": "the SSD states are O(1); the shared block's K/V grow with the context "
+                    "(reported, not gated)",
+          "odd_prefill": {"prompt_tokens": HYBRID_ODD, "chunk": 1,
+                          "prefill_ms": odd["prefill_ms"],
+                          "against_even_prefill_ms": timing["median_prefill_ms"]}})
+
+    # prefill logits kernel against plain: at 1 layer as they come; at
+    # HYBRID_PLAIN_DEPTH layers, the least depth that reaches the shared
+    # block, with the plain path on the kernel path's codes (the unsynchronized
+    # logits and the plain path against itself in another fp32 order beside
+    # them); every pack of the kernel run bit for bit with its plain version
+    head = prompts[:, :HYBRID_PLAIN_PROMPT]
+
+    def logits(depth, use_kernels, codes=None):
+        with pack_tape(codes) as sites:
+            out = cut_logits(lut, cfg, head, depth, use_kernels=use_kernels,
+                             cache_len=HYBRID_PLAIN_PROMPT)
+        return out, sites
+
+    got, _ = logits(1, True)
+    res = compare_logits(got, logits(1, False)[0])
+    finite = bool(torch.isfinite(got).all().item())
+    tol = LOGITS_TOL * res["max_abs_ref"]
+    emit({"phase": phase, "step": "prefill_logits", "layers": 1, "shape": list(got.shape),
+          **res, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL, "finite": finite,
+          "tol_reason": "as the serve phase's: each projection re-quantizes its input"})
+    if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
+        raise AssertionError(f"{phase}: prefill logits differ at 1 layer: {res} (tol {tol}, "
+                             f"{LOGITS_FRO_TOL})")
+    got, tape = logits(HYBRID_PLAIN_DEPTH, True)
+    ref, seen = logits(HYBRID_PLAIN_DEPTH, False, codes=tape)
+    synced = compare_logits(ref, got)
+    site_err = max(((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                   for (x, *_), (x_ref, *_) in zip(seen, tape))
+    bad_packs = [i for i, (x, codes, plan) in enumerate(tape)
+                 if not torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)]
+    del seen
+    plain, plain_tape = logits(HYBRID_PLAIN_DEPTH, False)
+    # where the unsynchronized paths part: each site's input and fp16 codes
+    drift = {"site_input_rel_err": [((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                                    for (x, *_), (x_ref, *_) in zip(plain_tape, tape)],
+             "codes_differing": [int((c != c_ref).sum().item())
+                                 for (_, c, _), (_, c_ref, _) in zip(plain_tape, tape)],
+             "codes": [c.numel() for _, c, _ in tape]}
+    del plain_tape
+    with plain_gather_bytes(64 * 2**20):
+        plain_other, _ = logits(HYBRID_PLAIN_DEPTH, False)
+    finite = bool(torch.isfinite(got).all().item())
+    ok = (finite and synced["max_abs_err"] <= SYNCED_TOL * synced["max_abs_ref"]
+          and site_err <= SYNCED_TOL and not bad_packs)
+    emit({"phase": phase, "step": "prefill_logits_synced", "layers": HYBRID_PLAIN_DEPTH,
+          "shared_invocations": len(segments(dataclasses.replace(
+              cfg, num_layers=HYBRID_PLAIN_DEPTH))) - 1,
+          "shape": list(got.shape), "synced": synced, "site_input_rel_err": site_err,
+          "tol": SYNCED_TOL, "finite": finite, "packs": len(tape),
+          "packs_bit_for_bit": not bad_packs,
+          "unsynced": {**compare_logits(got, plain), "sites": drift},
+          "plain_vs_plain": compare_logits(plain_other, plain),
+          "depth_reason": "six mamba layers and one shared invocation, the least depth that "
+          "reaches the shared block",
+          "tol_reason": "with every code the same the paths differ only by their fp32 sums' "
+          "order; unsynchronized, each projection re-quantizes its input, and on these "
+          "weights one layer's fp32-order differences flip fp16 codes whose i8 table steps "
+          "grow from layer to layer (unsynced and plain_vs_plain: reported, not gated)"})
+    if not ok:
+        raise AssertionError(f"{phase}: synchronized prefill logits at {HYBRID_PLAIN_DEPTH} "
+                             f"layers differ: {synced}, site inputs {site_err} x max off, or "
+                             f"packs {bad_packs} differ")
+    del got, ref, plain, plain_other, tape
+
+    # first tokens of the short traffic at the cut, the plain path on the
+    # kernel path's codes at every pack site
+    synced_generate(phase, lut, cfg, short_prompts, HYBRID_SYNC_NEW,
+                    per_forward["bitplane_pack"],
+                    "a decode step attends over the shared block's bf16 K/V, which each path "
+                    "rounded from its own fp32 sums; the SSD states are fp32")
+
+    # the state across calls: prefill then decode through the cache against
+    # one chunked forward, each site of the cached run on the forward's codes
+    # of its rows; gated on the default cache (bf16 K/V), reported on fp32
+    across = {str(dt).split(".")[-1]: synced_state_across_calls(lut, cfg, short, dt,
+                                                                HYBRID_SHORT_NEW)
+              for dt in (torch.bfloat16, torch.float32)}
+    gate = across["bfloat16"]
+    emit({"phase": phase, "step": "state_across_calls", "prefill_tokens": HYBRID_SHORT,
+          "decode_tokens": HYBRID_SHORT_NEW, "tol": HYBRID_STATE_TOL,
+          "tol_reason": "every site's input on the forward's codes: one bf16 rounding of the "
+                        "cached K and V (2^-8 relative each) through the softmax and the "
+                        "weighted sum, at the shared block's wo inputs; elsewhere fp32 order",
+          **across})
+    if not (gate["finite"] and gate["site_input_rel_err"] <= HYBRID_STATE_TOL):
+        raise AssertionError(f"{phase}: the cached decode's site inputs are "
+                             f"{gate['site_input_rel_err']} x max from one chunked forward's "
+                             f"(tol {HYBRID_STATE_TOL})")
+
+    emit({"phase": phase, "step": "decode_profile_eager",
+          **eager_decode_profile(lut, cfg, short_prompts), "nvidia_smi": smi_line()})
+    rows = HYBRID_ROWS * HYBRID_PROMPT
+    for r, kw in ((4, {}), (rows, {"plain": False})):
+        n = iters if r == 4 else HYBRID_PREFILL_ITERS
+        recipe_layer_calls(phase, lut, n, parts=("mix",), block="mamba", rows=r, **kw)
+        recipe_layer_calls(phase, lut, n, parts=("attn", "mlp"), block="shared", rows=r,
+                           head=False, **kw)
+    # the G = 3 group with i8 shift tables, held to plain at both shapes
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    plan = qkv.plan
+    for r in (4, rows):
+        x = torch.randn(r, plan.in_features, generator=gen, device=DEV)
+        res = run_case("lut_affine_grouped", pack_codes(x, plan), qkv.tables,
+                       _host_scales(plan, qkv.scale), plan.shift_bits,
+                       iters if r == 4 else HYBRID_PREFILL_ITERS, 3 if r == 4 else 1)
+        emit({"phase": phase, "step": "g3_group", "proj": "wq+wk+wv", "rows": r,
+              "G": qkv.tables.shape[0], "n": plan.num_planes, "k": plan.in_features,
+              "E": plan.num_entries, "p": plan.out_features, "table": plan.table_format,
+              "shift_bits": plan.shift_bits, **res})
     emit({"phase": phase, "step": "memory",
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
     del lut
@@ -4620,8 +5016,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phases",
         default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
-                "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,tl1_kernel,tl1_serve,"
-                "moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper",
+                "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,hybrid_serve,tl1_kernel,"
+                "tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -4682,6 +5078,7 @@ def main(argv=None) -> int:
     vlm = run("vlm_serve", vlm_serve_phase, REQUESTS, MAX_NEW, args.iters)
     vlm_gen = vlm and {"launches": vlm["generate_launches"]}
     rwkv = run("rwkv_serve", rwkv_serve_phase, args.iters)
+    hyb = run("hybrid_serve", hybrid_serve_phase, args.iters)
     tkern = run("tl1_kernel", tl1_kernel_phase, args.iters, 4 * 32)
     tsrv = run("tl1_serve", tl1_serve_phase, TL1_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
@@ -4704,12 +5101,13 @@ def main(argv=None) -> int:
             # lut_affine and lut_tl1 also run the paper networks, the weight
             # cell's kernels the paged engine, the MLA, phi3, minitron, mixtral,
             # VLM (the VLM cell's engine and its generate() with the image
-            # prefix) and RWKV cells, the experts kernel the mixtral cell
+            # prefix), RWKV and hybrid cells, the experts kernel the mixtral cell
             by_path = {path: s["launches"][name]}
             for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("phi3_serve", phi3),
                              ("minitron_serve", mini), ("mixtral_serve", mix),
                              ("vlm_serve", vlm), ("vlm_generate", vlm_gen),
-                             ("rwkv_serve", rwkv), ("paper", paper)):
+                             ("rwkv_serve", rwkv), ("hybrid_generate", hyb),
+                             ("paper", paper)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -4732,7 +5130,7 @@ def main(argv=None) -> int:
                                      ("phi3_serve", phi3), ("minitron_serve", mini),
                                      ("mixtral_serve", mix), ("vlm_serve", vlm),
                                      ("vlm_generate", vlm_gen), ("rwkv_serve", rwkv),
-                                     ("moe_serve", msrv),
+                                     ("hybrid_generate", hyb), ("moe_serve", msrv),
                                      ("bmm_serve", bsrv), ("paper", paper))
              if s is not None}
     if pkern is not None and paths:

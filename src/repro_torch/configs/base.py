@@ -75,13 +75,21 @@ class ModelConfig:
         return self.num_heads * self.head_dim
 
     @property
+    def d_inner(self) -> int:  # mamba2
+        return self.mamba_expand * self.d_model
+
+    @property
+    def mamba_heads(self) -> int:
+        return self.d_inner // self.mamba_head_dim
+
+    @property
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
 
 ARCH_NAMES = [
     "granite_8b", "llava_next_mistral_7b", "minicpm3_4b", "minitron_4b", "mixtral_8x7b",
-    "phi3_medium_14b", "qwen2_moe_a2_7b", "rwkv6_3b",
+    "phi3_medium_14b", "qwen2_moe_a2_7b", "rwkv6_3b", "zamba2_1_2b",
 ]
 
 

@@ -52,7 +52,10 @@ class ExecCfg:
     inputs lie on the card (False asks for the plain PyTorch versions);
     ``lut_grouped`` fuses a pre-stacked group's projections into one
     grouped launch; ``logits="last"`` keeps only the final position's
-    head."""
+    head.  ``ssd_chunk`` is the Mamba-2 SSD scan's chunk (0: the largest of
+    64, 32, ..., 1 dividing the length) and ``ssd_bf16`` runs its large
+    intra-chunk tensors in bf16 on a prefill without a cache (the decay
+    cumsums and the carry stay fp32), as the reference's knobs."""
 
     linear_mode: str = "standard"  # standard | lut_gather | binary_matmul
     fixed_bits: int = 8  # binary_matmul input format
@@ -60,6 +63,8 @@ class ExecCfg:
     lut_grouped: bool = False
     use_kernels: bool = True
     logits: str = "all"  # all | last
+    ssd_chunk: int = 0  # 0 = auto
+    ssd_bf16: bool = False
 
     def __post_init__(self):
         if self.linear_mode == "onehot_mxu":

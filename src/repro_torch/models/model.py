@@ -7,9 +7,10 @@ with ``inputs = {"tokens": (B, S)}`` and optionally ``"token_mask"`` and,
 for the VLM family, ``"embeds"`` (B, S_img, d): precomputed image patch
 embeddings (the vision tower is a stub, as in the reference).  The port
 serves the dense, MoE and VLM families, with GQA or (minicpm3) MLA
-attention, and the attention-free RWKV-6 family (``ssm``,
-``models/rwkv.py``); the hybrid and enc-dec families raise until their
-slices arrive.
+attention, the attention-free RWKV-6 family (``ssm``,
+``models/rwkv.py``) and the zamba2 hybrid (``hybrid``, ``models/hybrid.py``:
+Mamba-2 SSD blocks and a shared attention block); the enc-dec family raises
+until its slice arrives.
 """
 from __future__ import annotations
 
@@ -22,12 +23,11 @@ from repro_torch.models.layers import Ctx
 
 
 _DECODERS = ("dense", "moe", "vlm")
-_SLICES = {"hybrid": "the zamba2 slice (models/ssm.py + models/hybrid.py)",
-           "encdec": "the whisper enc-dec slice"}
+_SLICES = {"encdec": "the whisper enc-dec slice"}
 
 
 def _check_family(cfg: ModelConfig):
-    if cfg.family not in _DECODERS + ("ssm",):
+    if cfg.family not in _DECODERS + ("ssm", "hybrid"):
         where = _SLICES.get(cfg.family, "its own slice of the port")
         raise NotImplementedError(f"family {cfg.family!r} comes with {where}")
 
@@ -38,6 +38,10 @@ def model_specs(cfg: ModelConfig) -> dict:
         from repro_torch.models.rwkv import rwkv_lm_specs
 
         return rwkv_lm_specs(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import hybrid_specs
+
+        return hybrid_specs(cfg)
     from repro_torch.models.transformer import decoder_specs
 
     return decoder_specs(cfg)
@@ -51,19 +55,22 @@ def model_forward(
 ):
     """Returns ``(logits, new_cache, aux_loss)``.  ``"token_mask"`` (the
     engine's masked batched prefill) is defined for the attention families'
-    slot caches only: the recurrent-state family refuses it."""
+    slot caches only: the recurrent-state families refuse it."""
     cfg = ctx.cfg
     _check_family(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         if inputs.get("token_mask") is not None:
             raise NotImplementedError(
                 f"token_mask (masked batched prefill) is not supported for "
                 f"family {cfg.family!r}: its recurrent/cross caches have no "
                 "slot-targeted write form"
             )
-        from repro_torch.models.rwkv import forward as rwkv_forward
+        if cfg.family == "hybrid":
+            from repro_torch.models.hybrid import forward as family_forward
+        else:
+            from repro_torch.models.rwkv import forward as family_forward
 
-        return rwkv_forward(params, inputs["tokens"], ctx, cache=cache)
+        return family_forward(params, inputs["tokens"], ctx, cache=cache)
     from repro_torch.models.transformer import forward
 
     return forward(

@@ -13,12 +13,12 @@ jnp outside any Pallas kernel in the reference.
 
 The decode cache holds no ring: per layer the token-shift states
 ``shift_a`` (time mix) and ``shift_c`` (channel mix), (B, d) each, the
-WKV state ``wkv`` (B, H, K, V) in fp32, and ``index`` (B,).  ``forward``
-writes them in place, the shift states cast to the cache's dtype (bf16
-by default, as the reference declares them).  The reference's forward
-returns its new shift states in the activations' dtype instead, so its
-carry stays fp32 after the first write whatever the cache declares; on an
-fp32 cache the two carries are the same.
+WKV state ``wkv`` (B, H, K, V), and ``index`` (B,).  ``forward`` writes
+them in place.  The reference declares the shift states in the cache's
+dtype, but its forward returns them in the activations' dtype, so its
+carry is in that dtype after the first write; the port's buffers are
+fp32, which hold that carry exactly, and ``_token_shift`` casts it to the
+activations' dtype on read, as the reference's does.
 """
 from __future__ import annotations
 
@@ -251,7 +251,7 @@ def forward(params, tokens, ctx: Ctx, positions=None, cache=None, embeds=None):
             lp["channel"], L.apply_norm(lp["ln2"], x, cfg), ctx, lc.get("shift_c")
         )
         x = x + h
-        if lc:  # in place, cast to the cache's dtypes
+        if lc:  # in place, into the fp32 buffers
             for name, new in (("shift_a", new_a), ("shift_c", new_c), ("wkv", new_w)):
                 lc[name].copy_(new)
     x = L.apply_norm(params["ln_f"], x, cfg)

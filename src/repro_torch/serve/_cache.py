@@ -1,11 +1,22 @@
-"""Decode caches for the dense decoder, GQA and MLA, and RWKV-6's O(1)
-recurrent state (counterpart of the dense, paged and ``ssm`` parts of
-``repro/serve/_cache.py``).
+"""Decode caches for the dense decoder, GQA and MLA, RWKV-6's O(1)
+recurrent state and the zamba2 hybrid's (counterpart of the dense, paged,
+``ssm`` and ``hybrid`` parts of ``repro/serve/_cache.py``).
 
 RWKV-6 (``family="ssm"``) keeps per layer its token-shift states
-``shift_a`` / ``shift_c`` (L, B, d) in the cache's dtype and its WKV state
-``wkv`` (L, B, H, head_dim, head_dim) in fp32, plus ``index``: no ring, no
-``pos``/``valid``, no pages (``page_size`` raises).
+``shift_a`` / ``shift_c`` (L, B, d) and its WKV state ``wkv`` (L, B, H,
+head_dim, head_dim), plus ``index``: no ring, no ``pos``/``valid``, no
+pages (``page_size`` raises).  The zamba2 hybrid (``family="hybrid"``)
+keeps per mamba layer the causal conv's window ``layers.conv`` (L, B, K -
+1, conv_dim) and the SSD state ``layers.state`` (L, B, H, P, N), and per
+invocation of its shared attention block the K/V ``shared_attn.k`` /
+``.v`` (n_shared, B, T, n_kv, head_dim), dense or paged, beside
+``pos``/``valid``/``index``.
+
+The recurrent states are fp32 whatever the cache's dtype: the reference
+declares the token-shift states and the conv window in the cache's dtype,
+but its forward returns them in the activations' dtype and carries them
+so after the first write; an fp32 buffer holds that carry exactly, and
+the models cast it to the activations' dtype on read.
 
 Dense layout: per layer-stacked leaf ``(L, B, T, ...)`` with T = max_len --
 GQA's ``k``/``v`` ``(L, B, T, n_kv, head_dim)``, MLA's latent ``c_kv``
@@ -106,15 +117,20 @@ def cache_specs(
     defaults to ``batch * max_pages``: every slot can hold a full
     rectangle, and prefix sharing only shrinks from there.  The capacity
     T -- ``max_len``, or a sliding-window model's ring ``min(window,
-    max_len)`` -- must be a whole number of pages."""
+    max_len)`` -- must be a whole number of pages.  The hybrid's K/V
+    leaves (its shared block's, one per invocation) are the ones paged; its
+    SSD states stay per slot."""
     if cfg.family == "ssm":
         return _rwkv_cache_specs(cfg, batch, page_size)
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.attention not in ("gqa", "mla"):
+    families = ("dense", "moe", "vlm", "hybrid")
+    if cfg.family not in families or cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} caches come with their family's slice"
         )
     T = max_len if cfg.sliding_window is None else min(cfg.sliding_window, max_len)
-    lead = (cfg.num_layers, batch, T)
+    hybrid = cfg.family == "hybrid"
+    kv_layers = _num_shared_invocations(cfg) if hybrid else cfg.num_layers
+    lead = (kv_layers, batch, T)
     axes = ("layers", "batch", "seq_kv")
     meta = ("batch", "seq_kv")
     tree = {
@@ -131,7 +147,7 @@ def cache_specs(
         max_pages = T // page_size
         if num_pages is None:
             num_pages = batch * max_pages
-        lead = (cfg.num_layers, num_pages + 1, page_size)
+        lead = (kv_layers, num_pages + 1, page_size)
         axes = ("layers", "seq_kv", None)
         tree["page_table"] = PSpec(
             (batch, max_pages), ("batch", None), init="zeros", dtype=torch.int32
@@ -141,29 +157,55 @@ def cache_specs(
     else:
         kv = (cfg.num_kv_heads, cfg.head_dim)
         tails = {"k": kv, "v": kv}
-    tree["layers"] = {
+    kv_tree = {
         name: PSpec(lead + tail, axes + (None,) * len(tail), init="zeros")
         for name, tail in tails.items()
     }
+    if hybrid:
+        tree["layers"] = _ssd_state_specs(cfg, batch)
+        tree["shared_attn"] = kv_tree
+    else:
+        tree["layers"] = kv_tree
     return tree
+
+
+def _num_shared_invocations(cfg: ModelConfig) -> int:
+    if not cfg.shared_attn_every:
+        return 0
+    return cfg.num_layers // cfg.shared_attn_every
+
+
+def _ssd_state_specs(cfg: ModelConfig, batch: int) -> dict:
+    """The hybrid's per-mamba-layer state: the causal conv's window
+    ``conv`` (B, K - 1, conv_dim) and the SSD state ``state`` (B, H, P, N),
+    both fp32 (the module docstring says why for ``conv``)."""
+    L, conv_dim = cfg.num_layers, cfg.d_inner + 2 * cfg.ssm_state
+    f32 = torch.float32
+    return {
+        "conv": PSpec((L, batch, cfg.conv_kernel - 1, conv_dim),
+                      ("layers", "batch", None, None), init="zeros", dtype=f32),
+        "state": PSpec((L, batch, cfg.mamba_heads, cfg.mamba_head_dim, cfg.ssm_state),
+                       ("layers", "batch", "heads", None, None), init="zeros", dtype=f32),
+    }
 
 
 def _rwkv_cache_specs(cfg: ModelConfig, batch: int, page_size: int | None) -> dict:
     """RWKV-6's O(1) state: per layer the token-shift states ``shift_a`` and
-    ``shift_c`` (B, d) in the cache's dtype and the WKV state ``wkv`` (B, H,
-    K, V) in fp32, and ``index``; no ``pos``/``valid`` ring and nothing to
-    page."""
+    ``shift_c`` (B, d) and the WKV state ``wkv`` (B, H, K, V), all fp32 (the
+    module docstring says why for the shift states), and ``index``; no
+    ``pos``/``valid`` ring and nothing to page."""
     if page_size is not None:
         raise ValueError("page_size is meaningless for O(1)-state families")
     L, H, hd = cfg.num_layers, cfg.rwkv_heads, cfg.rwkv_head_dim
     shift_axes = ("layers", "batch", None)
+    f32 = torch.float32
     return {
         "index": PSpec((batch,), ("batch",), init="zeros", dtype=torch.int32),
         "layers": {
-            "shift_a": PSpec((L, batch, cfg.d_model), shift_axes, init="zeros"),
-            "shift_c": PSpec((L, batch, cfg.d_model), shift_axes, init="zeros"),
+            "shift_a": PSpec((L, batch, cfg.d_model), shift_axes, init="zeros", dtype=f32),
+            "shift_c": PSpec((L, batch, cfg.d_model), shift_axes, init="zeros", dtype=f32),
             "wkv": PSpec((L, batch, H, hd, hd), ("layers", "batch", "heads", None, None),
-                         init="zeros", dtype=torch.float32),
+                         init="zeros", dtype=f32),
         },
     }
 
@@ -283,8 +325,10 @@ def advance_meta(
 
 def pool_pages(cache: dict) -> int:
     """The pages of a paged cache's pool that an allocator may map: every
-    leaf's second dimension, less the sink."""
-    return next(iter(cache["layers"].values())).shape[1] - 1
+    paged leaf's second dimension (the hybrid's: its ``shared_attn``), less
+    the sink."""
+    paged = cache.get("shared_attn", cache["layers"])
+    return next(iter(paged.values())).shape[1] - 1
 
 
 def write_rows(

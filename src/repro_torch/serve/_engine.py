@@ -30,10 +30,11 @@ into one grouped launch.  The scheduler is agnostic to all of it.
 
 ``generate`` and ``BatchingEngine`` serve GQA and (minicpm3) MLA trees
 alike: the cache's leaves are K/V or MLA's latents, and every cache
-operation here runs over whichever it holds.  RWKV-6 (``ssm``) is served
-through ``generate`` alone, on its O(1) recurrent state: as in the
-reference, ``BatchingEngine`` needs slot-targeted cache writes, which a
-recurrent state has no form for, and a ``page_size`` raises.
+operation here runs over whichever it holds.  RWKV-6 (``ssm``) and the
+zamba2 hybrid (``hybrid``: SSD states and its shared block's K/V) are
+served through ``generate`` alone: as in the reference, ``BatchingEngine``
+needs slot-targeted cache writes, which a recurrent state has no form for,
+and a ``page_size`` raises.
 
 Paged mode (``page_size=``) keeps the reference's contracts too: K/V live
 in fixed-size pages behind a slot -> page table (``serve/_cache.py``); a
@@ -88,7 +89,20 @@ def make_cache(
     ``dtype``).  With ``page_size``, they are paged (``serve/_cache.py``):
     ``page_table="identity"`` maps slot b's group g to page ``b * max_pages
     + g``, a paged cache that behaves as the dense rectangle (``generate``
-    uses it); ``"empty"`` starts unmapped, for an allocator to fill."""
+    uses it); ``"empty"`` starts unmapped, for an allocator to fill.
+
+    A paged hybrid cache takes no identity table, as in the reference:
+    there ``make_cache`` reads the pool's size from the first leaf of
+    ``cache["layers"]``, which for this family is the SSD conv state,
+    whose dim 1 is the batch, so the table it needs cannot be built and
+    ``generate(..., page_size=...)`` raises; the port raises the same way,
+    before anything is allocated."""
+    if page_size is not None and page_table == "identity" and cfg.family == "hybrid":
+        raise ValueError(
+            "identity page table cannot be built for a hybrid cache: the reference's "
+            "make_cache sizes the pool from the SSD conv state (dim 1 is the batch), "
+            "so a paged hybrid cache serves on no entry point"
+        )
     specs = cache_specs(cfg, batch, max_len, page_size=page_size, num_pages=num_pages)
     cache = init_params(specs, torch.Generator(), device=device, default_dtype=dtype)
     if page_size is not None:

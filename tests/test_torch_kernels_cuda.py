@@ -2,8 +2,9 @@
 and prefill kernels, and its ragged MoE form ``lut_affine_experts``; TL1: ``lut_tl1``; the binary-matmul mode:
 ``bitplane_pack`` and ``binary_matmul``) against their plain PyTorch
 versions, on the card, the engine's decode step as a CUDA graph on each
-served path (mixtral_8x7b's ring cache among them), and rwkv6_3b's
-``generate()`` on its recurrent state.  The
+served path (mixtral_8x7b's ring cache among them), and the
+``generate()`` of rwkv6_3b on its recurrent state and of zamba2_1_2b on
+its SSD states and shared block's K/V.  The
 kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 runs on a machine that has only the port's dependencies:
@@ -1559,3 +1560,153 @@ def test_rwkv_packs_and_lut_calls_match_plain_on_card(cuda_device):
         assert torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)
     for args, kw, out in calls:
         _close(out, ops.lut_affine(*args, **{**kw, "use_kernels": False}))
+
+
+# ---------------------------------------------------------------------------
+# zamba2_1_2b (Mamba-2 SSD layers and a shared attention block) through
+# generate(); and its shared block's G = 3 wq+wk+wv group of i8 shift tables
+# ---------------------------------------------------------------------------
+
+HYBRID_PROMPT_LEN, HYBRID_MAX_NEW = 9, 6  # an odd prompt: the SSD scan at chunk 1
+
+
+def _hybrid_world(device):
+    """Reduced zamba2_1_2b (5 mamba layers, the shared block every 2: 2
+    invocations) on planned i8 tables (the serving recipe: ``in_proj`` /
+    ``out_proj`` lone, the shared block's ``wq+wk+wv`` and ``w_gate+w_up``
+    grouped), its zeroed ``A_log`` and ``dt_bias`` drawn from a seed as
+    Mamba-2 initialises them (A ~ U[1, 16]; dt log-uniform in [1e-3,
+    1e-1])."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import convert_params
+    from repro_torch.core.planner import plan_model
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("zamba2_1_2b", reduced=True)
+    gen = torch.Generator(device=device).manual_seed(5)
+    params = init_params(model_specs(cfg), gen, device=device)
+    mix = params["mamba"]["mix"]
+    shape = mix["A_log"].shape
+    mix["A_log"].copy_(torch.log(1.0 + 15.0 * torch.rand(shape, generator=gen, device=device)))
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(shape, generator=gen, device=device))
+    mix["dt_bias"].copy_(dt + torch.log(-torch.expm1(-dt)))
+    uniform = plan_model(params, float("inf"), max_chunk=2)
+    plan = plan_model(params, uniform.total_lut_bytes // 2, max_chunk=2,
+                      modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
+                      table_formats=(None, "i8"))
+    assert len(plan.groups) == 2
+    return cfg, convert_params(params, plan=plan)[0]
+
+
+def _hybrid_generate(world, device, use_kernels, codes=None):
+    """Greedy ``generate`` of the reduced hybrid tree on 3 seeded prompts of
+    HYBRID_PROMPT_LEN tokens, grouped launches, on an fp32 cache (no bf16
+    K/V that each path would round on its own); returns (streams, the
+    launches of the run, each pack site's (input, codes, plan) and each LUT
+    call's (kind, arguments, output) in call order).  Given ``codes`` (an
+    earlier run's sites), each pack site takes the recorded codes of the
+    same site instead of its own."""
+    import functools
+
+    import repro_torch.serve._engine as engine
+    from repro_torch.models import layers
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import generate
+
+    cfg, params = world
+    rng = np.random.default_rng(53)
+    prompts = rng.integers(0, cfg.vocab_size, (3, HYBRID_PROMPT_LEN)).astype(np.int32)
+    pack0, sites, calls = layers.pack, [], []
+    replay = None if codes is None else iter(codes)
+
+    def pack(x, plan, use_kernels=True):
+        own = pack0(x, plan, use_kernels=use_kernels) if replay is None else next(replay)[1]
+        sites.append((x.clone(), own, plan))
+        return own
+
+    def recorded(kind, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((kind, args, kw, out.clone()))
+            return out
+
+        return call
+
+    before = _counts_now()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "pack", pack)
+        for kind in ("lut_affine", "lut_affine_grouped"):
+            mp.setattr(layers, kind, recorded(kind, getattr(layers, kind)))
+        mp.setattr(engine, "make_cache", functools.partial(engine.make_cache,
+                                                           dtype=torch.float32))
+        ctx = Ctx(cfg, ex=ExecCfg(use_kernels=use_kernels, lut_grouped=True))
+        out = generate(params, ctx, prompts, HYBRID_MAX_NEW, device=device)
+    torch.cuda.synchronize()
+    after = _counts_now()
+    if replay is not None:
+        assert next(replay, None) is None, "a recorded pack site was not replayed"
+    return out.tolist(), {k: after[k] - before[k] for k in after}, sites, calls
+
+
+def _hybrid_per_forward(cfg):
+    shared = cfg.num_layers // cfg.shared_attn_every
+    return {"lut_affine": 2 * cfg.num_layers + 2 * shared + 1,
+            "lut_affine_grouped": 2 * shared,
+            "bitplane_pack": 2 * cfg.num_layers + 4 * shared + 1}
+
+
+@pytest.mark.cuda
+def test_hybrid_generate_on_kernels_matches_plain_on_card(cuda_device):
+    """Reduced zamba2_1_2b on planned i8 tables, greedy ``generate``: on the
+    kernels, 2L + 2S + 1 ``lut_affine``, 2S ``lut_affine_grouped`` and 2L +
+    4S + 1 packs a forward (S shared invocations); on the plain versions
+    given the kernel run's codes at every pack site, in order: the same
+    streams, whole, and every site's plain input within 1e-5 x max of the
+    kernel's."""
+    world = _hybrid_world(cuda_device)
+    got, launches, sites, _ = _hybrid_generate(world, cuda_device, True)
+    for kind, n in _hybrid_per_forward(world[0]).items():
+        assert launches[kind] == n * HYBRID_MAX_NEW, (kind, launches)
+    assert len(sites) == launches["bitplane_pack"]
+    want, plain_launches, seen, _ = _hybrid_generate(world, cuda_device, False, sites)
+    assert not any(plain_launches.values())
+    assert got == want
+    for (x, *_), (x_ref, *_) in zip(seen, sites):
+        assert ((x - x_ref).abs().max() <= 1e-5 * x_ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_hybrid_packs_and_lut_calls_match_plain_on_card(cuda_device):
+    """Every pack and every LUT call (lone and grouped) of the reduced
+    hybrid tree's ``generate`` on the kernels against its plain version on
+    the same input: packs bit for bit, LUT calls within 1e-5 x max."""
+    world = _hybrid_world(cuda_device)
+    _, _, sites, calls = _hybrid_generate(world, cuda_device, True)
+    per_forward = _hybrid_per_forward(world[0])
+    assert len(sites) == per_forward["bitplane_pack"] * HYBRID_MAX_NEW
+    assert len(calls) == (per_forward["lut_affine"]
+                          + per_forward["lut_affine_grouped"]) * HYBRID_MAX_NEW
+    for x, codes, plan in sites:
+        assert torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)
+    for kind, args, kw, out in calls:
+        _close(out, getattr(ops, kind)(*args, **{**kw, "use_kernels": False}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 2048], ids=["decode", "prefill"])
+def test_g3_i8_shift_group_matches_plain_on_card(cuda_device, rows):
+    """zamba2_1_2b's shared ``wq+wk+wv``: a G = 3 group of i8 shift tables
+    (2048 -> 2048 each, radix-4 planes, 32 entries) at a decode row count
+    (the decode kernel) and at a 2,048-row prefill (the prefill kernel),
+    against its plain version within 1e-5 x max."""
+    codes, tables, scales = _case(71, rows, 3, 2048, 32, 2048, 3, "i8", 5)
+    codes = torch.from_numpy(codes).to(cuda_device)
+    tables = tables.to(cuda_device)
+    got = ops.lut_affine_grouped(codes, tables, scales, shift_bits=5)
+    want = ops.lut_affine_grouped(codes, tables, scales, shift_bits=5, use_kernels=False)
+    assert got.shape == (3, rows, 2048)
+    _close(got, want)

@@ -126,9 +126,12 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 def test_other_families_raise():
+    """Only the enc-dec family is left to port: its specs raise, naming its
+    slice, as does whisper's config; the hybrid family's config and specs
+    now build."""
     from repro_torch.configs.base import ModelConfig
 
-    for family, slice_ in (("hybrid", "zamba2"), ("encdec", "enc-dec")):
+    for family, slice_ in (("encdec", "enc-dec"),):
         cfg = ModelConfig("x", family, 1, 8, 2, 2, 8, 16)
         with pytest.raises(NotImplementedError, match=slice_):
             model_specs(cfg)
@@ -136,7 +139,10 @@ def test_other_families_raise():
     with pytest.raises(NotImplementedError):
         model_specs(layernorm)
     with pytest.raises(NotImplementedError):
-        get_config("zamba2_1_2b")
+        get_config("whisper_base")
+    hybrid = get_config("zamba2_1_2b")
+    assert hybrid.family == "hybrid" and set(model_specs(hybrid)) == {
+        "embed", "mamba", "shared", "ln_f", "lm_head"}
 
 
 # each published config's parameter count (tests/test_models_smoke.py's ranges)
@@ -149,6 +155,7 @@ PARAM_RANGES = {
     "phi3_medium_14b": (13e9, 15e9),
     "qwen2_moe_a2_7b": (13e9, 15.5e9),
     "rwkv6_3b": (2.7e9, 3.6e9),
+    "zamba2_1_2b": (1.0e9, 1.6e9),
 }
 
 

@@ -25,14 +25,11 @@ bias, and both packages get the same values.
 * The refusals: ``page_size``, ``token_mask``, ``BatchingEngine``, and
   ``CacheOverflowError``, which the reference applies to this family too.
 
-The shift states: the port writes them in place into the cache's buffers,
-cast to its dtype (bf16 by default).  The reference's forward returns them
-in the activations' dtype, so after its first write the reference carries
-them in fp32 whatever the cache declares.  On an fp32 cache the packages
-agree to fp32 order; on a bf16 cache the port's carry is the reference's
-rounded to bf16, which moves the decode steps' logits and states by up to
-BF16_SHIFT_TOL x max (on these weights: 1.1e-3 the logits, 2.4e-3 the
-shift states).
+The shift states: the reference declares them in the cache's dtype (bf16
+by default), but its forward returns them in the activations' dtype, so
+after its first write it carries them in fp32 whatever the cache declares.
+The port allocates them in fp32 and writes them in place, so on either
+cache dtype the packages agree to fp32 order.
 """
 import dataclasses
 import functools
@@ -77,9 +74,6 @@ from test_torch_moe import numpy_params
 
 ARCH = "rwkv6_3b"
 TOL = 1e-5  # x max|reference|: fp32 sums in another order
-# x max|reference| on a bf16 cache: the port's shift carry rounded to bf16
-# against the reference's fp32 carry (see the module docstring)
-BF16_SHIFT_TOL = 1e-2
 TOKENS = np.random.default_rng(81).integers(0, 512, (2, 12)).astype(np.int32)
 GEN_PROMPT = np.asarray([[5, 9, 2, 7, 1, 30, 4], [3, 8, 4, 6, 11, 2, 9]], np.int32)
 GEN_NEW = 6
@@ -268,8 +262,10 @@ def _spec_dtypes(tree, prefix=""):
 def test_config_specs_and_cache_specs_match_reference():
     """The published config and ``reduced()`` field for field, the spec
     trees leaf for leaf (shape, axes, init), and the decode cache's specs:
-    shapes, axes, inits and dtypes (the shift states in the cache's
-    default dtype, ``wkv`` in fp32, ``index`` int32; no pos/valid)."""
+    shapes, axes, inits and dtypes (``wkv`` in fp32, ``index`` int32; no
+    pos/valid), but for the shift states: fp32 in the port, where the
+    reference declares the cache's default dtype and carries fp32 (the
+    module docstring says why)."""
     for reduced in (True, False):
         got = dataclasses.asdict(get_config(ARCH, reduced=reduced))
         want = dataclasses.asdict(jget_config(ARCH, reduced=reduced))
@@ -279,7 +275,10 @@ def test_config_specs_and_cache_specs_match_reference():
         assert _shapes(model_specs(cfg)) == _shapes(jmodel_specs(jcfg))
         got, want = cache_specs(cfg, 3, 40), jcache_specs(jcfg, 3, 40)
         assert _shapes(got) == _shapes(want)
-        assert _spec_dtypes(got) == _spec_dtypes(want)
+        dtypes, want_dtypes = _spec_dtypes(got), _spec_dtypes(want)
+        for key in ("/layers/shift_a", "/layers/shift_c"):
+            assert dtypes.pop(key) == "float32" and want_dtypes.pop(key) is None
+        assert dtypes == want_dtypes
     assert set(cache_specs(get_config(ARCH), 4, 544)) == {"index", "layers"}
     assert cache_specs(get_config(ARCH), 4, 544)["layers"]["wkv"].shape == (32, 4, 40, 64, 64)
 
@@ -386,47 +385,42 @@ def _prefill_decode(params, cfg, n_pre: int, dtype):
 def test_prefill_then_decode_matches_reference(world, dtype):
     """A 7-token prefill (chunk 1) then 4 fed decode steps through a cache
     of the given dtype, against the reference's and against one chunked
-    forward over the sequence.  After the prefill the WKV states are within
-    TOL x max of the reference's and the shift states are the reference's
-    (fp32 carry) in the cache's dtype: within TOL on fp32, one bf16
-    rounding on bf16.  The decode logits and final states: within TOL on
-    fp32; on bf16, where each step reads the rounded carry, within
-    BF16_SHIFT_TOL x max."""
+    forward over the sequence.  After the prefill the WKV and shift states
+    are within TOL x max of the reference's, the shift states fp32 on
+    either cache (the reference's fp32 carry); the decode logits and final
+    states within TOL."""
     n_pre = 7
     got, prefilled, cache = _prefill_decode(world["tp"], world["cfg"], n_pre,
                                             getattr(torch, dtype))
     want, jprefilled, jc = _jprefill_decode(world["jp"], world["jcfg"], n_pre,
                                             getattr(jnp, dtype))
     full = _logits(world["tp"], world["cfg"]).numpy()[:, n_pre - 1:-1]
-    tol = TOL if dtype == "float32" else BF16_SHIFT_TOL
-    _close(got, want, tol)
-    _close(got, full, tol)
+    _close(got, want, TOL)
+    _close(got, full, TOL)
     np.testing.assert_array_equal(cache["index"].numpy(), jc["index"])
     assert cache["index"].tolist() == [TOKENS.shape[1] - 1] * 2
     _close(prefilled["wkv"], jprefilled["wkv"], TOL)
     for key in ("shift_a", "shift_c"):
-        assert prefilled[key].dtype == cache["layers"][key].dtype == getattr(torch, dtype)
-        ref = np.asarray(jprefilled[key], np.float32)
-        if dtype == "float32":
-            _close(prefilled[key], ref, TOL)
-        else:  # bf16 has 8 significant bits: one rounding moves a value by 2^-9 of it
-            np.testing.assert_allclose(prefilled[key].float().numpy(), ref, rtol=2.0**-8)
+        assert prefilled[key].dtype == cache["layers"][key].dtype == torch.float32
+        assert jprefilled[key].dtype == np.float32
+        _close(prefilled[key], jprefilled[key], TOL)
     for key, t in cache["layers"].items():
-        _close(t.float(), np.asarray(jc["layers"][key], np.float32), tol)
+        _close(t.float(), np.asarray(jc["layers"][key], np.float32), TOL)
 
 
 @pytest.mark.parametrize("params", ["tlut", "tconv"])
-def test_generate_matches_reference(world, params):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_matches_reference(world, params, dtype):
     """Greedy ``generate`` (a 7-token prompt, chunk 1; 6 new tokens) on the
     converted trees, synchronized at every pack site, with the port's cache
-    made fp32, where its shift carry is the reference's: the reference's
-    streams whole."""
-    fp32_cache = functools.partial(make_cache, dtype=torch.float32)
+    made of ``dtype`` (bf16 is the default; the recurrent states are fp32
+    on either): the reference's streams whole."""
+    cache_of = functools.partial(make_cache, dtype=getattr(torch, dtype))
     want, got = _synced(
         world, "generate",
         lambda: np.asarray(jgenerate(world["jlut"], _jctx(world["jcfg"]),
                                      jnp.asarray(GEN_PROMPT), max_new=GEN_NEW)),
-        lambda: _with_cache(fp32_cache, lambda: generate(
+        lambda: _with_cache(cache_of, lambda: generate(
             world[params], Ctx(world["cfg"]), GEN_PROMPT, GEN_NEW, device="cpu").numpy()))
     np.testing.assert_array_equal(got, want)
 
@@ -439,8 +433,7 @@ def _with_cache(maker, fn):
 
 def test_generate_on_the_default_cache(world):
     """Greedy ``generate`` on the dense tree and its default (bf16) cache:
-    the reference's streams whole on these weights (the bf16 shift carry
-    moves no greedy token here)."""
+    the reference's streams whole."""
     want = np.asarray(jgenerate(world["jp"], _jctx(world["jcfg"]), jnp.asarray(GEN_PROMPT),
                                 max_new=GEN_NEW))
     got = generate(world["tp"], Ctx(world["cfg"]), GEN_PROMPT, GEN_NEW, device="cpu").numpy()
