@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
-                                    vlm_serve,rwkv_serve,hybrid_serve,tl1_kernel,tl1_serve,
-                                    moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper]
+                                    vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,
+                                    tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,
+                                    bmm_serve,paper]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -49,7 +50,8 @@ Phases, one JSON object per line:
    eager, (d) paged with the graph on 21 pages (the smallest pool that
    serves this traffic: 16 and 20 pages must raise CacheOverflowError
    mid-decode, since admission maps only a prompt's pages), (b) and (a)
-   again, (e) paged on the plain versions, eager, (f) the dense engine
+   again, (e) paged on the plain versions, eager, PLAIN_NEW tokens a
+   request, (f) the dense engine
    with the graph, its attention's K/V rounded to bf16.  Every kernel run
    launches 12 / 8 / 20 per forward and packs nothing off the kernel; (b),
    (c), (d) serve identical streams; first tokens are identical in (b)
@@ -139,7 +141,7 @@ Phases, one JSON object per line:
    at VLM_PLAIN_DEPTH layers within LOGITS_TOL / LOGITS_FRO_TOL; at the cut,
    the same prompts without the image give text logits further apart than
    LOGITS_FRO_TOL; first tokens kernel against plain on the first
-   VLM_SYNC_DEPTH (2) layers of the cut, with the plain path on the kernel
+   VLM_SYNC_DEPTH (1) layer of the cut, with the plain path on the kernel
    path's codes at every pack site (every prefill site's input within
    SYNCED_TOL; the decode steps', whose K/V each path rounds to bf16 on its
    own, reported), and every prefill pack of those layers bit for bit with
@@ -202,6 +204,31 @@ Phases, one JSON object per line:
    lm_head at the decode shape (held to plain) and at 2,048 rows (timed),
    beside its bound, and the G = 3 group with i8 shift tables held to
    plain at both.
+3i. ``encdec_serve``  full-width whisper_base (a bidirectional encoder over
+   precomputed frame embeddings, the audio frontend a stub as in the
+   reference; a decoder of causal self-attention, cross-attention over the
+   encoder's output and a biased GELU MLP, each after a LayerNorm; d_model
+   512, 8 heads of 64, d_ff 2,048, vocab 51,865, the head tied to the
+   embedding and a plain product) at all 6 + 6 layers, planned and
+   converted (three G = 3 ``wq+wk+wv`` groups with stacked biases),
+   served through ``generate(enc_embeds=...)`` alone: ``BatchingEngine``
+   and a ``token_mask`` raise before any launch; 4 rows of 1,500 seeded
+   frames (whisper's 30-second window) and a 4-token prompt, 60 new tokens
+   each into a 64-slot decoder cache, counted (a prefill 3Le + 7L / Le + L /
+   4Le + 7L, a decode step 5L / L / 6L: the cross-attention's ``wq`` and,
+   at the prefill, ``wk``/``wv`` run alone on their group's leaf; no pack
+   off the kernel, no table copy); its prefill, the encoder and the cross
+   K/V and the decode steps timed apart; after the prefill the cross K/V
+   float32 at (6, 4, 1500, 8, 64) and the self K/V bf16 at 64 slots;
+   prefill logits kernel against plain at 1 + 1 layers within LOGITS_TOL /
+   LOGITS_FRO_TOL and at 6 + 6 on the kernel path's codes within
+   SYNCED_TOL, every pack bit for bit and the first tokens identical; paged
+   at PAGE_SIZE (only the self K/V), whose streams a dense run
+   on bf16-rounded self K/V serves whole; a profile of the eager decode
+   step; each LUT call of an encoder layer at 6,000 rows and of a decoder
+   layer at 4 rows beside its bound, the cross ``wk``/``wv`` at 6,000 rows
+   alone on the leaf (no table copy), the encoder's G = 3 group held to
+   plain at 6,000 rows.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -211,8 +238,9 @@ Phases, one JSON object per line:
 5. ``tl1_serve``  full-width granite_8b at all 36 layers, planned into
    TL1 as the reference's ``serving_tl1_plan`` plans it (int8
    activations), converted, its fp32 weights freed, served through
-   ``BatchingEngine`` on the kernels and then on the plain versions:
-   every stream identical, prefill logits within 1e-5 x max|plain|.
+   ``BatchingEngine`` on the kernels and then on the plain versions
+   (PLAIN_NEW tokens a request): every stream identical on the tokens the
+   plain run serves, prefill logits within 1e-5 x max|plain|.
 6. ``moe_kernel``  the ragged MoE kernel (``lut_affine_experts``) against
    its plain version at full-width qwen2_moe_a2_7b expert shapes (60
    experts, top-4, expert width 1408; decode 4 tokens = 16 expert rows and
@@ -289,13 +317,14 @@ behind a spin kernel until the host has enqueued them all.
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each phase ends with a ``seconds`` line.  Then one
 ``kernels`` summary line (the row of ``bitplane_pack`` sums its launches
-over the thirteen paths that pack, ``launches_by_path``, and times one
+over the fourteen paths that pack, ``launches_by_path``, and times one
 binary-cell decode layer's 7 packs; ``lut_affine`` and ``lut_tl1`` add the
 paper networks' launches to their serve phase's, the weight cell's kernels
-the paged engine's and the MLA, phi3, minitron, mixtral, VLM, RWKV and
-hybrid cells' (the VLM cell's engine as ``vlm_serve``, its ``generate()``
+the paged engine's and the MLA, phi3, minitron, mixtral, VLM, RWKV,
+hybrid and enc-dec cells' (the VLM cell's engine as ``vlm_serve``, its ``generate()``
 with the image prefix as ``vlm_generate``; the RWKV cell's ``generate()``
-as ``rwkv_serve``, the hybrid cell's as ``hybrid_generate``), the experts
+as ``rwkv_serve``, the hybrid cell's as ``hybrid_generate``, the enc-dec
+cell's as ``encdec_generate``), the experts
 kernel the mixtral cell's to the MoE cell's; a
 null
 ``library_ms`` comes with its ``library_reason``),
@@ -440,6 +469,23 @@ HYBRID_TIMED, HYBRID_PREFILL_ITERS = 2, 5
 # the forward's codes: its input within this x max of the forward's (the
 # cached decode attends over bf16 K/V, the forward over fp32)
 HYBRID_STATE_TOL = 1e-2
+# the encdec_serve phase: full-width whisper_base at all 6 + 6 layers (the
+# recipe's chunk-1 i8 tables take ~1.3 GiB: nothing is cut).  The main path:
+# ENCDEC_ROWS rows of ENCDEC_FRAMES seeded frame embeddings (std
+# ENCDEC_FRAME_STD, as the reference's tests seed them; 1,500 frames is
+# whisper's 30-second window after its conv stem, arXiv:2212.04356) and an
+# ENCDEC_PROMPT-token seeded prompt (the length of whisper's
+# start-of-transcript sequence), ENCDEC_NEW new tokens each through
+# generate(enc_embeds=...) into an ENCDEC_LEN-slot decoder cache (8 pages of
+# PAGE_SIZE when paged): one 30-second audio chunk transcribed per request.
+# Its prefill timed ENCDEC_TIMED times; the prefill logits held kernel
+# against plain unsynchronized at ENCDEC_PLAIN_DEPTH encoder and decoder
+# layers and synchronized at the full depth, where they also give the
+# synchronized first tokens; the LUT calls at the encoder's 6,000 rows timed
+# over ENCDEC_PREFILL_ITERS calls
+ENCDEC_ROWS, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_LEN = 4, 1500, 4, 60, 64
+ENCDEC_SEED, ENCDEC_FRAME_STD = 4, 0.1
+ENCDEC_PLAIN_DEPTH, ENCDEC_TIMED, ENCDEC_PREFILL_ITERS = 1, 3, 5
 # the mixtral_serve phase: full-width mixtral_8x7b (a 4096-token sliding
 # window, 8 experts top-2 of width 14,336, no shared experts) at the cut
 # family_depth computes with its experts converted (1 of 32 layers); then its
@@ -1322,10 +1368,12 @@ def paged_serve_phase(model, layers: int, max_new: int) -> dict:
                    "bitplane_pack": 5 * layers}
     forward = _engine.model_forward
 
-    def served(name, pages=None, use_kernels=True, cuda_graph=None, record=False):
-        """One run, its launch counts set to 0 just before it and read just
-        after, held to ``per_forward`` per forward (kernel runs) or to none;
-        with ``record``, the first admission's prefill logits are kept."""
+    def served(name, pages=None, use_kernels=True, cuda_graph=None, record=False,
+               new=max_new):
+        """One run of ``new`` tokens a request, its launch counts set to 0
+        just before it and read just after, held to ``per_forward`` per
+        forward (kernel runs) or to none; with ``record``, the first
+        admission's prefill logits are kept."""
         first = {}
 
         def recording(params, inputs, ctx, cache=None):
@@ -1341,7 +1389,7 @@ def paged_serve_phase(model, layers: int, max_new: int) -> dict:
             reset_launches()
             with count_plain_packs() as packs:
                 reqs, eng, wall, decode_ms = run_engine(
-                    lut, cfg, prompts, max_new, use_kernels, cuda_graph=cuda_graph,
+                    lut, cfg, prompts, new, use_kernels, cuda_graph=cuda_graph,
                     engine=engine, watch=page_watch(stats) if pages else None)
             launches, uncovered = read_launches(), plain_pack_codes_calls()
         finally:
@@ -1355,8 +1403,8 @@ def paged_serve_phase(model, layers: int, max_new: int) -> dict:
                                  f"{expect}, or {uncovered} packs off the kernel")
         if (cuda_graph is None) is not (eng._graph is not None):
             raise AssertionError(f"paged_serve {name}: the decode step did not run as asked")
-        if not all(len(r.generated) == max_new for r in reqs):
-            raise AssertionError(f"paged_serve {name}: a request stopped short of max_new")
+        if not all(len(r.generated) == new for r in reqs):
+            raise AssertionError(f"paged_serve {name}: a request stopped short of {new}")
         tokens = sum(len(r.generated) for r in reqs)
         run = {"name": name, "num_pages": pages, "cuda_graph": eng._graph is not None,
                "use_kernels": use_kernels, "median_decode_step_ms": statistics.median(decode_ms),
@@ -1395,8 +1443,10 @@ def paged_serve_phase(model, layers: int, max_new: int) -> dict:
             raise AssertionError(f"paged_serve: a {pages}-page pool served the traffic")
     b2, b2_streams, _ = served("b_paged_graph_again", RECT_POOL)
     a2, a2_streams, _ = served("a_dense_graph_again")
+    # the plain versions serve PLAIN_NEW tokens a request: the run holds the
+    # first tokens (at 16 it took ~17 s of the call)
     e, e_streams, _ = served("e_paged_plain_eager", RECT_POOL, use_kernels=False,
-                             cuda_graph=False)
+                             cuda_graph=False, new=min(max_new, PLAIN_NEW))
     with bf16_attention_inputs():
         f, f_streams, _ = served("f_dense_graph_bf16_kv")
 
@@ -1579,18 +1629,26 @@ def meta_params(cfg):
     )
 
 
+def head_bytes(plan) -> int:
+    """The table bytes of a plan's ``lm_head``; 0 where the head is no LUT
+    (the enc-dec family's tied raw head)."""
+    head = plan.layers.get("lm_head")
+    return head.total_lut_bytes if head is not None else 0
+
+
 def recipe_bytes(full, layers: int, **kw) -> tuple[int, int]:
     """(table bytes of the blocks, of ``lm_head``) that :func:`recipe_plans`
     plans for full-width ``full`` at ``layers`` layers, on shapes alone."""
     plan, _ = recipe_plans(meta_params(dataclasses.replace(full, num_layers=layers)), **kw)
-    head = plan.layers["lm_head"].total_lut_bytes
+    head = head_bytes(plan)
     return plan.total_lut_bytes - head, head
 
 
 def family_depth(full, **kw) -> tuple[int, dict]:
     """The deepest cut of full-width ``full`` whose recipe-planned tables,
     its layers plus what the tree holds once (the untied ``lm_head``; the
-    hybrid's shared block), fit in FAMILY_TABLE_BYTES: a layer's bytes from
+    hybrid's shared block; the enc-dec's encoder, whose depth stays whole),
+    fit in FAMILY_TABLE_BYTES: a layer's bytes from
     the plans of one and two layers on shapes alone, then checked by
     planning that depth and the next (``kw``: further ``plan_model``
     arguments)."""
@@ -1610,9 +1668,10 @@ def family_depth(full, **kw) -> tuple[int, dict]:
         "layers": layers, "published": full.num_layers,
         "table_mib": total / mib, "next_depth_table_mib": nxt and nxt / mib,
         "budget_mib": FAMILY_TABLE_BYTES / mib,
-        "reason": f"{layer / mib:.0f} MiB of i8 tables per layer and {head / mib:.0f} MiB "
-                  "for the untied lm_head"
-                  + (f" and {shared / mib:.0f} MiB for the block held once" if shared else "")
+        "reason": f"{layer / mib:.0f} MiB of i8 tables per layer and "
+                  + (f"{head / mib:.0f} MiB for the untied lm_head" if head else
+                     "no LUT head (tied, a plain product)")
+                  + (f" and {shared / mib:.0f} MiB for the blocks held once" if shared else "")
                   + f": {layers} layers take {total / mib:.0f} MiB"
                   + (f", {layers + 1} would take {nxt / mib:.0f} MiB, over "
                      f"{FAMILY_TABLE_BYTES / gib:.0f} GiB (a little above moe_serve's tables, "
@@ -1648,7 +1707,7 @@ def recipe_cell(phase: str, full, depth: dict, **kw):
         for p in mplan.layers.values()
     })
     mib = 2**20
-    head = mplan.layers["lm_head"].total_lut_bytes
+    head = head_bytes(mplan)
     # a stacked entry's bytes are one layer's
     entries = {key: p.total_lut_bytes / mib for key, p in mplan.layers.items()}
     wider = {key: {"chunk": p.chunk_size, "mib_per_layer": p.total_lut_bytes / mib}
@@ -1680,13 +1739,20 @@ def recipe_cell(phase: str, full, depth: dict, **kw):
     return cfg, lut
 
 
-def lut_calls_per_forward(tree, layers: int, experts: bool = False, shared: int = 0) -> dict:
-    """The LUT launches one forward of a converted decoder of ``layers``
-    layers makes, from its tree: one ``lut_affine`` per lone projection and
-    layer, one ``lut_affine_grouped`` per group and layer, and one pack
-    before each (``linear`` packs its input, ``fused_linears`` once per
-    group).  The stacked layers are ``blocks`` (the hybrid's ``mamba``);
-    the hybrid's ``shared`` block runs ``shared`` times a forward.  With
+def lut_calls_per_forward(tree, layers: int, experts: bool = False, shared: int = 0,
+                          encoder: int = 0) -> dict:
+    """The LUT launches one forward of a converted model of ``layers``
+    stacked layers makes, from its tree: one ``lut_affine`` per lone
+    projection and layer, one ``lut_affine_grouped`` per group and layer,
+    and one pack before each (``linear`` packs its input, ``fused_linears``
+    once per group).  The stacked layers are ``blocks`` (the hybrid's
+    ``mamba``, the enc-dec's ``decoder``); the hybrid's ``shared`` block
+    runs ``shared`` times a forward; the enc-dec's ``encoder`` runs
+    ``encoder`` layers (its prefill's count; 0 at decode).  An enc-dec
+    decoder layer's ``cross_attn`` runs ``wq`` and ``wo`` a forward and, at
+    the prefill (``encoder`` > 0), ``wk`` and ``wv`` over the encoder's
+    output: one pack of each use's input, and the members of a group that
+    a use does not take whole each alone on the group's leaf.  With
     ``experts``, the nodes of a block's ``ffn`` are routed experts: one
     ``lut_affine_experts`` each (the pre-stacked ``w_gate+w_up`` and
     ``w_down``), each after one pack (``moe.py`` packs a token once and
@@ -1696,20 +1762,42 @@ def lut_calls_per_forward(tree, layers: int, experts: bool = False, shared: int 
     calls = {"lut_affine": 0, "lut_affine_grouped": 0}
     if experts:
         calls["lut_affine_experts"] = 0
+    packs = 0
+    cross_uses = [("wq",), ("wo",)] + ([("wk", "wv")] if encoder else [])
 
     def walk(node, n, ragged=False):
+        nonlocal packs
         if isinstance(node, dict):
             for key, v in node.items():
-                walk(v, n, experts and key == "ffn" if isinstance(v, dict) else ragged)
+                if key == "cross_attn":
+                    cross(v, n)
+                else:
+                    walk(v, n, experts and key == "ffn" if isinstance(v, dict) else ragged)
         elif isinstance(node, (LUTLinear, LUTGroup)):
             kind = ("lut_affine_experts" if ragged else
                     "lut_affine" if isinstance(node, LUTLinear) else "lut_affine_grouped")
             calls[kind] += n
+            packs += n
 
-    repeats = {"blocks": layers, "mamba": layers, "shared": shared}
+    def cross(node, n):
+        nonlocal packs
+        for use in cross_uses:
+            for key, v in node.items():
+                members = key.split("+")
+                wanted = [m for m in members if m in use]
+                if not wanted or not isinstance(v, (LUTLinear, LUTGroup)):
+                    continue
+                packs += n
+                if isinstance(v, LUTGroup) and len(wanted) == len(members):
+                    calls["lut_affine_grouped"] += n
+                else:
+                    calls["lut_affine"] += n * len(wanted)
+
+    repeats = {"blocks": layers, "mamba": layers, "decoder": layers, "shared": shared,
+               "encoder": encoder}
     for key, node in tree.items():
         walk(node, repeats.get(key, 1))
-    return {**calls, "bitplane_pack": sum(calls.values())}
+    return {**calls, "bitplane_pack": packs}
 
 
 @contextlib.contextmanager
@@ -2578,12 +2666,13 @@ def synced_state_across_calls(lut, cfg, tokens, dtype, fed: int) -> dict:
                                                    "rel_fro_err", "argmax_agree")}}
 
 
-def eager_decode_profile(lut, cfg, prompts, steps: int = 4) -> dict:
+def eager_decode_profile(lut, cfg, prompts, steps: int = 4, enc_embeds=None) -> dict:
     """torch.profiler over ``steps`` eager decode steps of ``generate``'s
-    kind after a prefill of ``prompts`` and one untimed step: device
-    kernels per step split into LUT kernels (``lut_affine``'s decode,
-    prefill and split-sum kernels), packs and PyTorch's own, with their
-    busy ms and the idle share of the host-clock wall."""
+    kind after a prefill of ``prompts`` (an enc-dec model's with its
+    ``enc_embeds``) and one untimed step: device kernels per step split
+    into LUT kernels (``lut_affine``'s decode, prefill and split-sum
+    kernels), packs and PyTorch's own, with their busy ms and the idle
+    share of the host-clock wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2593,9 +2682,13 @@ def eager_decode_profile(lut, cfg, prompts, steps: int = 4) -> dict:
     ctx = Ctx(cfg, ex=ExecCfg(logits="last", lut_grouped=True))
     prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
     B, S = prompts.shape
+    inputs = {"tokens": prompts}
+    enc_len = None
+    if enc_embeds is not None:
+        inputs["enc_embeds"], enc_len = enc_embeds, enc_embeds.shape[1]
     with torch.no_grad():
-        cache = make_cache(cfg, B, S + steps + 1, ctx, device=DEV)
-        logits, cache = prefill(lut, {"tokens": prompts}, cache)
+        cache = make_cache(cfg, B, S + steps + 1, ctx, device=DEV, enc_len=enc_len)
+        logits, cache = prefill(lut, inputs, cache)
         tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         tok, _, cache = decode(lut, cache, tok)
         torch.cuda.synchronize()
@@ -3055,6 +3148,400 @@ def hybrid_serve_phase(iters: int) -> dict:
               "G": qkv.tables.shape[0], "n": plan.num_planes, "k": plan.in_features,
               "E": plan.num_entries, "p": plan.out_features, "table": plan.table_format,
               "shift_bits": plan.shift_bits, **res})
+    emit({"phase": phase, "step": "memory",
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del lut
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+@contextlib.contextmanager
+def bf16_self_kv():
+    """Inside a ``with`` block, the enc-dec decoder's self-attention takes
+    its K/V rounded to bf16 (:func:`bf16_attention_inputs`), as a paged
+    prefill reads them from its cache; the encoder's attention and the
+    cross-attention, whose fp32 K/V no paging touches, as they are."""
+    from repro_torch.models import layers
+
+    attention = layers.attention
+
+    def rounded(p, x, ctx, positions, cache=None, cross_kv=None):
+        if cross_kv is not None or cache is None:
+            return attention(p, x, ctx, positions, cache=cache, cross_kv=cross_kv)
+        with bf16_attention_inputs():
+            return attention(p, x, ctx, positions, cache=cache)
+
+    layers.attention = rounded
+    try:
+        yield
+    finally:
+        layers.attention = attention
+
+
+def encdec_inputs(cfg):
+    """ENCDEC_ROWS seeded prompts of ENCDEC_PROMPT tokens, each with
+    ENCDEC_FRAMES seeded frame embeddings at std ENCDEC_FRAME_STD (the audio
+    frontend is a stub, as in the reference), from a numpy seed, on the
+    card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(ENCDEC_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (ENCDEC_ROWS, ENCDEC_PROMPT)).astype(np.int32)
+    frames = rng.standard_normal((ENCDEC_ROWS, ENCDEC_FRAMES, cfg.d_model)) * ENCDEC_FRAME_STD
+    return (torch.from_numpy(prompts).to(DEV),
+            torch.from_numpy(frames.astype(np.float32)).to(DEV))
+
+
+def encdec_cut(lut, cfg, depth: int):
+    """(config, tree) of the first ``depth`` encoder and decoder layers."""
+    dcfg = dataclasses.replace(cfg, num_layers=depth, encoder_layers=depth)
+    return dcfg, dict(lut, encoder=first_layers(lut["encoder"], depth),
+                      decoder=first_layers(lut["decoder"], depth))
+
+
+def encdec_generate(lut, cfg, prompts, frames, max_new: int, use_kernels: bool = True,
+                    page_size=None):
+    """Greedy ``generate(enc_embeds=...)`` of ``max_new`` tokens into an
+    ENCDEC_LEN-slot decoder cache (:func:`greedy_generate`)."""
+    return greedy_generate(lut, cfg, prompts, max_new, use_kernels=use_kernels,
+                           enc_embeds=frames, max_len=ENCDEC_LEN, page_size=page_size)
+
+
+def encdec_counted(phase, name, lut, cfg, prompts, frames, launches_per_call: dict,
+                   page_size=None):
+    """One :func:`encdec_generate` of ENCDEC_NEW tokens on the kernels, its
+    launch counts set to 0 just before and read just after: the prefill's
+    and ENCDEC_NEW - 1 decode steps' launches (``launches_per_call``), no
+    pack off the kernel, no table copy; emits a ``generate`` line and
+    returns (streams, launches, wall ms)."""
+    import torch
+
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+
+    reset_launches()
+    streams, ms = encdec_generate(lut, cfg, prompts, frames, ENCDEC_NEW, page_size=page_size)
+    launches, uncovered = read_launches(), plain_pack_codes_calls()
+    copies = lut_ops.TABLE_COPIES["table_operand"]
+    expect = {**no_launches(), **launches_per_call}
+    emit({"phase": phase, "step": "generate", "name": name, "rows": ENCDEC_ROWS,
+          "encoder_frames": ENCDEC_FRAMES, "prompt_tokens": ENCDEC_PROMPT,
+          "new_tokens": ENCDEC_NEW, "cache_len": ENCDEC_LEN, "page_size": page_size,
+          "pages_per_row": page_size and ENCDEC_LEN // page_size, "ms": ms,
+          "tok_per_s": ENCDEC_ROWS * ENCDEC_NEW / (ms / 1e3), "forwards": ENCDEC_NEW,
+          "launches": launches, "expected_launches": expect,
+          "plain_pack_codes_calls": uncovered, "table_copies": copies,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "first_tokens": [row[0] for row in streams]})
+    if launches != expect or uncovered or copies:
+        raise AssertionError(f"{phase} {name}: launch counts {launches} != expected {expect}, "
+                             f"or {uncovered} packs off the kernel, or {copies} table copies")
+    if any(len(row) != ENCDEC_NEW for row in streams):
+        raise AssertionError(f"{phase} {name}: a row stopped short of {ENCDEC_NEW} tokens")
+    return streams, launches, ms
+
+
+def encdec_prefill(lut, cfg, prompts, frames, use_kernels: bool = True, codes=None):
+    """``generate``'s prefill (grouped launches, a fresh ENCDEC_LEN-slot
+    cache) with every position's logits, under :func:`pack_tape` (given
+    ``codes``, each pack site takes the recorded codes); returns (logits,
+    the pack sites, the cache)."""
+    import torch
+
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward
+    from repro_torch.serve import make_cache
+
+    ctx = Ctx(cfg, ex=ExecCfg(use_kernels=use_kernels, lut_grouped=True))
+    cache = make_cache(cfg, prompts.shape[0], ENCDEC_LEN, ctx, device=DEV,
+                       enc_len=frames.shape[1])
+    with torch.no_grad(), pack_tape(codes) as sites:
+        logits = model_forward(lut, {"tokens": prompts, "enc_embeds": frames}, ctx,
+                               cache=cache)[0]
+    return logits, sites, cache
+
+
+def encdec_timing(lut, cfg, prompts, frames) -> dict:
+    """The main path's ``generate`` split apart: ENCDEC_TIMED prefills into
+    fresh caches, each beside the encoder alone and the cross K/V of every
+    decoder layer alone from its output; then the ENCDEC_NEW - 1 eager decode
+    steps after the last; each on the host clock from a synchronize to a
+    synchronize."""
+    import torch
+
+    from repro_torch.models.encdec import _cross_kv_from, encode
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
+
+    ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, logits="last"))
+    prefill, decode = make_prefill_step(ctx), make_decode_step(ctx)
+    inputs = {"tokens": prompts, "enc_embeds": frames}
+    out = {"prefill_ms": [], "encoder_ms": [], "cross_kv_ms": [], "decode_step_ms": []}
+
+    def timed(fn, key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[key].append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    cross = lut["decoder"]["cross_attn"]
+    with torch.no_grad():
+        for _ in range(ENCDEC_TIMED):
+            cache = make_cache(cfg, ENCDEC_ROWS, ENCDEC_LEN, ctx, device=DEV,
+                               enc_len=ENCDEC_FRAMES)
+            logits, cache = timed(lambda: prefill(lut, inputs, cache), "prefill_ms")
+            enc = timed(lambda: encode(lut, frames, ctx), "encoder_ms")
+            timed(lambda: [_cross_kv_from(layer_params(cross, i), enc, ctx)
+                           for i in range(cfg.num_layers)], "cross_kv_ms")
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        for _ in range(ENCDEC_NEW - 1):
+            tok, _, cache = timed(lambda: decode(lut, cache, tok), "decode_step_ms")
+    return {**out, **{f"median_{key}": statistics.median(v) for key, v in out.items()}}
+
+
+def encdec_serve_phase(iters: int) -> dict:
+    """Full-width whisper_base (a bidirectional encoder over 1,500 frames and
+    a decoder of causal self-attention, cross-attention over the encoder's
+    output and a biased GELU MLP, each after a LayerNorm; 8 heads of 64,
+    d_ff 2,048, vocab 51,865, the head tied to the embedding) at all 6 + 6
+    layers (:func:`family_depth`: nothing is cut), planned by the recipe
+    with chunks capped at 1 and converted (:func:`recipe_cell`): three G =
+    3 ``wq+wk+wv`` groups with stacked biases (the encoder's, the decoder's
+    self- and cross-attention's), ``wo``, ``w_in``, ``w_out`` lone; the head
+    a plain product.  Served through ``generate(enc_embeds=...)`` alone
+    (``BatchingEngine`` refuses a cross cache, as the reference's does):
+    the refusals first; the main path (ENCDEC_ROWS x ENCDEC_FRAMES frames,
+    ENCDEC_PROMPT prompt tokens, ENCDEC_NEW new) dense and counted, after
+    one untimed short generate; its prefill, the encoder and the cross K/V
+    and the decode steps timed apart; the cache after the prefill (cross
+    K/V fp32 at S_enc, self K/V bf16); prefill logits kernel against plain
+    at ENCDEC_PLAIN_DEPTH encoder and decoder layers, and at the full depth
+    on the kernel path's codes, every pack of that prefill bit for bit and
+    the first tokens (the last position's argmax) identical; paged at
+    PAGE_SIZE, whose streams a dense run on bf16-rounded self K/V must serve
+    whole; a profile of the eager decode step; each LUT call of an encoder
+    layer at the prefill's rows and of a decoder layer at the decode shape
+    (the cross-attention's members alone on the group's leaf: ``wq`` and
+    ``wo`` at 4 rows, ``wk``/``wv`` at the encoder's rows), beside its
+    bound, and the encoder's G = 3 group held to plain at its rows."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import LUTGroup
+    from repro_torch.core.lut import pack_codes
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+    from repro_torch.models.layers import Ctx, _host_scales
+    from repro_torch.models.model import model_forward
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serve import BatchingEngine
+
+    phase, arch = "encdec_serve", "whisper_base"
+    full = get_config(arch)
+    layers, depth = family_depth(full)
+    if layers != full.num_layers:
+        raise AssertionError(f"{phase}: the cut is {layers} of {full.num_layers} layers")
+    cfg, lut = recipe_cell(phase, full, depth)
+    Le, d = cfg.encoder_layers, cfg.d_model
+    groups = {f"{stack}/{part}": lut[stack][part].get("wq+wk+wv")
+              for stack, part in (("encoder", "attn"), ("decoder", "self_attn"),
+                                  ("decoder", "cross_attn"))}
+    for where, g in groups.items():
+        n = Le if where.startswith("encoder") else layers
+        if not (isinstance(g, LUTGroup) and tuple(g.tables.shape[:2]) == (n, 3)
+                and g.plan.table_format == "i8" and g.plan.shift_bits
+                and isinstance(g.b, torch.Tensor) and tuple(g.b.shape) == (n, 3, d)):
+            raise AssertionError(f"{phase}: {where} is not a biased G = 3 i8 shift wq+wk+wv")
+    if "lm_head" in lut:
+        raise AssertionError(f"{phase}: the tied head was converted")
+    decode_calls = lut_calls_per_forward(lut, layers)
+    prefill_calls = lut_calls_per_forward(lut, layers, encoder=Le)
+    want = ({"lut_affine": 5 * layers, "lut_affine_grouped": layers,
+             "bitplane_pack": 6 * layers},
+            {"lut_affine": 3 * Le + 7 * layers, "lut_affine_grouped": Le + layers,
+             "bitplane_pack": 4 * Le + 7 * layers})
+    if (decode_calls, prefill_calls) != want:
+        raise AssertionError(f"{phase}: the converted tree makes {decode_calls} calls a "
+                             f"decode step and {prefill_calls} a prefill, not {want}")
+    per_generate = {k: prefill_calls[k] + (ENCDEC_NEW - 1) * decode_calls[k]
+                    for k in decode_calls}
+    emit({"phase": phase, "step": "calls_per_forward", "decode": decode_calls,
+          "prefill": prefill_calls, "generate": per_generate,
+          "rule": "decode 5L / L / 6L: per decoder layer self wq+wk+wv grouped, wo, cross wq "
+                  "alone on the group's leaf, cross wo, w_in, w_out; prefill 3Le + 7L / Le + L "
+                  "/ 4Le + 7L: the encoder's layers, each decoder layer's cross wk and wv alone "
+                  "on the leaf after one pack, the decoder; the tied head is a plain product"})
+
+    # the refusals, before any launch
+    prompts, frames = encdec_inputs(cfg)
+    mask = torch.ones(prompts.shape, dtype=torch.bool, device=DEV)
+    reset_launches()
+    refused = {}
+    for name, call in (
+            ("batching_engine", lambda: BatchingEngine(lut, Ctx(cfg), SLOTS, MAX_LEN,
+                                                       device=DEV)),
+            ("token_mask", lambda: model_forward(
+                lut, {"tokens": prompts, "enc_embeds": frames, "token_mask": mask},
+                Ctx(cfg)))):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused[name] = f"{type(e).__name__}: {e}"
+    launched = {k: v for k, v in read_launches().items() if v}
+    emit({"phase": phase, "step": "refusals", **refused, "launches": launched})
+    if len(refused) != 2 or launched:
+        raise AssertionError(f"{phase}: refusals {refused}, launches before them {launched}")
+
+    # the main path: generate(enc_embeds=...) on the kernels, counted, after
+    # one untimed short generate (the first launch of each kernel loads its
+    # module)
+    encdec_generate(lut, cfg, prompts, frames, 2)
+    torch.cuda.reset_peak_memory_stats()
+    a, launches, a_ms = encdec_counted(phase, "a_dense", lut, cfg, prompts, frames,
+                                       per_generate)
+    timing = encdec_timing(lut, cfg, prompts, frames)
+    emit({"phase": phase, "step": "generate_timing", **timing, "generate_ms": a_ms,
+          "prefill_share_of_generate": timing["median_prefill_ms"] / a_ms,
+          "encoder_share_of_generate": timing["median_encoder_ms"] / a_ms,
+          "nvidia_smi": smi_line()})
+
+    # prefill logits kernel against plain: at ENCDEC_PLAIN_DEPTH layers as
+    # they come; at the full depth with the plain path on the kernel path's
+    # codes; every pack of the kernel run bit for bit with its plain
+    # version; the kernel run's cache
+    dcfg, dlut = encdec_cut(lut, cfg, ENCDEC_PLAIN_DEPTH)
+    got = encdec_prefill(dlut, dcfg, prompts, frames)[0]
+    res = compare_logits(got, encdec_prefill(dlut, dcfg, prompts, frames, False)[0])
+    finite = bool(torch.isfinite(got).all().item())
+    tol = LOGITS_TOL * res["max_abs_ref"]
+    emit({"phase": phase, "step": "prefill_logits", "layers": ENCDEC_PLAIN_DEPTH,
+          "encoder_layers": ENCDEC_PLAIN_DEPTH, "shape": list(got.shape), **res, "tol": tol,
+          "rel_fro_tol": LOGITS_FRO_TOL, "finite": finite,
+          "tol_reason": "as the serve phase's: each projection re-quantizes its input"})
+    if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
+        raise AssertionError(f"{phase}: prefill logits differ at {ENCDEC_PLAIN_DEPTH} layers: "
+                             f"{res} (tol {tol}, {LOGITS_FRO_TOL})")
+    got, tape, cache = encdec_prefill(lut, cfg, prompts, frames)
+    shapes = {f"{part}.{key}": [list(t.shape), str(t.dtype).split(".")[-1]]
+              for part in ("cross", "layers") for key, t in cache[part].items()}
+    cross_shape = (layers, ENCDEC_ROWS, ENCDEC_FRAMES, cfg.num_kv_heads, cfg.head_dim)
+    self_shape = (layers, ENCDEC_ROWS, ENCDEC_LEN, cfg.num_kv_heads, cfg.head_dim)
+    cache_ok = all(tuple(cache["cross"][k].shape) == cross_shape
+                   and cache["cross"][k].dtype == torch.float32
+                   and tuple(cache["layers"][k].shape) == self_shape
+                   and cache["layers"][k].dtype == torch.bfloat16 for k in ("k", "v"))
+    mib = 2**20
+    emit({"phase": phase, "step": "cache", "leaves": shapes, "ok": cache_ok,
+          "cross_mib": sum(t.nbytes for t in cache["cross"].values()) / mib,
+          "self_kv_mib": sum(t.nbytes for t in cache["layers"].values()) / mib,
+          "cross_finite": all(bool(torch.isfinite(t).all().item())
+                              for t in cache["cross"].values()),
+          "index": cache["index"].tolist()})
+    if not cache_ok:
+        raise AssertionError(f"{phase}: the cache after the prefill holds {shapes}")
+    del cache
+    ref, seen = encdec_prefill(lut, cfg, prompts, frames, False, codes=tape)[:2]
+    synced = compare_logits(ref, got)
+    site_err = max(((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                   for (x, *_), (x_ref, *_) in zip(seen, tape))
+    bad_packs = [i for i, (x, codes, plan) in enumerate(tape)
+                 if not torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)]
+    del seen
+    finite = bool(torch.isfinite(got).all().item())
+    # the first tokens: the argmax at the last position, as generate takes it
+    kernel_first, plain_first = got[:, -1].argmax(-1).tolist(), ref[:, -1].argmax(-1).tolist()
+    top2 = got[:, -1].topk(2, dim=-1).values
+    ok = (finite and synced["max_abs_err"] <= SYNCED_TOL * synced["max_abs_ref"]
+          and site_err <= SYNCED_TOL and not bad_packs and kernel_first == plain_first
+          and len(tape) == prefill_calls["bitplane_pack"])
+    emit({"phase": phase, "step": "prefill_logits_synced", "layers": layers,
+          "encoder_layers": Le, "shape": list(got.shape), "synced": synced,
+          "site_input_rel_err": site_err, "tol": SYNCED_TOL, "finite": finite,
+          "packs": len(tape), "packs_bit_for_bit": not bad_packs,
+          "first_tokens": {"synced_identical": kernel_first == plain_first,
+                           "kernel": kernel_first, "plain_synced": plain_first,
+                           "generate_a": [row[0] for row in a],
+                           "kernel_top2_gap": (top2[:, 0] - top2[:, 1]).tolist()},
+          "tol_reason": "with every code the same the paths differ only by their fp32 sums' "
+                        "order (unsynchronized, each projection re-quantizes its input: held "
+                        "at ENCDEC_PLAIN_DEPTH layers above)"})
+    if not ok:
+        raise AssertionError(f"{phase}: synchronized prefill logits or first tokens at the full "
+                             f"depth differ: {synced}, {kernel_first} != {plain_first}, site "
+                             f"inputs {site_err} x max off, packs {bad_packs} differ, or "
+                             f"{len(tape)} packs")
+    del got, ref, tape
+
+    # paged at PAGE_SIZE (only the self K/V), against a dense run on
+    # bf16-rounded self K/V
+    b, _, b_ms = encdec_counted(phase, "b_paged", lut, cfg, prompts, frames, per_generate,
+                                page_size=PAGE_SIZE)
+    with bf16_self_kv():
+        f, f_ms = encdec_generate(lut, cfg, prompts, frames, ENCDEC_NEW)
+    checks = {"dense_bf16_kv_streams_identical_b": f == b}
+    emit({"phase": phase, "step": "paged_checks", **checks, "f_ms": f_ms,
+          "tokens_agreeing_a_b_per_row": [sum(x == y for x, y in zip(r, q))
+                                          for r, q in zip(a, b)],
+          "first_tokens": {"a": [r[0] for r in a], "b": [r[0] for r in b],
+                           "f": [r[0] for r in f]},
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    failed = [key for key, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase}: failed paged checks {failed}")
+
+    emit({"phase": phase, "step": "decode_profile_eager",
+          **eager_decode_profile(lut, cfg, prompts, enc_embeds=frames),
+          "nvidia_smi": smi_line()})
+
+    # each LUT call: an encoder layer's at the prefill's rows (timed), a
+    # decoder layer's at the decode shape (held to plain); the cross
+    # attention's members alone on layer 0's G = 3 leaf, wq and wo at 4
+    # rows, wk and wv at the encoder's rows, held to plain
+    rows = ENCDEC_ROWS * ENCDEC_FRAMES
+    recipe_layer_calls(phase, lut, ENCDEC_PREFILL_ITERS, parts=("attn", "mlp"),
+                       block="encoder", rows=rows, plain=False, head=False)
+    decoder = recipe_layer_calls(phase, lut, iters, parts=("self_attn", "mlp"),
+                                 block="decoder", head=False)
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    cross = layer_params(lut["decoder"]["cross_attn"], 0)
+    qkv = cross["wq+wk+wv"]
+    for name, node, g, r in (("wq", qkv, 0, 4), ("wo", cross["wo"], None, 4),
+                             ("wk", qkv, 1, rows), ("wv", qkv, 2, rows)):
+        plan = node.plan
+        tables = node.tables if g is None else node.tables[g]
+        x = torch.randn(r, plan.in_features, generator=gen, device=DEV)
+        codes = pack_codes(x, plan)
+        scales = _host_scales(plan, node.scale)
+        copies = lut_ops.TABLE_COPIES["table_operand"]
+        lut_ops.lut_affine(codes, tables, scales, shift_bits=plan.shift_bits)
+        view_copies = lut_ops.TABLE_COPIES["table_operand"] - copies
+        res = run_case("lut_affine", codes, tables[None], scales, plan.shift_bits,
+                       iters if r == 4 else ENCDEC_PREFILL_ITERS, 3 if r == 4 else 1)
+        emit({"phase": phase, "step": "cross_call", "proj": name,
+              "member_of": "wq+wk+wv" if g is not None else None, "rows": r,
+              "n": plan.num_planes, "k": plan.in_features, "E": plan.num_entries,
+              "p": plan.out_features, "table": plan.table_format,
+              "table_copies_on_the_leaf_view": view_copies, **res})
+        if view_copies:
+            raise AssertionError(f"{phase}: the cross {name} call copied its tables")
+        if r == 4:
+            for key in decoder:
+                decoder[key] += res[key]
+    emit({"phase": phase, "step": "decoder_layer", "rows": 4,
+          "calls": "self wq+wk+wv, wo, w_in, w_out; cross wq, wo", **decoder})
+    # the encoder's biased G = 3 group, held to plain at its rows
+    enc_qkv = layer_params(lut["encoder"]["attn"], 0)["wq+wk+wv"]
+    plan = enc_qkv.plan
+    x = torch.randn(rows, plan.in_features, generator=gen, device=DEV)
+    res = run_case("lut_affine_grouped", pack_codes(x, plan), enc_qkv.tables,
+                   _host_scales(plan, enc_qkv.scale), plan.shift_bits, ENCDEC_PREFILL_ITERS, 1)
+    emit({"phase": phase, "step": "g3_group", "proj": "encoder wq+wk+wv", "rows": rows,
+          "G": enc_qkv.tables.shape[0], "n": plan.num_planes, "k": plan.in_features,
+          "E": plan.num_entries, "p": plan.out_features, "table": plan.table_format,
+          "shift_bits": plan.shift_bits, **res})
     emit({"phase": phase, "step": "memory",
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
     del lut
@@ -3702,16 +4189,22 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
 
-    plain_reqs, _, plain_wall, plain_decode = run_engine(tl1, cfg, prompts, max_new, False,
+    # the plain versions serve PLAIN_NEW tokens a request (at 16 this run
+    # took ~25 s of the call), held to the kernel run's streams on the
+    # tokens they serve
+    plain_new = min(max_new, PLAIN_NEW)
+    plain_reqs, _, plain_wall, plain_decode = run_engine(tl1, cfg, prompts, plain_new, False,
                                                          cuda_graph=False)
+    plain_tokens = sum(len(r.generated) for r in plain_reqs)
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
     )
-    identical = all(a.generated == b.generated for a, b in zip(reqs, plain_reqs))
-    emit({"phase": "tl1_serve", "step": "plain", "layers": layers,
-          "tok_per_s": tokens / plain_wall, "wall_s": plain_wall,
+    identical = all(len(b.generated) == plain_new and a.generated[:plain_new] == b.generated
+                    for a, b in zip(reqs, plain_reqs))
+    emit({"phase": "tl1_serve", "step": "plain", "layers": layers, "new_tokens": plain_new,
+          "tok_per_s": plain_tokens / plain_wall, "wall_s": plain_wall,
           "median_decode_step_ms": statistics.median(plain_decode),
-          "streams_identical": identical, "identical_token_share": same / tokens})
+          "streams_identical": identical, "identical_token_share": same / plain_tokens})
     if not identical:
         raise AssertionError("kernel and plain paths disagree on a TL1 stream")
 
@@ -5016,8 +5509,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--phases",
         default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
-                "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,hybrid_serve,tl1_kernel,"
-                "tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper",
+                "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,"
+                "tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -5079,6 +5572,7 @@ def main(argv=None) -> int:
     vlm_gen = vlm and {"launches": vlm["generate_launches"]}
     rwkv = run("rwkv_serve", rwkv_serve_phase, args.iters)
     hyb = run("hybrid_serve", hybrid_serve_phase, args.iters)
+    enc = run("encdec_serve", encdec_serve_phase, args.iters)
     tkern = run("tl1_kernel", tl1_kernel_phase, args.iters, 4 * 32)
     tsrv = run("tl1_serve", tl1_serve_phase, TL1_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
@@ -5101,13 +5595,14 @@ def main(argv=None) -> int:
             # lut_affine and lut_tl1 also run the paper networks, the weight
             # cell's kernels the paged engine, the MLA, phi3, minitron, mixtral,
             # VLM (the VLM cell's engine and its generate() with the image
-            # prefix), RWKV and hybrid cells, the experts kernel the mixtral cell
+            # prefix), RWKV, hybrid and enc-dec cells, the experts kernel the
+            # mixtral cell
             by_path = {path: s["launches"][name]}
             for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("phi3_serve", phi3),
                              ("minitron_serve", mini), ("mixtral_serve", mix),
                              ("vlm_serve", vlm), ("vlm_generate", vlm_gen),
                              ("rwkv_serve", rwkv), ("hybrid_generate", hyb),
-                             ("paper", paper)):
+                             ("encdec_generate", enc), ("paper", paper)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -5130,7 +5625,8 @@ def main(argv=None) -> int:
                                      ("phi3_serve", phi3), ("minitron_serve", mini),
                                      ("mixtral_serve", mix), ("vlm_serve", vlm),
                                      ("vlm_generate", vlm_gen), ("rwkv_serve", rwkv),
-                                     ("hybrid_generate", hyb), ("moe_serve", msrv),
+                                     ("hybrid_generate", hyb), ("encdec_generate", enc),
+                                     ("moe_serve", msrv),
                                      ("bmm_serve", bsrv), ("paper", paper))
              if s is not None}
     if pkern is not None and paths:

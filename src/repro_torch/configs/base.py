@@ -3,8 +3,8 @@
 
 One file per architecture lives next to this module; each exports
 ``CONFIG`` (the published configuration) and ``reduced()`` (a tiny
-same-family variant for CPU tests).  The port carries the configurations
-of the families it serves so far; others arrive with their slices.
+same-family variant for CPU tests).  The port carries every
+configuration of the reference, one per model family it serves.
 """
 from __future__ import annotations
 
@@ -89,16 +89,13 @@ class ModelConfig:
 
 ARCH_NAMES = [
     "granite_8b", "llava_next_mistral_7b", "minicpm3_4b", "minitron_4b", "mixtral_8x7b",
-    "phi3_medium_14b", "qwen2_moe_a2_7b", "rwkv6_3b", "zamba2_1_2b",
+    "phi3_medium_14b", "qwen2_moe_a2_7b", "rwkv6_3b", "whisper_base", "zamba2_1_2b",
 ]
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     key = name.replace("-", "_").replace(".", "_")
     if key not in ARCH_NAMES:
-        raise NotImplementedError(
-            f"config {name!r} comes with its family's slice of the port "
-            f"(ported so far: {ARCH_NAMES})"
-        )
+        raise NotImplementedError(f"no config {name!r} (configs: {ARCH_NAMES})")
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     return mod.reduced() if reduced else mod.CONFIG

@@ -1,7 +1,8 @@
-"""Shared model layers for the dense decoder (counterpart of the dense
-half of ``repro/models/layers.py``): norms, RoPE, linears with the TableNet
-LUT path, GQA attention and MLA latent attention over a dense or paged KV
-cache, the gated and squared-ReLU MLPs and sampling.
+"""Shared model layers (counterpart of ``repro/models/layers.py``): norms
+(RMSNorm and LayerNorm), RoPE and sinusoidal positions, linears with the
+TableNet LUT path, GQA attention (self-attention over a dense or paged KV
+cache, and cross-attention over given K/V) and MLA latent attention, the
+gated, squared-ReLU and GELU MLPs and sampling.
 
 Every projection goes through :func:`linear` (or :func:`fused_linears` for
 sibling projections over one input).  Converted trees carry
@@ -147,12 +148,22 @@ class Ctx:
 
 
 def norm_spec(cfg: ModelConfig, d: int | None = None) -> dict:
-    return {"scale": PSpec((d or cfg.d_model,), ("embed",), init="ones")}
+    d = d or cfg.d_model
+    s = {"scale": PSpec((d,), ("embed",), init="ones")}
+    if cfg.norm == "layernorm":
+        s["bias"] = PSpec((d,), ("embed",), init="zeros")
+    return s
 
 
 def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """RMSNorm (the dense family's norm; layernorm comes with whisper)."""
+    """``cfg.norm`` in fp32: RMSNorm, or LayerNorm (whisper) with the biased
+    variance, as ``jnp.var`` computes it, and a bias."""
     xf = x.to(torch.float32)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps) * p["scale"] + p["bias"]
+        return y.to(x.dtype)
     ms = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]).to(x.dtype)
 
@@ -398,6 +409,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def sinusoidal_embedding(S: int, d: int, device=None) -> torch.Tensor:
+    """(S, d) fp32 sinusoidal positions ``[sin, cos]`` at 0..S-1."""
+    return sinusoidal_at(torch.arange(S, device=device), d)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """fp32 ``[sin, cos]`` of ``positions`` (any shape) over ``d // 2``
+    frequencies ``10000 ** (-2i / d)``: shape ``positions.shape + (d,)``."""
+    pos = positions.to(torch.float32)[..., None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA over a dense cache)
 # ---------------------------------------------------------------------------
@@ -462,6 +487,7 @@ def attention(
     ctx: Ctx,
     positions: torch.Tensor,
     cache: dict | None = None,
+    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Full-sequence (prefill) or cached-decode attention.
 
@@ -476,9 +502,22 @@ def attention(
     prefill attends over its in-flight keys, as a dense one does: its ring
     keeps only the last ``window`` keys, which is state for decode, not a
     view for the early queries, and its engine shares no prefixes.  Every
-    branch masks keys ``window`` or more positions back."""
+    branch masks keys ``window`` or more positions back.
+
+    With ``cross_kv`` (the enc-dec decoder's cross-attention) the keys and
+    values are given, (B, S_enc, K, hd): only ``wq`` runs, through
+    :func:`member_linear` (a group member alone), nothing is written to a
+    cache, and every query sees every key."""
     cfg = ctx.cfg
     window = cfg.sliding_window
+    if cross_kv is not None:
+        q = _split_heads(member_linear(p, "wq", x, ctx), cfg.num_heads)
+        k, v = cross_kv
+        if cfg.pos == "rope":
+            q = rope(q, positions, cfg.rope_theta)
+        B, S = x.shape[:2]
+        mask = torch.ones((B, 1, S, k.shape[1]), dtype=torch.bool, device=x.device)
+        return linear(p["wo"], _sdpa(q, k, v, mask), ctx)
     yq, yk, yv = fused_linears(p, ("wq", "wk", "wv"), x, ctx)
     q = _split_heads(yq, cfg.num_heads)
     k = _split_heads(yk, cfg.num_kv_heads)
@@ -626,19 +665,18 @@ def mla_attention(
 
 def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     """The gated SwiGLU MLP (``act="silu"``: ``w_gate``, ``w_up``,
-    ``w_down``) or nemotron's two-matrix squared-ReLU MLP (``act="relu2"``:
-    ``w_in``, ``w_out``, no bias), with the reference's names and axes."""
+    ``w_down``) or a two-matrix MLP, ``w_in`` and ``w_out``: nemotron's
+    squared ReLU (``act="relu2"``, no bias) or whisper's GELU (``act="gelu"``,
+    both biased), with the reference's names and axes."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    if cfg.act == "relu2":
+    if cfg.act in ("gelu", "relu2"):
+        bias = cfg.act == "gelu"
         return {
-            "w_in": linear_spec(d, f, axes=("embed", "mlp")),
-            "w_out": linear_spec(f, d, axes=("mlp", "embed")),
+            "w_in": linear_spec(d, f, axes=("embed", "mlp"), bias=bias),
+            "w_out": linear_spec(f, d, axes=("mlp", "embed"), bias=bias),
         }
     if cfg.act != "silu":
-        raise NotImplementedError(
-            f"{cfg.act!r} MLPs (whisper's biased GELU) come with the enc-dec slice of the "
-            "port (ported: 'silu', 'relu2')"
-        )
+        raise ValueError(f"unknown MLP activation {cfg.act!r}")
     return {
         "w_gate": linear_spec(d, f, axes=("embed", "mlp")),
         "w_up": linear_spec(d, f, axes=("embed", "mlp")),
@@ -647,11 +685,17 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    """``w_down(silu(w_gate x) * w_up x)``, or ``w_out(relu(w_in x)**2)``
-    for a two-matrix tree; every projection through :func:`linear` /
-    :func:`fused_linears`, so each linear kind runs here."""
+    """``w_down(silu(w_gate x) * w_up x)``, or for a two-matrix tree
+    ``w_out(relu(w_in x)**2)`` (``relu2``) or ``w_out(gelu(w_in x))``, the
+    tanh form that ``jax.nn.gelu`` computes by default; every projection
+    through :func:`linear` / :func:`fused_linears`, so each linear kind runs
+    here."""
     if "w_in" in p:
-        h = torch.square(F.relu(linear(p["w_in"], x, ctx)))
+        h = linear(p["w_in"], x, ctx)
+        if ctx.cfg.act == "relu2":
+            h = torch.square(F.relu(h))
+        else:
+            h = F.gelu(h, approximate="tanh")
         return linear(p["w_out"], h, ctx)
     g, u = fused_linears(p, ("w_gate", "w_up"), x, ctx)
     return linear(p["w_down"], F.silu(g) * u, ctx)

@@ -1,6 +1,6 @@
 """Decode caches for the dense decoder, GQA and MLA, RWKV-6's O(1)
-recurrent state and the zamba2 hybrid's (counterpart of the dense, paged,
-``ssm`` and ``hybrid`` parts of ``repro/serve/_cache.py``).
+recurrent state, the zamba2 hybrid's and the enc-dec family's (counterpart
+of ``repro/serve/_cache.py``).
 
 RWKV-6 (``family="ssm"``) keeps per layer its token-shift states
 ``shift_a`` / ``shift_c`` (L, B, d) and its WKV state ``wkv`` (L, B, H,
@@ -12,11 +12,26 @@ invocation of its shared attention block the K/V ``shared_attn.k`` /
 ``.v`` (n_shared, B, T, n_kv, head_dim), dense or paged, beside
 ``pos``/``valid``/``index``.
 
-The recurrent states are fp32 whatever the cache's dtype: the reference
-declares the token-shift states and the conv window in the cache's dtype,
-but its forward returns them in the activations' dtype and carries them
-so after the first write; an fp32 buffer holds that carry exactly, and
-the models cast it to the activations' dtype on read.
+The enc-dec family (``family="encdec"``, whisper) keeps its decoder's
+self K/V ``layers.k`` / ``.v`` (L, B, T, n_kv, head_dim), dense or paged,
+beside ``pos``/``valid``/``index``, and the static cross K/V ``cross.k``
+/ ``.v`` (L, B, S_enc, n_kv, head_dim), dense whatever the paging, which
+the prefill writes in place and decode steps only read.
+
+The recurrent states and the cross K/V are fp32 whatever the cache's
+dtype: the reference declares the token-shift states and the conv window
+in the cache's dtype, but its forward returns them in the activations'
+dtype and carries them so after the first write; an fp32 buffer holds
+that carry exactly, and the models cast it to the activations' dtype on
+read.  The reference declares the cross K/V at (L, B, max_len, ...) in the
+cache's dtype, and its prefill binds fp32 (L, B, S_enc, ...) stacks in
+their place: a bf16 buffer of max_len would round the keys and attend over
+zero keys past S_enc, or could not hold S_enc > max_len frames.  The port sizes
+the cross leaves from the frames' count when the cache is made
+(``cache_specs(..., enc_len=)``; ``generate`` passes its
+``enc_embeds.shape[1]``) and writes them in place, which holds the
+reference's values and keeps every cache buffer the one the cache was
+made with (below).
 
 Dense layout: per layer-stacked leaf ``(L, B, T, ...)`` with T = max_len --
 GQA's ``k``/``v`` ``(L, B, T, n_kv, head_dim)``, MLA's latent ``c_kv``
@@ -108,6 +123,7 @@ def cache_specs(
     max_len: int,
     page_size: int | None = None,
     num_pages: int | None = None,
+    enc_len: int | None = None,
 ) -> dict:
     """PSpec tree for a fresh decode cache.
 
@@ -119,10 +135,12 @@ def cache_specs(
     T -- ``max_len``, or a sliding-window model's ring ``min(window,
     max_len)`` -- must be a whole number of pages.  The hybrid's K/V
     leaves (its shared block's, one per invocation) are the ones paged; its
-    SSD states stay per slot."""
+    SSD states stay per slot.  The enc-dec family's decoder self K/V are
+    paged; its cross K/V, ``enc_len`` (the encoder's frames) long, stay
+    dense."""
     if cfg.family == "ssm":
         return _rwkv_cache_specs(cfg, batch, page_size)
-    families = ("dense", "moe", "vlm", "hybrid")
+    families = ("dense", "moe", "vlm", "hybrid", "encdec")
     if cfg.family not in families or cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention} caches come with their family's slice"
@@ -166,7 +184,20 @@ def cache_specs(
         tree["shared_attn"] = kv_tree
     else:
         tree["layers"] = kv_tree
+    if cfg.family == "encdec":
+        tree["cross"] = _cross_specs(cfg, batch, enc_len)
     return tree
+
+
+def _cross_specs(cfg: ModelConfig, batch: int, enc_len: int | None) -> dict:
+    """The enc-dec family's static cross K/V ``cross.k`` / ``.v`` (L, B,
+    enc_len, n_kv, head_dim), fp32, dense whatever the paging (the module
+    docstring says why)."""
+    if enc_len is None:
+        raise ValueError("an enc-dec cache needs enc_len, the encoder frames' count")
+    shape = (cfg.num_layers, batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+    axes = ("layers", "batch", "seq_kv", None, None)
+    return {name: PSpec(shape, axes, init="zeros", dtype=torch.float32) for name in ("k", "v")}
 
 
 def _num_shared_invocations(cfg: ModelConfig) -> int:

@@ -30,11 +30,13 @@ into one grouped launch.  The scheduler is agnostic to all of it.
 
 ``generate`` and ``BatchingEngine`` serve GQA and (minicpm3) MLA trees
 alike: the cache's leaves are K/V or MLA's latents, and every cache
-operation here runs over whichever it holds.  RWKV-6 (``ssm``) and the
-zamba2 hybrid (``hybrid``: SSD states and its shared block's K/V) are
-served through ``generate`` alone: as in the reference, ``BatchingEngine``
-needs slot-targeted cache writes, which a recurrent state has no form for,
-and a ``page_size`` raises.
+operation here runs over whichever it holds.  RWKV-6 (``ssm``), the
+zamba2 hybrid (``hybrid``: SSD states and its shared block's K/V) and
+whisper's encoder-decoder (``encdec``: ``generate(..., enc_embeds=)``,
+dense or paged, its cross K/V static beside the decoder's) are served
+through ``generate`` alone: as in the reference, ``BatchingEngine`` needs
+slot-targeted cache writes, which a recurrent state or a cross cache has
+no form for; the recurrent families refuse a ``page_size``.
 
 Paged mode (``page_size=``) keeps the reference's contracts too: K/V live
 in fixed-size pages behind a slot -> page table (``serve/_cache.py``); a
@@ -84,9 +86,11 @@ def make_cache(
     num_pages: int | None = None,
     page_table: str = "identity",
     device: str | torch.device = "cuda",
+    enc_len: int | None = None,
 ) -> dict:
     """A fresh zeroed cache on ``device`` (K/V, or MLA's latents, in
-    ``dtype``).  With ``page_size``, they are paged (``serve/_cache.py``):
+    ``dtype``; an enc-dec cache's cross K/V, fp32 at ``enc_len`` encoder
+    frames).  With ``page_size``, they are paged (``serve/_cache.py``):
     ``page_table="identity"`` maps slot b's group g to page ``b * max_pages
     + g``, a paged cache that behaves as the dense rectangle (``generate``
     uses it); ``"empty"`` starts unmapped, for an allocator to fill.
@@ -103,7 +107,8 @@ def make_cache(
             "make_cache sizes the pool from the SSD conv state (dim 1 is the batch), "
             "so a paged hybrid cache serves on no entry point"
         )
-    specs = cache_specs(cfg, batch, max_len, page_size=page_size, num_pages=num_pages)
+    specs = cache_specs(cfg, batch, max_len, page_size=page_size, num_pages=num_pages,
+                        enc_len=enc_len)
     cache = init_params(specs, torch.Generator(), device=device, default_dtype=dtype)
     if page_size is not None:
         table = cache["page_table"]
@@ -163,6 +168,7 @@ def generate(
     page_size: int | None = None,
     device: str | torch.device = "cuda",
     embeds=None,
+    enc_embeds=None,
 ) -> torch.Tensor:
     """Reference generation loop, aligned with :class:`BatchingEngine`:
     each row stops at its first ``eos_id`` (emitted), later positions are
@@ -172,7 +178,10 @@ def generate(
     prompt's last T tokens).  With ``page_size``, K/V are paged behind an
     identity page table: the same semantics in the paged layout.  A VLM's
     ``embeds`` (B, S_img, d) image patch embeddings go before each prompt
-    and count in the prompt's length."""
+    and count in the prompt's length.  An enc-dec model's ``enc_embeds``
+    (B, S_enc, d) audio frame embeddings go to its encoder at the prefill:
+    they take no slot of the decoder's cache and do not count in the
+    prompt's length, and the cache holds their cross K/V apart."""
     dev = resolve_device(device)
     prompts = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
     B, S = prompts.shape
@@ -180,6 +189,10 @@ def generate(
     inputs = {"tokens": prompts}
     if embeds is not None:
         inputs["embeds"] = torch.as_tensor(embeds).to(dev)
+    enc_len = None
+    if enc_embeds is not None:
+        inputs["enc_embeds"] = torch.as_tensor(enc_embeds).to(dev)
+        enc_len = enc_embeds.shape[1]
     pre = S + (embeds.shape[1] if embeds is not None else 0)
     T = max_len or (pre + max_new)
     if ctx.cfg.sliding_window is None and pre + max_new - 1 > T:
@@ -187,7 +200,7 @@ def generate(
             f"prompt ({pre} tokens) + max_new ({max_new}) needs "
             f"{pre + max_new - 1} cache slots but max_len is {T}; raise max_len"
         )
-    cache = make_cache(ctx.cfg, B, T, ctx, page_size=page_size, device=dev)
+    cache = make_cache(ctx.cfg, B, T, ctx, page_size=page_size, device=dev, enc_len=enc_len)
     if scfg.mode != "greedy":
         base = torch.tensor(seed, dtype=torch.int64, device=dev)
         cache["slot_key"] = fold_key(base, torch.arange(B, device=dev))
@@ -345,8 +358,9 @@ class BatchingEngine:
     prefixes are never shared, since a ring's contents depend on the
     position.  A VLM is served text-only, as the reference's engine serves
     it: a :class:`Request` carries no image embeddings (``generate`` takes
-    them).  The recurrent-state families (``ssm``, ``hybrid``) raise: their
-    caches have no slot-targeted writes."""
+    them).  The recurrent-state families (``ssm``, ``hybrid``) and the
+    enc-dec family raise: their recurrent and cross caches have no
+    slot-targeted writes."""
 
     def __init__(
         self,
@@ -365,15 +379,10 @@ class BatchingEngine:
         device: str | torch.device = "cuda",
         cuda_graph: bool | None = None,
     ):
-        if ctx.cfg.family in ("ssm", "hybrid"):
+        if ctx.cfg.family not in _ENGINE_FAMILIES:
             raise NotImplementedError(
                 f"BatchingEngine needs slot-targeted cache writes; family "
                 f"{ctx.cfg.family!r} has recurrent/cross caches without them"
-            )
-        if ctx.cfg.family not in _ENGINE_FAMILIES:
-            raise NotImplementedError(
-                f"BatchingEngine serves {_ENGINE_FAMILIES} so far, "
-                f"not {ctx.cfg.family!r}"
             )
         if admit not in ("batched", "per-slot"):
             raise ValueError(f"admit must be 'batched' or 'per-slot': {admit!r}")

@@ -3,8 +3,9 @@ and prefill kernels, and its ragged MoE form ``lut_affine_experts``; TL1: ``lut_
 ``bitplane_pack`` and ``binary_matmul``) against their plain PyTorch
 versions, on the card, the engine's decode step as a CUDA graph on each
 served path (mixtral_8x7b's ring cache among them), and the
-``generate()`` of rwkv6_3b on its recurrent state and of zamba2_1_2b on
-its SSD states and shared block's K/V.  The
+``generate()`` of rwkv6_3b on its recurrent state, of zamba2_1_2b on
+its SSD states and shared block's K/V and of whisper_base's
+encoder-decoder on its self and cross K/V.  The
 kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 runs on a machine that has only the port's dependencies:
@@ -1710,3 +1711,192 @@ def test_g3_i8_shift_group_matches_plain_on_card(cuda_device, rows):
     want = ops.lut_affine_grouped(codes, tables, scales, shift_bits=5, use_kernels=False)
     assert got.shape == (3, rows, 2048)
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# whisper_base's encoder-decoder through generate(enc_embeds=...); its
+# biased G = 3 wq+wk+wv group at the encoder's 1,500-frame row counts, and
+# the cross-attention's members run alone on that group's leaf
+# ---------------------------------------------------------------------------
+
+ENCDEC_PROMPT_LEN, ENCDEC_MAX_NEW, ENCDEC_FRAMES, ENCDEC_MAX_LEN = 4, 6, 20, 12
+
+
+def _encdec_world(device):
+    """Reduced whisper_base (2 encoder and 2 decoder layers) on planned i8
+    tables (the serving recipe: three G = 3 ``wq+wk+wv`` groups, each with
+    stacked biases; ``wo``, ``w_in``, ``w_out`` lone), its zeroed biases and
+    LayerNorm biases and its unit LayerNorm scales drawn from a seed so
+    that they count."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import convert_params
+    from repro_torch.core.planner import plan_model
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("whisper_base", reduced=True)
+    gen = torch.Generator(device=device).manual_seed(7)
+    params = init_params(model_specs(cfg), gen, device=device)
+
+    def seed(tree):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                seed(leaf)
+            elif key in ("b", "bias"):
+                leaf.copy_(0.1 * torch.randn(leaf.shape, generator=gen, device=device))
+            elif key == "scale":
+                leaf.copy_(1 + 0.2 * torch.randn(leaf.shape, generator=gen, device=device))
+
+    seed(params)
+    uniform = plan_model(params, float("inf"), max_chunk=2)
+    plan = plan_model(params, uniform.total_lut_bytes // 2, max_chunk=2,
+                      modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
+                      table_formats=(None, "i8"))
+    assert len(plan.groups) == 3
+    return cfg, convert_params(params, plan=plan)[0]
+
+
+def _encdec_generate(world, device, use_kernels, page_size, codes=None):
+    """Greedy ``generate(enc_embeds=...)`` of the reduced whisper tree on 3
+    rows of ENCDEC_FRAMES seeded frames (std 0.1) and ENCDEC_PROMPT_LEN-token
+    prompts into a ENCDEC_MAX_LEN-slot fp32 cache (no bf16 K/V that each
+    path would round on its own), grouped launches; returns (streams, the
+    launches of the run, each pack site's (input, codes, plan) and each LUT
+    call's (kind, arguments, output) in call order).  Given ``codes`` (an
+    earlier run's sites), each pack site takes the recorded codes of the
+    same site instead of its own."""
+    import functools
+
+    import repro_torch.serve._engine as engine
+    from repro_torch.models import layers
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.serve import generate
+
+    cfg, params = world
+    rng = np.random.default_rng(59)
+    prompts = rng.integers(0, cfg.vocab_size, (3, ENCDEC_PROMPT_LEN)).astype(np.int32)
+    frames = (rng.standard_normal((3, ENCDEC_FRAMES, cfg.d_model)) * 0.1).astype(np.float32)
+    pack0, sites, calls = layers.pack, [], []
+    replay = None if codes is None else iter(codes)
+
+    def pack(x, plan, use_kernels=True):
+        own = pack0(x, plan, use_kernels=use_kernels) if replay is None else next(replay)[1]
+        sites.append((x.clone(), own, plan))
+        return own
+
+    def recorded(kind, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((kind, args, kw, out.clone()))
+            return out
+
+        return call
+
+    before = _counts_now()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(layers, "pack", pack)
+        for kind in ("lut_affine", "lut_affine_grouped"):
+            mp.setattr(layers, kind, recorded(kind, getattr(layers, kind)))
+        mp.setattr(engine, "make_cache", functools.partial(engine.make_cache,
+                                                           dtype=torch.float32))
+        ctx = Ctx(cfg, ex=ExecCfg(use_kernels=use_kernels, lut_grouped=True))
+        out = generate(params, ctx, prompts, ENCDEC_MAX_NEW, max_len=ENCDEC_MAX_LEN,
+                       page_size=page_size, device=device,
+                       enc_embeds=torch.from_numpy(frames).to(device))
+    torch.cuda.synchronize()
+    after = _counts_now()
+    if replay is not None:
+        assert next(replay, None) is None, "a recorded pack site was not replayed"
+    return out.tolist(), {k: after[k] - before[k] for k in after}, sites, calls
+
+
+def _encdec_launches(cfg):
+    """A generate's launches: the prefill (3Le + 7L / Le + L / 4Le + 7L: the
+    encoder, each layer's cross ``wk``/``wv``, the decoder) and 5L / L / 6L
+    for each decode step; the tied head is no LUT."""
+    Le, L = cfg.encoder_layers, cfg.num_layers
+    steps = ENCDEC_MAX_NEW - 1
+    return {"lut_affine": 3 * Le + 7 * L + 5 * L * steps,
+            "lut_affine_grouped": Le + L + L * steps,
+            "bitplane_pack": 4 * Le + 7 * L + 6 * L * steps}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [None, PAGE], ids=["dense", "paged"])
+def test_encdec_generate_on_kernels_matches_plain_on_card(cuda_device, page_size):
+    """Reduced whisper_base on planned i8 tables, greedy
+    ``generate(enc_embeds=...)``, dense and paged (3 identity pages of 4 a
+    row; the cross K/V dense at 20 frames): on the kernels, the launches the
+    tree plans; on the plain versions given the kernel run's codes at every
+    pack site, in order: the same streams, whole, and every site's plain
+    input within 1e-5 x max of the kernel's."""
+    world = _encdec_world(cuda_device)
+    got, launches, sites, _ = _encdec_generate(world, cuda_device, True, page_size)
+    for kind, n in _encdec_launches(world[0]).items():
+        assert launches[kind] == n, (kind, launches)
+    assert len(sites) == launches["bitplane_pack"]
+    want, plain_launches, seen, _ = _encdec_generate(world, cuda_device, False, page_size,
+                                                     sites)
+    assert not any(plain_launches.values())
+    assert got == want
+    for (x, *_), (x_ref, *_) in zip(seen, sites):
+        assert ((x - x_ref).abs().max() <= 1e-5 * x_ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_encdec_packs_and_lut_calls_match_plain_on_card(cuda_device):
+    """Every pack and every LUT call of the reduced whisper tree's
+    ``generate`` on the kernels (the cross-attention's ``wq`` alone and its
+    ``wk``/``wv`` as lone calls on the group's leaf among them) against its
+    plain version on the same input: packs bit for bit, LUT calls within
+    1e-5 x max; no table is copied."""
+    world = _encdec_world(cuda_device)
+    copies = ops.TABLE_COPIES["table_operand"]
+    _, _, sites, calls = _encdec_generate(world, cuda_device, True, None)
+    assert ops.TABLE_COPIES["table_operand"] == copies
+    per_run = _encdec_launches(world[0])
+    assert len(sites) == per_run["bitplane_pack"]
+    assert len(calls) == per_run["lut_affine"] + per_run["lut_affine_grouped"]
+    for x, codes, plan in sites:
+        assert torch.equal(pack_ops.pack(x, plan, use_kernels=False), codes)
+    for kind, args, kw, out in calls:
+        _close(out, getattr(ops, kind)(*args, **{**kw, "use_kernels": False}))
+
+
+@pytest.mark.cuda
+def test_biased_g3_group_at_encoder_rows_matches_plain_on_card(cuda_device):
+    """whisper_base's ``wq+wk+wv``: a G = 3 group of i8 shift tables (512 ->
+    512 each, radix-4 planes, 32 entries) with stacked biases, at the
+    encoder's 4 x 1,500 = 6,000 rows (the prefill kernel), against its plain
+    version within 1e-5 x max."""
+    codes, tables, scales = _case(73, 6000, 3, 512, 32, 512, 3, "i8", 5)
+    codes = torch.from_numpy(codes).to(cuda_device)
+    tables = tables.to(cuda_device)
+    biases = torch.randn(3, 512, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    got = ops.lut_affine_grouped(codes, tables, scales, biases=biases, shift_bits=5)
+    want = ops.lut_affine_grouped(codes, tables, scales, biases=biases, shift_bits=5,
+                                  use_kernels=False)
+    assert got.shape == (3, 6000, 512)
+    _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,members", [(4, (0,)), (6000, (1, 2))], ids=["wq", "wk_wv"])
+def test_cross_group_lone_members_match_plain_on_card(cuda_device, rows, members):
+    """The cross-attention's members alone on the G = 3 leaf: ``wq`` at a
+    decode row count and ``wk``/``wv`` at the encoder's 6,000 rows, each a
+    ``lut_affine`` launch on its ``tables[g]`` view with its bias, against
+    the grouped plain version's row of the same member within 1e-5 x max;
+    the views are read in place (no table copy)."""
+    codes, tables, scales = _case(79, rows, 3, 512, 32, 512, 3, "i8", 5)
+    codes = torch.from_numpy(codes).to(cuda_device)
+    tables = tables.to(cuda_device)
+    biases = torch.randn(3, 512, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    want = ops.lut_affine_grouped(codes, tables, scales, biases=biases, shift_bits=5,
+                                  use_kernels=False)
+    copies, before = ops.TABLE_COPIES["table_operand"], ops.LAUNCHES["lut_affine"]
+    for g in members:
+        got = ops.lut_affine(codes, tables[g], scales, bias=biases[g], shift_bits=5)
+        _close(got, want[g])
+    assert ops.LAUNCHES["lut_affine"] == before + len(members)
+    assert ops.TABLE_COPIES["table_operand"] == copies

@@ -1,7 +1,8 @@
 """``repro_torch.models`` against ``repro.models`` on the same weights and
 tokens: reduced granite_8b logits for dense, LUT per-projection and
 LUT-grouped params, plus the init rules, the explicit-device contract, every
-ported config's parameter count and the MLPs not ported yet."""
+family building, every config's parameter count, whisper's GELU MLP and the
+norms."""
 import dataclasses
 import math
 
@@ -126,23 +127,30 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 def test_other_families_raise():
-    """Only the enc-dec family is left to port: its specs raise, naming its
-    slice, as does whisper's config; the hybrid family's config and specs
-    now build."""
+    """Every family of the reference now builds: each of its configs is the
+    port's, and its spec tree is the reference's, leaf for leaf (shapes);
+    a decoder-only family with LayerNorm, which the reference never builds,
+    still raises."""
+    from repro.configs.base import ARCH_NAMES as JARCH_NAMES
     from repro_torch.configs.base import ModelConfig
 
-    for family, slice_ in (("encdec", "enc-dec"),):
-        cfg = ModelConfig("x", family, 1, 8, 2, 2, 8, 16)
-        with pytest.raises(NotImplementedError, match=slice_):
-            model_specs(cfg)
+    def shapes(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for n, t in tree.items() for k, v in shapes(t, f"{prefix}/{n}").items()}
+        return {prefix: tuple(tree.shape)}
+
+    assert sorted(ARCH_NAMES) == sorted(JARCH_NAMES)
+    families = set()
+    for arch in JARCH_NAMES:
+        cfg = get_config(arch, reduced=True)
+        families.add(cfg.family)
+        assert shapes(model_specs(cfg)) == shapes(jmodel_specs(jget_config(arch, reduced=True)))
+    assert families == {"dense", "moe", "vlm", "ssm", "hybrid", "encdec"}
+    assert set(model_specs(get_config("whisper_base"))) == {
+        "embed", "encoder", "enc_ln_f", "decoder", "ln_f"}
     layernorm = ModelConfig("x", "moe", 1, 8, 2, 2, 8, 16, norm="layernorm", num_experts=2)
     with pytest.raises(NotImplementedError):
         model_specs(layernorm)
-    with pytest.raises(NotImplementedError):
-        get_config("whisper_base")
-    hybrid = get_config("zamba2_1_2b")
-    assert hybrid.family == "hybrid" and set(model_specs(hybrid)) == {
-        "embed", "mamba", "shared", "ln_f", "lm_head"}
 
 
 # each published config's parameter count (tests/test_models_smoke.py's ranges)
@@ -155,6 +163,7 @@ PARAM_RANGES = {
     "phi3_medium_14b": (13e9, 15e9),
     "qwen2_moe_a2_7b": (13e9, 15.5e9),
     "rwkv6_3b": (2.7e9, 3.6e9),
+    "whisper_base": (55e6, 110e6),
     "zamba2_1_2b": (1.0e9, 1.6e9),
 }
 
@@ -175,8 +184,68 @@ def test_param_counts_full_config(arch):
 
 
 def test_gelu_mlp_raises_naming_its_slice():
-    """whisper's biased GELU MLP is not ported: its spec raises, naming the
-    enc-dec slice."""
-    cfg = dataclasses.replace(get_config("granite_8b", reduced=True), act="gelu")
-    with pytest.raises(NotImplementedError, match="enc-dec slice"):
-        model_specs(cfg)
+    """whisper's biased GELU MLP (``act="gelu"``): ``w_in`` and ``w_out``
+    both with a bias, and ``mlp`` within 1e-6 x max of the reference's on
+    pre-activations over [-4, 4], the tanh form that ``jax.nn.gelu`` takes
+    by default (the erf form is 4.1e-4 off there)."""
+    from repro.models.layers import mlp as jmlp
+    from repro_torch.models.layers import mlp, mlp_specs
+
+    cfg = get_config("whisper_base", reduced=True)
+    jcfg = jget_config("whisper_base", reduced=True)
+    specs = mlp_specs(cfg)
+    assert {k: set(v) for k, v in specs.items()} == {"w_in": {"w", "b"}, "w_out": {"w", "b"}}
+    rng = np.random.default_rng(5)
+    p = {"w_in": {"w": rng.standard_normal((64, 128)).astype(np.float32) / 4,
+                  "b": rng.standard_normal(128).astype(np.float32) * 0.1},
+         "w_out": {"w": rng.standard_normal((128, 64)).astype(np.float32) / 11,
+                   "b": rng.standard_normal(64).astype(np.float32) * 0.1}}
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    want = np.asarray(jmlp(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                           JCtx(jcfg, ex=JExecCfg(remat="none"))))
+    got = mlp(params_from_numpy(p, device="cpu"), torch.from_numpy(x), Ctx(cfg)).numpy()
+    h = x @ p["w_in"]["w"] + p["w_in"]["b"]
+    assert h.min() < -2 and h.max() > 2
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+def _rmsnorm_before_layernorm(p, x, cfg):
+    """``apply_norm`` as it was before LayerNorm came (RMSNorm alone)."""
+    xf = x.to(torch.float32)
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
+def test_apply_norm_matches_reference(norm, dtype):
+    """``apply_norm`` under ``cfg.norm``: LayerNorm (biased variance, a bias,
+    ``cfg.norm_eps``) and RMSNorm within 1e-6 x max of the reference's on
+    fp32 input (fp32 sums in another order) and within one bf16 ulp on bf16
+    input (the fp32 result rounded once); RMSNorm bit for bit what it was
+    before LayerNorm came, and ``norm_spec`` with the reference's keys."""
+    from repro.models.layers import apply_norm as japply_norm
+    from repro.models.layers import norm_spec as jnorm_spec
+    from repro_torch.models.layers import apply_norm, norm_spec
+
+    base = get_config("whisper_base", reduced=True)
+    cfg = dataclasses.replace(base, norm=norm, norm_eps=1e-5 if norm == "layernorm" else 1e-6)
+    jcfg = dataclasses.replace(jget_config("whisper_base", reduced=True), norm=cfg.norm,
+                               norm_eps=cfg.norm_eps)
+    assert set(norm_spec(cfg)) == set(jnorm_spec(jcfg))
+    rng = np.random.default_rng(6)
+    p = {"scale": (1 + 0.2 * rng.standard_normal(64)).astype(np.float32)}
+    if norm == "layernorm":
+        p["bias"] = (0.1 * rng.standard_normal(64)).astype(np.float32)
+    x = (3 + 2 * rng.standard_normal((2, 5, 64))).astype(np.float32)  # a mean to remove
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tp = params_from_numpy(p, device="cpu")
+    got = apply_norm(tp, tx, cfg)
+    want = np.asarray(japply_norm(jax.tree.map(jnp.asarray, p), jx, jcfg).astype(jnp.float32))
+    assert got.dtype == tx.dtype
+    tol = 1e-6 if dtype == "float32" else 2.0**-7
+    np.testing.assert_allclose(got.to(torch.float32).numpy(), want, rtol=0,
+                               atol=tol * np.abs(want).max())
+    if norm == "rmsnorm":
+        assert torch.equal(got, _rmsnorm_before_layernorm(tp, tx, cfg))
