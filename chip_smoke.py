@@ -5,7 +5,7 @@
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
                                     vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,
                                     tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,
-                                    bmm_serve,paper]
+                                    bmm_serve,paper,train]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -137,11 +137,12 @@ Phases, one JSON object per line:
    prompt, 16 new tokens each (a 624-slot cache): dense on the kernels,
    counted (launches 3L + 1 / 2L / 5L + 1 per forward for 16 forwards, no
    pack off the kernel, no table copy); its prefill and decode steps timed
-   apart; the prefill logits of all 4 x 608 positions kernel against plain
-   at VLM_PLAIN_DEPTH layers within LOGITS_TOL / LOGITS_FRO_TOL; at the cut,
-   the same prompts without the image give text logits further apart than
-   LOGITS_FRO_TOL; first tokens kernel against plain on the first
-   VLM_SYNC_DEPTH (1) layer of the cut, with the plain path on the kernel
+   apart; the prefill logits of the first VLM_PLAIN_ROWS (1) row's 608
+   positions kernel against plain at VLM_PLAIN_DEPTH layers within
+   LOGITS_TOL / LOGITS_FRO_TOL; at the cut, the same prompts without the
+   image give text logits further apart than LOGITS_FRO_TOL; the first
+   tokens of all 4 rows (2,432 prefill rows) kernel against plain on the
+   first VLM_SYNC_DEPTH (1) layer of the cut, with the plain path on the kernel
    path's codes at every pack site (every prefill site's input within
    SYNCED_TOL; the decode steps', whose K/V each path rounds to bf16 on its
    own, reported), and every prefill pack of those layers bit for bit with
@@ -294,6 +295,20 @@ Phases, one JSON object per line:
    dense model's on the same inputs within one image; then the TL1 rows of
    ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
    plain version.
+11. ``train``  the training path (:func:`train_phase`): the ``100m`` preset
+   of ``examples/train_100m.py`` at full width and all 12 layers, 40 steps
+   of 8 x 256 ``lm_stream`` tokens with remat ``"dots"``, bf16 compute and
+   a checkpoint every 20, straight through and again restarted from the
+   step-20 checkpoint in a fresh ``Trainer``: losses and final parameters
+   equal bit for bit, every loss finite, the last 5 below the first 5; step
+   ms, tokens/s, model FLOPs and their share of the bf16 peak, peak memory,
+   checkpoint bytes and save / restore seconds; 4 steps each under remat
+   ``none`` / ``full`` / ``dots`` and with the deterministic algorithms
+   off.  ``granite_8b`` at full width, 2 of 36 layers, 4 steps.  Then the
+   trained tree planned, converted, its plan through a checkpoint's
+   ``aux`` and ``generate`` on the kernels: launches as planned, no pack off
+   the kernel, synchronized first tokens, 1-layer prefill logits; the
+   held-out loss dense against LUT reported.
 
 The engine's serve phases (3, 3c, 3d, 3e, 3f, 5, 7, 9) serve their requests on the kernels
 with the engine's decode step captured as a CUDA graph and replayed (the
@@ -317,14 +332,15 @@ behind a spin kernel until the host has enqueued them all.
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each phase ends with a ``seconds`` line.  Then one
 ``kernels`` summary line (the row of ``bitplane_pack`` sums its launches
-over the fourteen paths that pack, ``launches_by_path``, and times one
+over the fifteen paths that pack, ``launches_by_path``, and times one
 binary-cell decode layer's 7 packs; ``lut_affine`` and ``lut_tl1`` add the
 paper networks' launches to their serve phase's, the weight cell's kernels
 the paged engine's and the MLA, phi3, minitron, mixtral, VLM, RWKV,
 hybrid and enc-dec cells' (the VLM cell's engine as ``vlm_serve``, its ``generate()``
 with the image prefix as ``vlm_generate``; the RWKV cell's ``generate()``
 as ``rwkv_serve``, the hybrid cell's as ``hybrid_generate``, the enc-dec
-cell's as ``encdec_generate``), the experts
+cell's as ``encdec_generate``, the trained 100m model's as
+``train_serve``), the experts
 kernel the mixtral cell's to the MoE cell's; a
 null
 ``library_ms`` comes with its ``library_reason``),
@@ -425,13 +441,28 @@ FAMILY_CALLS = {"phi3_medium_14b": (3, 2), "minitron_4b": (4, 1),
 # at the cut); VLM_TIMED prefills timed apart; the LUT calls at the prefill's
 # rows timed over VLM_PREFILL_ITERS calls
 VLM_ROWS, VLM_PROMPT, VLM_NEW, VLM_SEED = 4, 32, 16, 1
-VLM_PLAIN_DEPTH = 1
+# the unsynchronized prefill logits, kernel against plain, on the first
+# VLM_PLAIN_ROWS rows (608 positions each): the plain versions' time grows
+# with the rows, and the synchronized first tokens below hold all VLM_ROWS
+VLM_PLAIN_DEPTH, VLM_PLAIN_ROWS = 1, 1
 VLM_TIMED, VLM_PREFILL_ITERS = 3, 5
 # the synchronized kernel-against-plain generate runs on the first
-# VLM_SYNC_DEPTH layers of the cut: the plain versions take ~23 s a layer at
-# the prefill's 2,432 rows, and the full call has to stay within two thirds
-# of its time limit with the rwkv_serve and hybrid_serve cells beside it
+# VLM_SYNC_DEPTH layers of the cut, on all VLM_ROWS rows (the prefill's
+# 2,432): the plain versions take ~23 s a layer there, and the full call has
+# to stay within two thirds of its time limit with the rwkv_serve,
+# hybrid_serve and train phases beside it
 VLM_SYNC_DEPTH = 1
+# the train phase: examples/train_100m.py's 100m preset at full width,
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ stream tokens with a checkpoint
+# every TRAIN_CKPT_EVERY (the restart resumes at the middle one), and
+# TRAIN_HELD_OUT stream batches past them for the held-out loss; the remat
+# policies compared over TRAIN_REMAT_STEPS steps; granite_8b at full width
+# cut to TRAIN_GRANITE_LAYERS layers for TRAIN_GRANITE_STEPS steps; the
+# trained tree served to TRAIN_ROWS x TRAIN_PROMPT stream tokens, TRAIN_NEW
+# new (TRAIN_SYNC_NEW in the synchronized plain run: it holds first tokens)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ, TRAIN_HELD_OUT = 40, 20, 8, 256, 4
+TRAIN_REMAT_STEPS, TRAIN_GRANITE_LAYERS, TRAIN_GRANITE_STEPS = 4, 2, 4
+TRAIN_ROWS, TRAIN_PROMPT, TRAIN_NEW, TRAIN_SYNC_NEW = 4, 32, 16, 2
 # the rwkv_serve phase: full-width rwkv6_3b at the cut family_depth computes
 # (16 of 32 expected).  The main path: RWKV_ROWS rows of RWKV_PROMPT seeded
 # prompt tokens and RWKV_NEW new tokens through generate() (long-context
@@ -1601,6 +1632,11 @@ def paged_serve_phase(model, layers: int, max_new: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# the serving recipe's widened frontier (plan_model arguments)
+RECIPE_FRONTIER = dict(modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
+                       table_formats=(None, "i8"))
+
+
 def recipe_plans(params, **kw):
     """The serving recipe (``benchmarks/serving.py::serving_model_plan``:
     half the uniform chunk-2 footprint, the widened frontier) with chunks
@@ -1609,8 +1645,7 @@ def recipe_plans(params, **kw):
     from repro_torch.core.planner import plan_model
 
     uniform = plan_model(params, float("inf"), max_chunk=2, **kw)
-    kw.update(modes=("bitplane", "bitplane_shift"), radices=(1, 2, 4),
-              table_formats=(None, "i8"))
+    kw.update(RECIPE_FRONTIER)
     budget = uniform.total_lut_bytes // 2
     return (plan_model(params, budget, max_chunk=1, **kw),
             plan_model(params, budget, max_chunk=2, **kw))
@@ -1886,9 +1921,10 @@ def serve_recipe_cell(phase: str, lut, cfg, per_forward: dict, prompts, max_new:
     the plain versions, PLAIN_NEW tokens a request: every run launches
     ``per_forward`` a forward with no pack off the kernel and no table
     copy, every request's first token is the plain run's (with ``synced``,
-    in :func:`synced_first_tokens`), and the plain run packs ``per_forward``
-    times a forward too; emits the ``kernels`` and ``plain`` lines and
-    returns the main path's launches."""
+    in :func:`synced_first_tokens`, whose plain prefills take every
+    request: the plain engine then serves only the first SLOTS requests),
+    and the plain run packs ``per_forward`` times a forward too; emits the
+    ``kernels`` and ``plain`` lines and returns the main path's launches."""
     import torch
 
     from repro_torch.kernels.lut_affine import ops as lut_ops
@@ -1918,11 +1954,13 @@ def serve_recipe_cell(phase: str, lut, cfg, per_forward: dict, prompts, max_new:
 
     with count_plain_packs() as packs:
         plain_reqs, plain_eng, plain_wall, plain_decode = run_engine(
-            lut, cfg, prompts, min(max_new, PLAIN_NEW), False, cuda_graph=False)
+            lut, cfg, prompts[:SLOTS] if synced else prompts, min(max_new, PLAIN_NEW),
+            False, cuda_graph=False)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     pairs = [(x, y) for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)]
     plain_tokens = sum(len(r.generated) for r in plain_reqs)
-    emit({"phase": phase, "step": "plain", "new_tokens": min(max_new, PLAIN_NEW),
+    emit({"phase": phase, "step": "plain", "requests": len(plain_reqs),
+          "new_tokens": min(max_new, PLAIN_NEW),
           "tok_per_s": plain_tokens / plain_wall, "wall_s": plain_wall,
           "median_decode_step_ms": statistics.median(plain_decode),
           "first_tokens_identical": first_ok,
@@ -2242,7 +2280,7 @@ def vlm_prefill_logits(lut, cfg, inputs, depth: int, use_kernels: bool = True):
     dcfg = dataclasses.replace(cfg, num_layers=depth)
     params = dict(lut, blocks=first_layers(lut["blocks"], depth))
     ctx = Ctx(dcfg, ex=ExecCfg(lut_grouped=True, use_kernels=use_kernels))
-    cache = make_cache(dcfg, VLM_ROWS, vlm_len(cfg), ctx, device=DEV)
+    cache = make_cache(dcfg, inputs["tokens"].shape[0], vlm_len(cfg), ctx, device=DEV)
     with torch.no_grad():
         return model_forward(params, inputs, ctx, cache=cache)[0]
 
@@ -2293,11 +2331,11 @@ def vlm_serve_phase(requests: int, max_new: int, iters: int) -> dict:
     (:func:`serve_recipe_cell`, no plain run).  Then the image prefix
     through ``generate(embeds=...)`` on VLM_ROWS rows (:func:`vlm_inputs`):
     the main path dense and counted; its prefill and decode steps timed
-    apart; prefill logits of all VLM_ROWS x 608 positions kernel against
+    apart; prefill logits of VLM_PLAIN_ROWS x 608 positions kernel against
     plain at VLM_PLAIN_DEPTH layers; at the cut the prefix moving the text
-    positions' logits; first tokens kernel against plain on the first
-    VLM_SYNC_DEPTH layers with the plain path on the kernel path's codes at
-    every pack site, which also holds every prefill pack of those layers bit
+    positions' logits; first tokens of all VLM_ROWS rows kernel against
+    plain on the first VLM_SYNC_DEPTH layers with the plain path on
+    the kernel path's codes at every pack site, which also holds every prefill pack of those layers bit
     for bit to its plain version; paged at PAGE_SIZE,
     whose streams a dense run on bf16-rounded K/V must serve whole; last,
     each LUT call of a layer at the decode shape and at the prefill's 2,432
@@ -2333,15 +2371,18 @@ def vlm_serve_phase(requests: int, max_new: int, iters: int) -> dict:
     # prefill logits: kernel against plain at VLM_PLAIN_DEPTH layers; the
     # image prefix moving the text positions' logits at the cut
     inputs = {"tokens": torch.from_numpy(prompts).to(DEV), "embeds": embeds}
-    got = vlm_prefill_logits(lut, cfg, inputs, VLM_PLAIN_DEPTH)
-    ref = vlm_prefill_logits(lut, cfg, inputs, VLM_PLAIN_DEPTH, use_kernels=False)
+    some = {k: v[:VLM_PLAIN_ROWS] for k, v in inputs.items()}
+    got = vlm_prefill_logits(lut, cfg, some, VLM_PLAIN_DEPTH)
+    ref = vlm_prefill_logits(lut, cfg, some, VLM_PLAIN_DEPTH, use_kernels=False)
     res = compare_logits(got, ref)
     finite = bool(torch.isfinite(got).all().item())
     tol = LOGITS_TOL * res["max_abs_ref"]
     emit({"phase": phase, "step": "prefill_logits", "layers": VLM_PLAIN_DEPTH,
-          "shape": list(got.shape), **res, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL,
-          "finite": finite, "depth_reason": "the plain versions gather each call's table rows "
-          "for all 2,432 rows; the first tokens below hold the cut synchronized",
+          "rows": VLM_PLAIN_ROWS, "shape": list(got.shape), **res, "tol": tol,
+          "rel_fro_tol": LOGITS_FRO_TOL, "finite": finite,
+          "depth_reason": "the plain versions gather each call's table rows for every "
+          "position (~23 s a layer at 4 rows); the first tokens below hold all 4 rows "
+          "synchronized, every prefill site's input and pack",
           "tol_reason": "as the serve phase's: each projection re-quantizes its input"})
     if not (finite and res["max_abs_err"] <= tol and res["rel_fro_err"] <= LOGITS_FRO_TOL):
         raise AssertionError(f"{phase}: prefill logits differ: {res} (tol {tol}, "
@@ -2377,9 +2418,10 @@ def vlm_serve_phase(requests: int, max_new: int, iters: int) -> dict:
     prefill_err, decode_err = max(site_err[:n_prefill]), max(site_err[n_prefill:])
     first_ok = [r[0] for r in k] == [r[0] for r in p] and prefill_err <= SYNCED_TOL
     emit({"phase": phase, "step": "first_tokens", "synced_identical": first_ok,
-          "layers": VLM_SYNC_DEPTH, "depth_reason": "the plain versions take ~23 s a layer "
-          "at the prefill's 2,432 rows; the first layers of the cut keep the full call "
-          "within two thirds of its time limit beside the rwkv_serve cell",
+          "layers": VLM_SYNC_DEPTH, "rows": VLM_ROWS,
+          "depth_reason": "the plain versions take ~23 s a layer at the prefill's 2,432 "
+          "rows; the first layer of the cut keeps the full call within "
+          "two thirds of its time limit beside the rwkv_serve and train phases",
           "kernel": [r[0] for r in k], "plain_synced": [r[0] for r in p],
           "streams_identical_synced": k == p,
           "prefill_site_input_rel_err": prefill_err, "tol": SYNCED_TOL,
@@ -3271,7 +3313,7 @@ def encdec_timing(lut, cfg, prompts, frames) -> dict:
 
     from repro_torch.models.encdec import _cross_kv_from, encode
     from repro_torch.models.layers import Ctx, ExecCfg
-    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.transformer import unbind_layers
     from repro_torch.serve import make_cache, make_decode_step, make_prefill_step
 
     ctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True, logits="last"))
@@ -3294,8 +3336,8 @@ def encdec_timing(lut, cfg, prompts, frames) -> dict:
                                enc_len=ENCDEC_FRAMES)
             logits, cache = timed(lambda: prefill(lut, inputs, cache), "prefill_ms")
             enc = timed(lambda: encode(lut, frames, ctx), "encoder_ms")
-            timed(lambda: [_cross_kv_from(layer_params(cross, i), enc, ctx)
-                           for i in range(cfg.num_layers)], "cross_kv_ms")
+            timed(lambda: [_cross_kv_from(lp, enc, ctx)
+                           for lp in unbind_layers(cross, cfg.num_layers)], "cross_kv_ms")
         tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
         for _ in range(ENCDEC_NEW - 1):
             tok, _, cache = timed(lambda: decode(lut, cache, tok), "decode_step_ms")
@@ -5504,13 +5546,442 @@ def paper_phase(iters: int) -> dict:
     return {"launches": total}
 
 
+# ---------------------------------------------------------------------------
+# train phase: the training path, then the quickstart's serve half
+# ---------------------------------------------------------------------------
+
+
+def train_flops(cfg, rows: int, seq: int) -> dict:
+    """Model FLOPs of one training step (no recompute counted): 6 N per
+    token for the N weights of the matmuls (every stacked projection and the
+    head; the embedding's gather does none), plus attention's 12 L H hd S
+    per token (QK^T and PV, 2 S hd each a head and layer in the forward,
+    three times that with the backward; the port computes every score of
+    the masked square)."""
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import tree_flatten
+
+    specs = model_specs(cfg)
+    leaves = tree_flatten(specs)[0]
+    n_matmul = sum(math.prod(s.shape) for s in leaves if len(s.shape) >= 2) - \
+        (0 if cfg.tie_embeddings else math.prod(specs["embed"].shape))
+    tokens = rows * seq
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq
+    return {"matmul_params": n_matmul, "tokens": tokens,
+            "flops_per_step": tokens * (6 * n_matmul + attn),
+            "formula": "tokens x (6 N + 12 L H hd S), N the matmul weights (head "
+                       "included, embedding gather not), no recompute"}
+
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    """Inside a ``with`` block, ``torch.use_deterministic_algorithms(on)``
+    (with cuBLAS's fixed workspace, which it asks for); both put back
+    after.  The mode's filling of every new uninitialized tensor with NaN,
+    a debugging aid that determinism does not need, stays off: it adds a
+    kernel to each allocation."""
+    import torch
+    import torch.utils.deterministic
+
+    was, env = torch.are_deterministic_algorithms_enabled(), os.environ.get(
+        "CUBLAS_WORKSPACE_CONFIG")
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    if on:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(on)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+@contextlib.contextmanager
+def timed_saves():
+    """Inside a ``with`` block, each ``dist.checkpoint.save_checkpoint`` call
+    (the Trainer's saves: the copy to the host, the npz and the commit)
+    timed from a synchronize; yields the list of seconds."""
+    import torch
+
+    from repro_torch.dist import checkpoint as ckpt
+
+    save, seconds = ckpt.save_checkpoint, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    ckpt.save_checkpoint = timed
+    try:
+        yield seconds
+    finally:
+        ckpt.save_checkpoint = save
+
+
+def clone_tree(tree):
+    from repro_torch.models.params import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def step_stats(times_s, flops: dict) -> dict:
+    """Median and p99 step ms, tokens/s and the model FLOPs' share of the
+    card's dense bf16 peak at the median."""
+    ms = sorted(t * 1e3 for t in times_s)
+    med = statistics.median(ms)
+    return {"steps": len(ms), "step_ms_median": med,
+            "step_ms_p99": ms[min(len(ms) - 1, max(0, math.ceil(0.99 * len(ms)) - 1))],
+            "tokens_per_s": flops["tokens"] / med * 1e3,
+            "model_tflops_per_s": flops["flops_per_step"] / med / 1e9,
+            "bf16_peak_share": flops["flops_per_step"] / (med / 1e3) / BF16_OPS_PER_S}
+
+
+def timed_steps_of(step_fn, params, opt, batches) -> tuple[list, list]:
+    """``step_fn`` over ``batches``; (losses, seconds a step, host clock
+    from a synchronize to the loss read back)."""
+    import torch
+
+    losses, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def train_step_profile(step_fn, params, opt, batches) -> dict:
+    """torch.profiler over the last of ``batches``' train steps (the ones
+    before it untimed): the step's wall ms on the host clock, device kernels,
+    busy ms and idle share, and the ops that take most of the host's time
+    and of the device's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for batch in batches[:-1]:
+        params, opt, m = step_fn(params, opt, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[-1])
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - start) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    host = [e for e in events if not str(e.device_type).endswith("CUDA")]
+    return {
+        "wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+        "device_kernels": sum(e.count for e in kernels),
+        "top_host_ops_self_ms": {e.key[:60]: [e.count, e.self_cpu_time_total / 1e3] for e in
+                                 sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]},
+        "top_kernels_ms": {e.key[:60]: [e.count, e.self_device_time_total / 1e3] for e in
+                           sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]},
+        "wall_reason": "the profiler's own cost on the host is in this wall",
+    }
+
+
+def stream_bits_check(phase: str) -> None:
+    """The LM stream's threefry bits and uniforms drawn on the card against
+    the same draws on the CPU, bit for bit (the CPU's are held to JAX's in
+    ``tests/test_torch_train.py``; the card's rest on int32 additions
+    wrapping and on arithmetic shifts there): a vocab-512 batch's base draw
+    and repeat mask as ``lm_batch`` keys them, and a run of elements across
+    the 2**32 boundary, where the counter's high word turns non-zero."""
+    import torch
+
+    from repro_torch.data import synthetic as syn
+
+    k1, k2 = syn.split(syn.fold_in(syn.prng_key(0), 3))
+    draws = {"base": (k1, 0, 4 * 65 * 512), "repeat": (k2, 0, 4 * 65),
+             "high_word": (k1, 2**32 - 4096, 8192)}
+    equal = {}
+    for name, (key, start, count) in draws.items():
+        cpu = syn.random_bits(key, start, count, "cpu")
+        card = syn.random_bits(key, start, count, DEV)
+        equal[name] = {
+            "bits": torch.equal(card.cpu(), cpu),
+            "uniforms": torch.equal(syn.uniform_from_bits(card).cpu().view(torch.int32),
+                                    syn.uniform_from_bits(cpu).view(torch.int32))}
+    emit({"phase": phase, "step": "stream_bits", "draws": {k: v[2] for k, v in draws.items()},
+          "card_equals_cpu": equal})
+    if not all(all(v.values()) for v in equal.values()):
+        raise AssertionError(f"{phase}: the card's stream bits differ from the CPU's: {equal}")
+
+
+def train_phase() -> dict:
+    """The port's training path, then the quickstart's serve half.
+
+    (a) ``examples/train_100m.py``'s ``100m`` preset at full width and all
+    12 layers (d_model 768, 12 heads to 4 KV heads of 64, d_ff 3072, vocab
+    32,000), weights drawn on the card from seed 0, the example's recipe (remat ``"dots"``, bf16 compute on fp32
+    weights, peak lr 3e-4 after max(steps // 10, 5) warmup steps, AdamW):
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens from ``lm_stream``
+    with a checkpoint every TRAIN_CKPT_EVERY, straight through, then the
+    ``--demo-restart`` way (a fresh ``Trainer`` restores the step-20
+    checkpoint and finishes), both under ``torch.use_deterministic_algorithms``
+    (:func:`deterministic`).  Gates: the two runs' losses and final
+    parameters equal bit for bit; every step once (no replay); every loss
+    finite, the last 5 below the first 5.  Then TRAIN_REMAT_STEPS steps
+    under remat ``none``, ``full`` and ``dots`` (losses compared), and
+    ``dots`` with the deterministic algorithms off.
+    (b) ``granite_8b`` at full width, TRAIN_GRANITE_LAYERS of 36 layers:
+    TRAIN_GRANITE_STEPS steps, no checkpoint.
+    (c) (a)'s trained tree planned by the serving recipe (the quickstart's
+    uniform chunk-2 plan and a plan at half its bytes, with the frontier
+    widened to the shift modes and i8 tables, chunks capped at 1, as every
+    served cell; the quickstart's own signed fp16 ``bitplane`` tables would
+    take ~2,800 x the weights' bytes and pack off the kernel), converted,
+    its plan through a checkpoint's ``aux`` and back; ``generate`` of
+    TRAIN_ROWS x TRAIN_PROMPT stream tokens and TRAIN_NEW new on the kernels
+    (``lut_grouped``), its launches counted: as the plan says a forward, no
+    pack off the kernel; first tokens against the plain path on the kernel
+    path's codes (:func:`synced_generate`); 1-layer prefill logits within
+    LOGITS_TOL.  Reported: table bytes, the held-out loss of TRAIN_HELD_OUT
+    stream batches past the last step dense against LUT, next-token argmax
+    agreement, and the LUT streams against the dense ``generate``'s."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import conversion_summary, convert_params
+    from repro_torch.core.planner import ModelPlan, plan_model
+    from repro_torch.data.pipeline import lm_stream
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.examples.train_100m import PRESETS, setup
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_forward, model_specs
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.train.losses import cross_entropy
+    from repro_torch.train.trainer import (
+        TrainConfig,
+        Trainer,
+        init_train_state,
+        make_train_step,
+    )
+
+    phase = "train"
+    out = os.path.join(ROOT, "build", "train_smoke")  # /build/ is git-ignored
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = PRESETS["100m"]
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    ctx, tc, _, data_from = setup(
+        cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, os.path.join(out, "a"), DEV)
+
+    # the stream: TRAIN_STEPS training batches and TRAIN_HELD_OUT past them,
+    # drawn once on the card (the restart replays the same steps' batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = data_from(0)
+    batches = [next(stream) for _ in range(TRAIN_STEPS + TRAIN_HELD_OUT)]
+    torch.cuda.synchronize()
+    data_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    held_out = batches[TRAIN_STEPS:]
+    stream_bits_check(phase)
+    t0 = time.perf_counter()
+    init = init_params(model_specs(cfg), torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    half = TRAIN_STEPS // 2
+    with deterministic(True), timed_saves() as saves:
+        torch.cuda.reset_peak_memory_stats()
+        straight = Trainer(ctx, tc, clone_tree(init), iter(batches))
+        log_a = straight.run(TRAIN_STEPS)
+        peak_a = torch.cuda.max_memory_allocated()
+        # the restart: a fresh Trainer over a directory holding only the
+        # straight run's committed step-`half` checkpoint (hard links: the
+        # bytes that run wrote) restores it and finishes
+        tc_b = dataclasses.replace(tc, out_dir=os.path.join(out, "b"))
+        src = os.path.join(tc.out_dir, "checkpoints", f"step_{half:08d}")
+        dst = os.path.join(tc_b.out_dir, "checkpoints", f"step_{half:08d}")
+        os.makedirs(dst)
+        for name in os.listdir(src):
+            os.link(os.path.join(src, name), os.path.join(dst, name))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second = Trainer(ctx, tc_b, clone_tree(init), iter(batches[half:TRAIN_STEPS]))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        log_b = log_a[:half] + second.run(TRAIN_STEPS)
+    ckpt_dir = os.path.join(tc.out_dir, "checkpoints")
+    step_dir = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    losses_a, losses_b = [r["loss"] for r in log_a], [r["loss"] for r in log_b]
+    params_equal = all(torch.equal(x, y) for x, y in
+                       zip(tree_leaves(straight.params), tree_leaves(second.params)))
+    steps_once = ([r["step"] for r in log_a] == list(range(1, TRAIN_STEPS + 1)) and
+                  [r["step"] for r in log_b] == list(range(1, TRAIN_STEPS + 1)))
+    finite = all(math.isfinite(x) for x in losses_a + losses_b)
+    first5, last5 = statistics.mean(losses_a[:5]), statistics.mean(losses_a[-5:])
+    checks = {"restart_losses_bit_equal": losses_a == losses_b,
+              "restart_params_bit_equal": params_equal, "every_step_once": steps_once,
+              "losses_finite": finite, "loss_falls": last5 < first5,
+              "restart_start_step": second.start_step == half}
+    emit({"phase": phase, "step": "train_100m", "config": dataclasses.asdict(cfg),
+          "params": sum(t.numel() for t in tree_leaves(init)), "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "checkpoint_every": TRAIN_CKPT_EVERY,
+          "remat": ctx.ex.remat, "compute_dtype": str(tc.compute_dtype), "peak_lr": tc.peak_lr,
+          "warmup_steps": tc.warmup_steps, "deterministic_algorithms": True,
+          **step_stats([r["time_s"] for r in log_a], flops), **flops,
+          "restart_run": step_stats([r["time_s"] for r in log_b[half:]], flops),
+          "losses": losses_a, "first5_mean": first5, "last5_mean": last5,
+          "grad_norm_last": log_a[-1]["grad_norm"], "lr_last": log_a[-1]["lr"],
+          "max_memory_allocated_gib": peak_a / 2**30, "data_ms_per_batch": data_ms,
+          "init_s": init_s, "checkpoint_bytes": ckpt_bytes, "save_s": saves,
+          "restore_s": restore_s, "restore_reason": "a fresh Trainer's construction: zero "
+          f"moments, then the step-{half} checkpoint read and put on the card",
+          "checks": checks, "nvidia_smi": smi_line()})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase}: failed checks {failed}")
+    trained = straight.params
+    del second, straight
+
+    # remat policies and the deterministic algorithms, TRAIN_REMAT_STEPS steps each
+    runs = {}
+    some = batches[:TRAIN_REMAT_STEPS]
+    for name, remat, det in (("none", "none", True), ("full", "full", True),
+                             ("dots", "dots", True), ("dots_nondeterministic", "dots", False)):
+        with deterministic(det):
+            step_fn = make_train_step(Ctx(cfg, ex=ExecCfg(remat=remat)), tc)
+            params = clone_tree(init)
+            opt = init_train_state(ctx, tc, params)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = timed_steps_of(step_fn, params, opt, some)
+            runs[name] = {"remat": remat, "deterministic_algorithms": det, "losses": losses,
+                          **step_stats(times[1:], flops),
+                          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "losses_equal_straight_run": losses == losses_a[:TRAIN_REMAT_STEPS]}
+            del params, opt
+    emit({"phase": phase, "step": "remat", "runs": runs,
+          "timing_reason": "the first of each run's steps untimed (allocator warm-up)",
+          "losses_equal_across_remat": runs["none"]["losses"] == runs["full"]["losses"]
+          == runs["dots"]["losses"]})
+    with deterministic(True):
+        params = clone_tree(init)
+        emit({"phase": phase, "step": "step_profile", "remat": "dots",
+              **train_step_profile(make_train_step(ctx, tc), params,
+                                   init_train_state(ctx, tc, params), batches[:2])})
+        del params
+    del init
+
+    # (b) granite_8b at full width, TRAIN_GRANITE_LAYERS layers
+    gcfg = dataclasses.replace(get_config("granite_8b"), num_layers=TRAIN_GRANITE_LAYERS)
+    gflops = train_flops(gcfg, TRAIN_BATCH, TRAIN_SEQ)
+    gctx = Ctx(gcfg, ex=ExecCfg(remat="dots"))
+    gtc = TrainConfig(peak_lr=3e-4, warmup_steps=5, total_steps=TRAIN_GRANITE_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gparams = init_params(model_specs(gcfg), torch.Generator(device=DEV).manual_seed(0),
+                          device=DEV)
+    gstream = lm_stream(gcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=DEV)
+    gbatches = [next(gstream) for _ in range(TRAIN_GRANITE_STEPS)]
+    glosses, gtimes = timed_steps_of(make_train_step(gctx, gtc), gparams,
+                                     init_train_state(gctx, gtc, gparams), gbatches)
+    emit({"phase": phase, "step": "granite_8b", "layers": TRAIN_GRANITE_LAYERS,
+          "published_layers": get_config("granite_8b").num_layers,
+          "d_model": gcfg.d_model, "d_ff": gcfg.d_ff, "vocab": gcfg.vocab_size,
+          "params": sum(t.numel() for t in tree_leaves(gparams)), "remat": "dots",
+          "compute_dtype": "torch.bfloat16", "losses": glosses,
+          **step_stats(gtimes[1:], gflops), **gflops,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "timing_reason": "the first step untimed (allocator warm-up)"})
+    if not all(math.isfinite(x) for x in glosses):
+        raise AssertionError(f"{phase}: granite_8b losses {glosses}")
+    del gparams, gbatches
+    torch.cuda.empty_cache()
+
+    # (c) the quickstart's serve half on (a)'s trained tree
+    t0 = time.perf_counter()
+    uniform = plan_model(trained, float("inf"), max_chunk=2)
+    plan = plan_model(trained, uniform.total_lut_bytes // 2, max_chunk=1, **RECIPE_FRONTIER)
+    plan_s = time.perf_counter() - t0
+    lut, report = convert_params(trained, plan=plan)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0 - plan_s
+    aux_dir = os.path.join(out, "lut_ckpt")
+    ckpt.save_checkpoint(aux_dir, 0, trained, aux={"model_plan": plan.to_json()})
+    restored = ModelPlan.from_json(ckpt.load_aux(aux_dir, ckpt.latest_step(aux_dir))["model_plan"])
+    plan_roundtrip = dict(restored.layers) == dict(plan.layers) and restored.groups == plan.groups
+    kinds = sorted({f"{p.mode}-r{p.fmt.mantissa_radix}-{p.table_format}-c{p.chunk_size}"
+                    for p in plan.layers.values()})
+    per_forward = lut_calls_per_forward(lut, cfg.num_layers)
+    prompts = held_out[0]["tokens"][:TRAIN_ROWS, :TRAIN_PROMPT].contiguous()
+    reset_launches()
+    streams, gen_ms = greedy_generate(lut, cfg, prompts, TRAIN_NEW)
+    torch.cuda.synchronize()
+    launches, off_kernel = read_launches(), plain_pack_codes_calls()
+    expect = {**no_launches(), **{k: v * TRAIN_NEW for k, v in per_forward.items()}}
+    dense_streams, dense_ms = greedy_generate(trained, cfg, prompts, TRAIN_NEW)
+    agree = [sum(x == y for x, y in zip(r, q)) for r, q in zip(streams, dense_streams)]
+    one = compare_logits(cut_logits(lut, cfg, prompts, 1),
+                         cut_logits(lut, cfg, prompts, 1, use_kernels=False))
+    tol = LOGITS_TOL * one["max_abs_ref"]
+    # held-out loss, dense (fp32) against LUT, and next-token agreement
+    dctx = Ctx(cfg, ex=ExecCfg(lut_grouped=True))
+    dense_loss, lut_loss, next_agree = [], [], []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for b in held_out:
+            d = model_forward(trained, {"tokens": b["tokens"]}, dctx)[0]
+            q = model_forward(lut, {"tokens": b["tokens"]}, dctx)[0]
+            dense_loss.append(float(cross_entropy(d, b["labels"], cfg.vocab_size)[0]))
+            lut_loss.append(float(cross_entropy(q, b["labels"], cfg.vocab_size)[0]))
+            next_agree.append((d.argmax(-1) == q.argmax(-1)).float().mean().item())
+            del d, q
+    held_out_s = time.perf_counter() - t0
+    checks = {"launches_as_planned": launches == expect, "no_pack_off_kernel": off_kernel == 0,
+              "plan_through_aux": plan_roundtrip,
+              "prefill_logits_1_layer": one["max_abs_err"] <= tol
+              and one["rel_fro_err"] <= LOGITS_FRO_TOL}
+    emit({"phase": phase, "step": "serve", "plan": plan.summary(), "plans": kinds,
+          "table_bytes": report.table_bytes, "weight_bytes": report.weight_bytes,
+          "uniform_chunk2_table_bytes": uniform.total_lut_bytes,
+          "conversion": conversion_summary(report), "plan_s": plan_s, "convert_s": convert_s,
+          "per_forward": per_forward, "forwards": TRAIN_NEW, "launches": launches,
+          "expected_launches": expect, "plain_pack_codes_calls": off_kernel,
+          "generate_ms": gen_ms, "dense_generate_ms": dense_ms, "rows": TRAIN_ROWS,
+          "prompt": TRAIN_PROMPT, "new": TRAIN_NEW, "streams": streams,
+          "dense_streams": dense_streams, "tokens_agreeing_dense_per_row": agree,
+          "prefill_logits_1_layer": {**one, "tol": tol, "rel_fro_tol": LOGITS_FRO_TOL},
+          "held_out_loss": {"dense_fp32": dense_loss, "lut": lut_loss,
+                            "batches": TRAIN_HELD_OUT, "steps_from": TRAIN_STEPS},
+          "held_out_next_token_argmax_agree": next_agree, "held_out_s": held_out_s,
+          "checks": checks,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase}: failed serve checks {failed}")
+    synced_generate(phase, lut, cfg, prompts, TRAIN_SYNC_NEW, per_forward["bitplane_pack"],
+                    "the decode steps attend over K/V that each path rounded to bf16 on its own")
+    del lut, trained
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases",
         default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
                 "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,"
-                "tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper",
+                "tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper,train",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -5583,6 +6054,8 @@ def main(argv=None) -> int:
     bsrv = run("bmm_serve", bmm_serve_phase, BMM_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
     paper = run("paper", paper_phase, args.iters)
+    torch.cuda.empty_cache()
+    train = run("train", train_phase)
     rows = []
     for k, s, path, names in ((kern, srv, "serve", ("lut_affine", "lut_affine_grouped")),
                               (tkern, tsrv, "tl1_serve", ("lut_tl1", "lut_tl1_grouped")),
@@ -5602,7 +6075,8 @@ def main(argv=None) -> int:
                              ("minitron_serve", mini), ("mixtral_serve", mix),
                              ("vlm_serve", vlm), ("vlm_generate", vlm_gen),
                              ("rwkv_serve", rwkv), ("hybrid_generate", hyb),
-                             ("encdec_generate", enc), ("paper", paper)):
+                             ("encdec_generate", enc), ("paper", paper),
+                             ("train_serve", train)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -5627,7 +6101,8 @@ def main(argv=None) -> int:
                                      ("vlm_generate", vlm_gen), ("rwkv_serve", rwkv),
                                      ("hybrid_generate", hyb), ("encdec_generate", enc),
                                      ("moe_serve", msrv),
-                                     ("bmm_serve", bsrv), ("paper", paper))
+                                     ("bmm_serve", bsrv), ("paper", paper),
+                                     ("train_serve", train))
              if s is not None}
     if pkern is not None and paths:
         m = pkern["layers"]["binary"]

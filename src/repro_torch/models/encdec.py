@@ -27,7 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import PSpec
-from repro_torch.models.transformer import embed_tokens, layer_params, lm_logits, stack_specs
+from repro_torch.models.transformer import embed_tokens, lm_logits, stack_specs, unbind_layers
 
 
 def encdec_specs(cfg: ModelConfig) -> dict:
@@ -64,8 +64,7 @@ def encode(params: dict, enc_embeds: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     pos = L.sinusoidal_embedding(S, d, device=enc_embeds.device)
     x = enc_embeds + pos[None].to(enc_embeds.dtype)
     mask = torch.ones((B, 1, S, S), dtype=torch.bool, device=x.device)
-    for i in range(cfg.encoder_layers):
-        lp = layer_params(params["encoder"], i)
+    for lp in unbind_layers(params["encoder"], cfg.encoder_layers):
         h = L.apply_norm(lp["ln1"], x, cfg)
         yq, yk, yv = L.fused_linears(lp["attn"], ("wq", "wk", "wv"), h, ctx)
         q = L._split_heads(yq, cfg.num_heads)
@@ -90,8 +89,7 @@ def decode_blocks(params: dict, x, ctx: Ctx, positions, cache=None, meta=None, e
     ``cache["layers"]`` in place), cross-attention over the cache's static
     cross K/V or, without a cache, over ``enc_out``'s, then the MLP."""
     cfg = ctx.cfg
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["decoder"], i)
+    for i, lp in enumerate(unbind_layers(params["decoder"], cfg.num_layers)):
         lc = None
         if cache is not None:
             lc = {name: buf[i] for name, buf in cache["layers"].items()}
@@ -145,9 +143,9 @@ def forward(
                     f"{enc_embeds.shape[1]}"
                 )
             enc_out = encode(params, enc_embeds, ctx)
-            for i in range(cfg.num_layers):
-                k, v = _cross_kv_from(layer_params(params["decoder"]["cross_attn"], i),
-                                      enc_out, ctx)
+            layers = unbind_layers(params["decoder"]["cross_attn"], cfg.num_layers)
+            for i, lp in enumerate(layers):
+                k, v = _cross_kv_from(lp, enc_out, ctx)
                 cross["k"][i].copy_(k)
                 cross["v"][i].copy_(v)
     else:

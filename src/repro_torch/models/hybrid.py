@@ -64,7 +64,7 @@ def forward(
     """Returns ``(logits, cache, aux)``; ``cache`` (``layers``: each mamba
     layer's ``conv`` and ``state``; ``shared_attn``: each invocation's
     ``k``/``v``; ``pos``/``valid``/``index``) is updated in place."""
-    from repro_torch.models.transformer import embed_tokens, layer_params, lm_logits
+    from repro_torch.models.transformer import embed_tokens, lm_logits, unbind_layers
     from repro_torch.serve._cache import advance_meta
 
     cfg = ctx.cfg
@@ -79,10 +79,11 @@ def forward(
         cache, meta = advance_meta(cache, positions, None)
 
     segs = segments(cfg)
+    mamba = unbind_layers(params["mamba"], sum(segs))
     start = 0
     for i, g in enumerate(segs):
         for layer in range(start, start + g):
-            lp = layer_params(params["mamba"], layer)
+            lp = mamba[layer]
             lc = ({name: buf[layer] for name, buf in cache["layers"].items()}
                   if cache is not None else None)
             h, new_c = mamba_block(lp["mix"], L.apply_norm(lp["ln"], x, cfg), ctx, cache=lc)

@@ -53,7 +53,13 @@ class ExecCfg:
     inputs lie on the card (False asks for the plain PyTorch versions);
     ``lut_grouped`` fuses a pre-stacked group's projections into one
     grouped launch; ``logits="last"`` keeps only the final position's
-    head.  ``ssd_chunk`` is the Mamba-2 SSD scan's chunk (0: the largest of
+    head.  ``remat`` is the decoder blocks' activation checkpointing while
+    gradients are recorded (training): ``"full"`` keeps only each block's
+    input and recomputes the rest in the backward pass, ``"dots"`` also
+    keeps every matmul's output, ``"dots_no_batch"`` those of the products
+    without a batch dimension (the projections, not attention's), and
+    ``"none"`` keeps everything; without gradients it changes nothing.
+    ``ssd_chunk`` is the Mamba-2 SSD scan's chunk (0: the largest of
     64, 32, ..., 1 dividing the length) and ``ssd_bf16`` runs its large
     intra-chunk tensors in bf16 on a prefill without a cache (the decay
     cumsums and the carry stay fp32), as the reference's knobs."""
@@ -66,8 +72,11 @@ class ExecCfg:
     logits: str = "all"  # all | last
     ssd_chunk: int = 0  # 0 = auto
     ssd_bf16: bool = False
+    remat: str = "full"  # full | dots | dots_no_batch | none
 
     def __post_init__(self):
+        if self.remat not in ("full", "dots", "dots_no_batch", "none"):
+            raise ValueError(f"unknown remat policy {self.remat!r}")
         if self.linear_mode == "onehot_mxu":
             raise NotImplementedError(
                 "linear_mode='onehot_mxu' is not ported yet (ROADMAP.md, Queue 1)"

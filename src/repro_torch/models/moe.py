@@ -66,8 +66,9 @@ def moe_specs(cfg: ModelConfig) -> dict:
 def _route(x: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig):
     """(T, d) -> combine weights (T, k), expert ids (T, k) int64, aux loss.
     The router product stays an fp32 ``matmul``, as the reference leaves
-    it to XLA."""
-    logits = x.to(torch.float32) @ router_w
+    it to XLA; a router cast to bf16 for a training step's compute widens
+    to fp32 there, as jnp's promotion does."""
+    logits = x.to(torch.float32) @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     weights = weights / weights.sum(-1, keepdim=True)
@@ -274,6 +275,7 @@ def moe_ffn(p: dict, x: torch.Tensor, ctx: Ctx):
     out, aux = _moe_local(x.reshape(B * S, d), experts, ctx.cfg, ctx.ex)
     out = out.reshape(B, S, d)
     if "shared" in p:
-        gate = torch.sigmoid(x.to(torch.float32) @ p["shared_gate"]).to(x.dtype)
+        gate = x.to(torch.float32) @ p["shared_gate"].to(torch.float32)
+        gate = torch.sigmoid(gate).to(x.dtype)
         out = out + gate * mlp(p["shared"], x, ctx)
     return out, aux

@@ -43,6 +43,53 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_flatten(tree) -> tuple[list, Callable[[list], Any]]:
+    """``(leaves, unflatten)``: the leaves of a nested dict / list / tuple in
+    JAX's flatten order (a dict's keys sorted, ``None`` holds no leaf), and
+    the function that rebuilds the same structure from a list of as many
+    leaves.  Checkpoints and the optimizer walk trees in this order, so a
+    tree's ``leaf_i`` is the same leaf in both packages."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            done = {k: walk(node[k]) for k in sorted(node)}
+            return {k: done[k] for k in node}  # the tree keeps its key order
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if node is None:
+            return None
+        leaves.append(node)
+        return len(leaves) - 1
+
+    skeleton = walk(tree)
+
+    def unflatten(new_leaves: list):
+        if len(new_leaves) != len(leaves):
+            raise ValueError(f"tree has {len(leaves)} leaves, got {len(new_leaves)}")
+
+        def build(node):
+            if isinstance(node, dict):
+                return {k: build(v) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(build(v) for v in node)
+            return None if node is None else new_leaves[node]
+
+        return build(skeleton)
+
+    return leaves, unflatten
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in :func:`tree_flatten`'s order."""
+    return tree_flatten(tree)[0]
+
+
+def count_params(tree) -> int:
+    """Number of parameters a :class:`PSpec` tree declares."""
+    return sum(math.prod(s.shape) for s in tree_leaves(tree))
+
+
 def _fan_in(spec: PSpec) -> int:
     # convention: last axis is the output axis of a projection, so a
     # stacked (L, q, p) leaf counts L*q -- the reference's rule, kept as is

@@ -234,14 +234,13 @@ def forward(params, tokens, ctx: Ctx, positions=None, cache=None, embeds=None):
     shift_c, wkv}, "index"}: O(1) state, no pos/valid ring) is updated in
     place and ``index`` advances by S.  ``embeds`` is accepted and ignored,
     as in the reference, and ``positions`` is read for its width only."""
-    from repro_torch.models.transformer import embed_tokens, layer_params, lm_logits
+    from repro_torch.models.transformer import embed_tokens, lm_logits, unbind_layers
     from repro_torch.serve._cache import advance_meta
 
     cfg = ctx.cfg
     x = embed_tokens(params, tokens)
     x = L.apply_norm(params["ln0"], x, cfg)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
+    for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
         lc = {name: buf[i] for name, buf in cache["layers"].items()} if cache else {}
         h, new_a, new_w = rwkv_time_mix(
             lp["time"], L.apply_norm(lp["ln1"], x, cfg), ctx, lc.get("shift_a"), lc.get("wkv")

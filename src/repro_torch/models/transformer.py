@@ -4,9 +4,13 @@ attention (counterpart of ``repro/models/transformer.py``).
 Layer parameters are stacked along a leading ``layers`` axis, as in the
 reference; the block loop takes layer ``l``'s views of every leaf
 (``tables[l]``, ``w[l]``, a cache leaf's ``[l]``) -- nothing is re-stacked.
+While autograd records (training), each block runs under
+``torch.utils.checkpoint`` by the ``ExecCfg.remat`` policy, as the
+reference wraps its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
@@ -53,13 +57,55 @@ def decoder_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def layer_params(tree, i: int):
-    """Layer ``i``'s views of a stacked block tree."""
+def unbind_layers(tree, n: int) -> list:
+    """The first ``n`` layers' views of a stacked block tree, each tensor
+    leaf split by one ``unbind``: under autograd its backward stacks the
+    layers' gradients in one op, where ``n`` separate indexings would each
+    add a zero-padded gradient of the whole stacked leaf.  Every family's
+    block loop takes its layers' views here."""
     if isinstance(tree, dict):
-        return {k: layer_params(v, i) for k, v in tree.items()}
+        parts = {k: unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
     if isinstance(tree, (LUTLinear, LUTGroup)):
-        return tree.layer(i)
-    return tree[i]
+        return [tree.layer(i) for i in range(n)]
+    return list(torch.unbind(tree))[:n]
+
+
+def layer_params(tree, i: int):
+    """Layer ``i``'s views of a stacked block tree (one layer's tables or
+    weights, outside a block loop)."""
+    return unbind_layers(tree, i + 1)[i]
+
+
+# the ops whose outputs the selective remat policies keep (torch's
+# counterparts of jax.checkpoint_policies.checkpoint_dots and
+# checkpoint_dots_with_no_batch_dims): a projection's ``x @ W`` dispatches
+# as mm / addmm, attention's einsums as bmm
+_DOTS = {
+    "dots": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def _remat_context(name: str):
+    """``torch.utils.checkpoint``'s ``context_fn`` for remat policy
+    ``name`` (``"full"``: save nothing, the default context)."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+        noop_context_fn,
+    )
+
+    if name == "full":
+        return noop_context_fn
+    saved = {getattr(torch.ops.aten, op).default for op in _DOTS[name]}
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -123,13 +169,24 @@ def forward(
             cache, positions, ctx.cfg.sliding_window, token_mask
         )
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(ctx.cfg.num_layers):
+    remat = ctx.ex.remat != "none" and torch.is_grad_enabled()
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        context_fn = _remat_context(ctx.ex.remat)
+    blocks = unbind_layers(params["blocks"], ctx.cfg.num_layers)
+    for i, lp in enumerate(blocks):
         lc = None
         if cache is not None:
             lc = {name: buf[i] for name, buf in cache["layers"].items()}
             lc["_meta"] = meta
-        lp = layer_params(params["blocks"], i)
-        x, layer_aux = _block_apply(lp, x, ctx, positions, lc)
+        if remat:
+            x, layer_aux = checkpoint(
+                _block_apply, lp, x, ctx, positions, lc, use_reentrant=False,
+                context_fn=context_fn, preserve_rng_state=False,
+            )
+        else:
+            x, layer_aux = _block_apply(lp, x, ctx, positions, lc)
         if layer_aux is not None:
             aux = aux + layer_aux
     x = L.apply_norm(params["ln_f"], x, ctx.cfg)
