@@ -5,7 +5,7 @@
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
                                     vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,
                                     tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,
-                                    bmm_serve,paper,train]
+                                    bmm_serve,paper,train,audit]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -309,6 +309,17 @@ Phases, one JSON object per line:
    ``aux`` and ``generate`` on the kernels: launches as planned, no pack off
    the kernel, synchronized first tokens, 1-layer prefill logits; the
    held-out loss dense against LUT reported.
+12. ``audit``  the audit (``repro_torch.audit``) on the kernel path
+   (:func:`audit_phase`): the reference's three audit points at full
+   width -- granite_8b at 2 of 36 layers under the serving recipe and
+   under TL1 (exact activations), qwen2_moe_a2_7b at 2 of 24 with its
+   experts converted, chunks capped at 1 -- each through one eager prefill
+   and one eager decode step recorded with every kernel as an opaque leaf:
+   the multiplier-free, zero-copy, in-place, plan-consistency and overflow
+   rules all empty, and each step's leaves per kernel equal to the
+   launches the wrappers counted in it.  A seeded dense ``wq`` spliced
+   into the granite tree must trip the multiplier-free rule.  Each point's
+   decode census (top ops), rule counts and seconds are printed.
 
 The engine's serve phases (3, 3c, 3d, 3e, 3f, 5, 7, 9) serve their requests on the kernels
 with the engine's decode step captured as a CUDA graph and replayed (the
@@ -5975,13 +5986,139 @@ def train_phase() -> dict:
     return {"launches": launches}
 
 
+# the audit phase: the reference's three audit points at full width, cut in
+# depth as the train phase cuts granite_8b (2 of 36) and as moe_serve cuts
+# qwen2_moe_a2_7b (2 of 24)
+AUDIT_LAYERS = {"granite_weight": TRAIN_GRANITE_LAYERS, "granite_tl1": TRAIN_GRANITE_LAYERS,
+                "moe_weight_experts": 2}
+AUDIT_CENSUS_TOP = 12
+
+
+def audit_model(pt):
+    """One audit point at full width on the card: seeded weights, the cut
+    of AUDIT_LAYERS, and the plan the card's kernels serve -- the serving
+    recipe with chunks capped at 1 (:func:`recipe_plans`) for the weight
+    points (the point's own fp16 bitplane tables are a type no weight
+    kernel takes), the point's own TL1 plan for ``granite_tl1``; converted.
+    Returns (published config, config, plan, converted tree)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import convert_params
+    from repro_torch.core.planner import plan_model
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params
+
+    full = get_config(pt.arch)
+    cfg = dataclasses.replace(full, num_layers=AUDIT_LAYERS[pt.name])
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(model_specs(cfg), gen, device=DEV)
+    if "tl1" in pt.families:
+        mplan = plan_model(params, float("inf"), families=pt.families,
+                           tl1_act_bits=pt.tl1_act_bits)
+    else:
+        mplan, _ = recipe_plans(params, convert_experts=pt.convert_experts)
+    lut, report = convert_params(params, plan=mplan, convert_experts=pt.convert_experts)
+    del params
+    if report.table_bytes != mplan.total_lut_bytes:
+        raise AssertionError(f"tables {report.table_bytes} B != plan {mplan.total_lut_bytes} B")
+    return full, cfg, mplan, lut
+
+
+def audit_phase() -> dict:
+    """The audit (``repro_torch.audit``) over the port's serving steps on the
+    kernels: per point one eager prefill and one eager decode step under the
+    recorder, every rule class empty, each step's opaque kernel leaves equal
+    to the launches the wrappers counted in it; then a seeded dense fallback
+    (``wq`` left unconverted at full width) must trip ``multiplier_free``.
+    Any failure raises."""
+    import torch
+
+    from repro_torch.audit.points import (
+        AUDIT_POINTS,
+        audit_artifacts,
+        point_artifacts,
+        trace_steps,
+    )
+    from repro_torch.audit.rules import multiplier_free_violations, planned_weight_shapes
+    from repro_torch.audit.walker import kernel_leaves, record
+    from repro_torch.serve import make_cache
+
+    for pt in AUDIT_POINTS:
+        t0 = time.perf_counter()
+        full, cfg, mplan, lut = audit_model(pt)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (pt.batch, pt.prefill_len), generator=gen,
+                               dtype=torch.int32)
+        art = point_artifacts(pt, cfg, mplan, lut, tokens.to(DEV), DEV)
+        t1 = time.perf_counter()
+        art.update(trace_steps(art))
+        torch.cuda.synchronize()
+        record_s = time.perf_counter() - t1
+        entry = audit_artifacts(art)
+        leaves = {step: kernel_leaves(art[f"{step}_ops"]) for step in ("prefill", "decode")}
+        census = entry["census"]["decode"]
+        top = dict(sorted(census.items(), key=lambda kv: -kv[1])[:AUDIT_CENSUS_TOP])
+        line = {
+            "phase": "audit", "step": "point", "name": pt.name, "arch": pt.arch,
+            "depth": {"layers": cfg.num_layers, "published": full.num_layers},
+            "plan": mplan.summary(),
+            "plans": sorted({
+                f"{p.mode}-r{p.fmt.mantissa_radix}-{p.table_format}-c{p.chunk_size}"
+                if p.table_family == "weight" else f"tl1-act{p.act_bits}"
+                for p in mplan.layers.values()
+            }),
+            "rules": {rule: len(v) for rule, v in entry["rules"].items()},
+            "violations": [v for vs in entry["rules"].values() for v in vs][:8],
+            "ops": {step: sum(entry["census"][step].values()) for step in ("prefill", "decode")},
+            "decode_census_top": top,
+            "kernel_leaves": leaves, "launches": art["launches"],
+            "leaves_equal_launches": all(leaves[s] == art["launches"][s] for s in leaves),
+            "build_seconds": build_s, "record_seconds": record_s,
+        }
+        emit(line)
+        if any(entry["rules"].values()):
+            raise AssertionError(f"audit {pt.name}: rules violated: {line['violations']}")
+        if not line["leaves_equal_launches"]:
+            raise AssertionError(f"audit {pt.name}: leaves {leaves} != launches {art['launches']}")
+        if not leaves["decode"] or not leaves["prefill"]:
+            raise AssertionError(f"audit {pt.name}: a step launched no kernel: {leaves}")
+        if pt.name == "granite_weight":
+            # the seeded dense fallback: wq left unconverted, at full width
+            wq = lut["blocks"]["attn"]["wq"]
+            q, p = wq.plan.in_features, wq.plan.out_features
+            g = torch.Generator(device=DEV).manual_seed(2)
+            w = torch.randn((cfg.num_layers, q, p), generator=g, device=DEV) / math.sqrt(q)
+            attn = {**lut["blocks"]["attn"], "wq": {"w": w}}
+            broken = {**lut, "blocks": {**lut["blocks"], "attn": attn}}
+            cache = make_cache(cfg, pt.batch, pt.cache_len, art["ctx"], device=DEV)
+            with torch.no_grad():
+                _, ops = record(art["decode"], broken, cache,
+                                torch.zeros((pt.batch, 1), dtype=torch.int32, device=DEV))
+            hits = multiplier_free_violations(ops, weight_shapes=planned_weight_shapes(mplan))
+            emit({"phase": "audit", "step": "dense_fallback", "name": pt.name,
+                  "spliced": "blocks/attn/wq", "weight": [cfg.num_layers, q, p],
+                  "flagged": [v.to_json() for v in hits],
+                  "kernel_leaves": kernel_leaves(ops)})
+            if not hits or {v.primitive for v in hits} != {"mm"}:
+                raise AssertionError(f"audit: the dense fallback was not flagged: {hits}")
+            del w, attn, broken, cache, ops
+        del art, lut
+        torch.cuda.empty_cache()
+        emit({"phase": "audit", "step": "point_seconds", "name": pt.name,
+              "seconds": time.perf_counter() - t0})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases",
         default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
                 "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,"
-                "tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper,train",
+                "tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper,train,"
+                "audit",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -6056,6 +6193,8 @@ def main(argv=None) -> int:
     paper = run("paper", paper_phase, args.iters)
     torch.cuda.empty_cache()
     train = run("train", train_phase)
+    torch.cuda.empty_cache()
+    run("audit", audit_phase)
     rows = []
     for k, s, path, names in ((kern, srv, "serve", ("lut_affine", "lut_affine_grouped")),
                               (tkern, tsrv, "tl1_serve", ("lut_tl1", "lut_tl1_grouped")),

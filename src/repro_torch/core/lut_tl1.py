@@ -131,11 +131,14 @@ def pack_ternary(t: torch.Tensor) -> torch.Tensor:
     return (idx[0::2] | (idx[1::2] << 4)).to(torch.uint8)
 
 
-def unpack_indices(packed: torch.Tensor) -> torch.Tensor:
-    """(..., kb, p) uint8 -> (..., 2*kb, p) int32 base-3 indices in 0..8."""
-    b = packed.to(torch.int32)
-    stacked = torch.stack([b & 15, b >> 4], dim=-2)  # (..., kb, 2, p)
-    return stacked.reshape(*packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])
+def unpack_indices(packed: torch.Tensor, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """(..., kb, p) uint8 -> (..., 2*kb, p) base-3 indices in 0..8, as
+    ``dtype``.  The nibbles are split on the bytes as stored and widened
+    once after the split, so no widened copy of the packed table is made."""
+    stacked = torch.stack([packed & 15, packed >> 4], dim=-2)  # (..., kb, 2, p) uint8
+    return stacked.to(dtype).reshape(
+        *packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1]
+    )
 
 
 def build_tl1_tables(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -21,7 +21,8 @@ Dispatch: a CUDA tensor with ``use_kernels=True`` launches the kernel in
 ``csrc/binary_matmul.cu`` or raises; a CPU tensor, or
 ``use_kernels=False`` (an explicit request for the plain version), runs
 ``ref.py``.  The launch count is :data:`LAUNCHES`, counted right where
-the kernel launches.
+the kernel launches, and each launch is reported to the audit's recorder
+when one is active (``kernels/common.py::RECORDER``).
 
 ``scales`` are host values, each ``+-2**e`` (the plane scales of a
 bitplane plan are): they travel with the launch, so nothing is read back.
@@ -34,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 from repro_torch.kernels.binary_matmul.ref import binary_matmul_ref
 from repro_torch.kernels.lut_affine.ops import host_scales, plane_shifts
 
@@ -189,6 +190,8 @@ def _launch(planes: torch.Tensor, W: torch.Tensor, scales: np.ndarray) -> torch.
         msg = lib.binary_matmul_error_string(err).decode()
         raise RuntimeError(f"binary_matmul: kernel launch failed with error {err} ({msg})")
     LAUNCHES["binary_matmul"] += 1
+    if common.RECORDER is not None:
+        common.RECORDER("binary_matmul", (Ak, Wk), (out,))
     return out if pk == p else out[:, :p]
 
 

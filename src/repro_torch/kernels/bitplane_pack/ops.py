@@ -13,7 +13,9 @@ contract (torch's CPU and CUDA conversions to fp16 give it other bits).
 Dispatch: a CUDA tensor with ``use_kernels=True`` launches the kernel in
 ``csrc/bitplane_pack.cu`` or raises; a CPU tensor, or ``use_kernels=False``
 (an explicit request for the plain version), runs ``ref.py``.  The launch
-count is :data:`LAUNCHES`, counted right where the kernel launches.
+count is :data:`LAUNCHES`, counted right where the kernel launches, and
+each launch is reported to the audit's recorder when one is active
+(``kernels/common.py::RECORDER``).
 
 :func:`pack` is the plan-taking entry the model calls in place of
 ``pack_codes``; :func:`kernel_args` maps a plan onto the kernel's
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch.core.lut import LUTPlan, pack_codes
 from repro_torch.core.quantize import FixedPointFormat
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 from repro_torch.kernels.bitplane_pack.ref import bitplane_pack_ref, pack_plan
 
 LAUNCHES = {"bitplane_pack": 0}
@@ -116,6 +118,8 @@ def launch(x2: torch.Tensor, out: torch.Tensor, *, kind: str, m: int, bits: int,
         msg = lib.bitplane_pack_error_string(err).decode()
         raise RuntimeError(f"bitplane_pack: kernel launch failed with CUDA error {err} ({msg})")
     LAUNCHES["bitplane_pack"] += 1
+    if common.RECORDER is not None:
+        common.RECORDER("bitplane_pack", (x2,), (out,))
 
 
 def _pack(x: torch.Tensor, plan: LUTPlan, args: dict, use_kernels: bool) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Shared helpers for the port's Hopper kernels (counterpart of
-``repro/kernels/common.py``), and the launch counts of a captured CUDA
-graph: :func:`captured_counts` and :func:`replay_counted`."""
+``repro/kernels/common.py``), the launch counts of a captured CUDA
+graph (:func:`captured_counts` and :func:`replay_counted`) and the hook
+through which the audit records each launch (:data:`RECORDER`)."""
 from __future__ import annotations
 
 from typing import Callable, TypeVar
@@ -59,6 +60,15 @@ def check_acc_contract(op: str, plan, kernel_acc_dtype: str) -> None:
 
 def ceil_to(x: int, mult: int) -> int:
     return -(-x // mult) * mult
+
+
+# The active launch recorder, or None.  The kernels are bound with ctypes, so
+# no PyTorch dispatcher sees a launch: each wrapper, right where it counts a
+# launch, reports it as ``RECORDER(name, inputs, outputs)`` (the kernel's
+# name, the tensors it reads and the tensors it writes) when this is set.
+# ``audit/walker.py::record`` sets it for the length of one recording; with
+# none active a report costs one ``None`` check.
+RECORDER: Callable[[str, tuple, tuple], None] | None = None
 
 
 def launch_counters() -> tuple[dict, ...]:

@@ -8,7 +8,9 @@ Dispatch: a CUDA tensor with ``use_kernels=True`` launches the kernel in
 ``csrc/lut_affine.cu`` or raises; a CPU tensor, or ``use_kernels=False``
 (an explicit request for the plain version, made by the tests and the
 comparison phase of ``chip_smoke.py``), runs ``ref.py``.  Each wrapper
-counts its launches in :data:`LAUNCHES`, right where it launches.
+counts its launches in :data:`LAUNCHES`, right where it launches, and
+reports each to the audit's recorder when one is active
+(``kernels/common.py::RECORDER``).
 
 ``scales`` are host values (a sequence, numpy array or CPU tensor): the
 kernels take each plane scale as an integer exponent and a sign, passed
@@ -37,7 +39,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 from repro_torch.kernels.common import check_acc_contract
 from repro_torch.kernels.lut_affine.ref import (
     EXPERT_ROWS,
@@ -260,12 +262,13 @@ def lut_affine(
         raise ValueError(f"codes have {k} chunks, tables {k2}")
     codes2 = codes.reshape(-1, n, k)
     if use_kernels and codes2.is_cuda:
-        out, held, head, dims = _operands(
-            codes2.contiguous(), tables[None], scales, shift_bits
-        )
+        codes2 = codes2.contiguous()
+        out, held, head, dims = _operands(codes2, tables[None], scales, shift_bits)
         err = _lib().lut_affine_launch(*head, *dims, _stream(codes2))
         _raise_on(err, "lut_affine")
         LAUNCHES["lut_affine"] += 1
+        if common.RECORDER is not None:
+            common.RECORDER("lut_affine", (codes2, held[0]), (out,))
         out = out[0]
     else:
         s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
@@ -300,6 +303,8 @@ def lut_affine_grouped(
         err = _lib().lut_affine_grouped_launch(*head, G, *dims, _stream(codes2))
         _raise_on(err, "lut_affine_grouped")
         LAUNCHES["lut_affine_grouped"] += 1
+        if common.RECORDER is not None:
+            common.RECORDER("lut_affine_grouped", (codes2, held[0]), (out,))
     else:
         s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
         out = lut_affine_grouped_ref(codes2, tables, s, shift_bits)
@@ -361,4 +366,6 @@ def lut_affine_experts(
     )
     _raise_on(err, "lut_affine_experts")
     LAUNCHES["lut_affine_experts"] += 1
+    if common.RECORDER is not None:
+        common.RECORDER("lut_affine_experts", (codes, tables, offsets), (out,))
     return out

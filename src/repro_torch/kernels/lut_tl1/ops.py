@@ -13,7 +13,9 @@ Dispatch: a CUDA tensor with ``use_kernels=True`` launches the kernel in
 ``csrc/lut_tl1.cu`` or raises; a CPU tensor, or ``use_kernels=False`` (an
 explicit request for the plain version, made by the tests and the
 comparison phases of ``chip_smoke.py``), runs ``ref.py``.  Each wrapper
-counts its launches in :data:`LAUNCHES`, right where it launches.
+counts its launches in :data:`LAUNCHES`, right where it launches, and
+reports each to the audit's recorder when one is active
+(``kernels/common.py::RECORDER``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, common
 from repro_torch.kernels.common import check_acc_contract
 from repro_torch.kernels.lut_tl1.ref import lut_tl1_grouped_ref, lut_tl1_ref
 
@@ -148,6 +150,8 @@ def _launch(entry: str, acts: torch.Tensor, tables: torch.Tensor, plan=None) -> 
             f"{entry}: kernel launch failed with CUDA error {err} ({msg})"
         )
     LAUNCHES[entry] += 1
+    if common.RECORDER is not None:
+        common.RECORDER(entry, (acts, tables), (out,))
     return out
 
 

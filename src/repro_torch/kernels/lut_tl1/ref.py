@@ -36,7 +36,7 @@ def lut_tl1_ref(
     step = max(1, max_gather_bytes // max(1, per_row))
     for r0 in range(0, kb, step):
         r1 = min(kb, r0 + step)
-        idx = unpack_indices(tables[r0:r1]).to(torch.int64)  # (2*(r1-r0), p)
+        idx = unpack_indices(tables[r0:r1], torch.int64)  # (2*(r1-r0), p)
         ar = torch.arange(2 * (r1 - r0), device=tables.device)[:, None]
         g = lut[:, 2 * r0 : 2 * r1][:, ar, idx]  # (B, 2*(r1-r0), p)
         out += g.to(acc_dtype).sum(dim=1)

@@ -146,7 +146,7 @@ def _ragged_tl1(
     expert_of = torch.repeat_interleave(
         torch.arange(E, device=acts.device), group_sizes, output_size=T
     )
-    idx = unpack_indices(tables).to(torch.int64)  # (E, G, 2kb, p)
+    idx = unpack_indices(tables, torch.int64)  # (E, G, 2kb, p)
     lut = build_act_lut(acts)  # (T, 2kb, 9)
     acc = torch.float32 if lut.is_floating_point() else torch.int32
     out = torch.empty((G, T, p), dtype=acc, device=acts.device)

@@ -1900,3 +1900,58 @@ def test_cross_group_lone_members_match_plain_on_card(cuda_device, rows, members
         _close(got, want[g])
     assert ops.LAUNCHES["lut_affine"] == before + len(members)
     assert ops.TABLE_COPIES["table_operand"] == copies
+
+
+def _audit_launch(kernel: str, dev):
+    """One launch of ``kernel`` on small seeded operands: (the call, the
+    operand shapes the launch reads, the shape it writes)."""
+    rng = np.random.default_rng(33)
+    B, n, k, E, p, G = 4, 3, 64, 32, 128, 2
+    codes = torch.from_numpy(rng.integers(0, E, (B, n, k)).astype(np.int32)).to(dev)
+    scales = np.float32([1.0, 0.5, -0.25])
+
+    def tables(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
+    if kernel == "lut_affine":
+        t = tables(k, E, p)
+        return (lambda: ops.lut_affine(codes, t, scales)), [(B, n, k), (1, k, E, p)], (1, B, p)
+    if kernel == "lut_affine_grouped":
+        t = tables(G, k, E, p)
+        return (lambda: ops.lut_affine_grouped(codes, t, scales)), [(B, n, k), (G, k, E, p)], (
+            G, B, p)
+    if kernel == "lut_affine_experts":
+        experts, T = 4, 8
+        t = tables(experts, G, k, E, p)
+        rows = torch.from_numpy(rng.integers(0, E, (T, n, k)).astype(np.int32)).to(dev)
+        sizes = torch.tensor([3, 0, 4, 1], dtype=torch.int32, device=dev)
+        return (lambda: ops.lut_affine_experts(rows, t, scales, sizes)), [
+            (T, n, k), (experts, G, k, E, p), (experts + 1,)], (G, T, p)
+    kb = 16
+    acts = torch.from_numpy(rng.integers(-127, 128, (B, 4 * kb)).astype(np.int32)).to(dev)
+    packed = torch.from_numpy(rng.integers(0, 256, (G, kb, p)).astype(np.uint8)).to(dev)
+    if kernel == "lut_tl1":
+        return (lambda: tl1_ops.lut_tl1(acts, packed[0])), [(B, 4 * kb), (1, kb, p)], (1, B, p)
+    if kernel == "lut_tl1_grouped":
+        return (lambda: tl1_ops.lut_tl1_grouped(acts, packed)), [(B, 4 * kb), (G, kb, p)], (
+            G, B, p)
+    x = torch.from_numpy(rng.standard_normal((B, k)).astype(np.float32)).to(dev)
+    return (lambda: pack_ops.bitplane_pack(x, kind="shift", m=1, signed=True, radix=4)), [
+        (B, k)], (B, n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lut_affine", "lut_affine_grouped", "lut_affine_experts",
+                                    "lut_tl1", "lut_tl1_grouped", "bitplane_pack"])
+def test_each_audited_kernel_is_one_opaque_leaf_on_card(cuda_device, kernel):
+    """The audit's recorder sees a launch as one opaque leaf named after the
+    kernel, with the shapes of the operands the launch read and wrote."""
+    from repro_torch.audit.walker import kernel_leaves, record
+
+    call, in_shapes, out_shape = _audit_launch(kernel, cuda_device)
+    call()  # built and bound outside the recording
+    _, recorded = record(call)
+    leaves = [op for op in recorded if op.opaque]
+    assert kernel_leaves(recorded) == {kernel: 1}
+    assert [m.shape for m in leaves[0].inputs] == in_shapes
+    assert [m.shape for m in leaves[0].outputs] == [out_shape]
