@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
-    python3 chip_smoke.py [--phases device,pack_kernel,kernel,serve,paged_serve,
+    python3 chip_smoke.py [--phases device,autotune,pack_kernel,kernel,serve,paged_serve,
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
                                     vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,
                                     tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,
@@ -13,6 +13,22 @@ Phases, one JSON object per line:
 1. ``device``  the card, torch/CUDA versions, and the build of every
    kernel from ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per
    source, all started together).
+1a. ``autotune``  the autotuner (``kernels/lut_affine/autotune.py``,
+   :func:`autotune_phase`) at the decode batch (SLOTS rows): the main
+   path's seven weight plans (granite_8b, the serve cell's recipe) and the
+   TL1 cell's seven, qwen2_moe_a2_7b's expert projections (the ragged
+   kernel at the routed rows), minicpm3_4b's ``wq_a`` and ``wkv_a`` and the
+   heads of phi3_medium_14b and minitron_4b.  Per point: the shape rule's
+   tiling and its device ms, every candidate tiling's (so the measured
+   winner), the analytic winner's, the number of candidates and the bound,
+   each timed by the package's measured mode
+   (``autotune.measure_candidates``); the rule, both winners and the
+   extreme tilings (``block_k`` 1 and k) held to the plain version
+   (KERNEL_TOL x max|plain|, TL1 bit for bit).  The ragged expert kernel
+   keeps its shape rule under any tiles: its point reports the rule's time
+   and holds every tiling's output to the rule's, bit for bit.  A
+   main-path point whose analytic winner takes more than AUTOTUNE_SLACK x
+   the shape rule's time fails the phase.
 1b. ``pack_kernel``  the packing kernel (``bitplane_pack``) against its
    plain version, bit for bit, in each of its three kinds: ``shift`` at
    the inputs of the weight cell (granite_8b) and the MoE cell
@@ -33,9 +49,14 @@ Phases, one JSON object per line:
    replace; repeated split launches checked bit-identical, and ptxas's
    report of the dense kernels.
 3. ``serve``   full-width granite_8b, depth cut to 4 layers, planned
-   with the serving recipe, converted to i8 tables and served through
-   ``BatchingEngine`` on the kernels (every projection's input packed by
-   ``bitplane_pack``: ``plain_pack_codes_calls`` must be 0); then the same
+   with the serving recipe (its last step ``attach_tuned_blocks`` at the
+   slots: the decode dispatches run the tuned k splits; ``tiles`` line: the
+   graph's and the eager step's median decode step and the eager admission
+   prefill's, tuned against the same tables on the shape rule, in turns,
+   and the host microseconds the tiles add to a wrapper call), converted
+   to i8 tables and served through ``BatchingEngine`` on the kernels
+   (every projection's input packed by ``bitplane_pack``:
+   ``plain_pack_codes_calls`` must be 0); then the same
    requests on the plain versions, whose ``pack_codes`` calls must equal
    the kernel run's packs, the prefill logits of both compared and every
    request's first token held equal.  The decode profiles count device
@@ -43,7 +64,8 @@ Phases, one JSON object per line:
    on the eager ``pack_codes`` (the packing before the kernel took it).
 3b. ``paged_serve``  the same model (the serve phase's tables, or built
    anew) served through ``BatchingEngine(page_size=8)``: a paged KV cache
-   with copy-on-write prefix sharing.  8 requests of 16 new tokens; 0, 2,
+   with copy-on-write prefix sharing (first a ``tiles`` line on the paged
+   graph, as ``serve``'s).  8 requests of 16 new tokens; 0, 2,
    4 and 6 open with one shared 16-token system prompt.  In one call: (a)
    the dense engine with the decode step as a CUDA graph, (b) the paged
    engine with the graph on the dense rectangle's 32 pages, (c) paged
@@ -238,10 +260,12 @@ Phases, one JSON object per line:
    yardstick and an independent check of the integer accumulate.
 5. ``tl1_serve``  full-width granite_8b at all 36 layers, planned into
    TL1 as the reference's ``serving_tl1_plan`` plans it (int8
-   activations), converted, its fp32 weights freed, served through
+   activations, tiles tuned at the slots), converted, its fp32 weights
+   freed, served through
    ``BatchingEngine`` on the kernels and then on the plain versions
    (PLAIN_NEW tokens a request): every stream identical on the tokens the
-   plain run serves, prefill logits within 1e-5 x max|plain|.
+   plain run serves, prefill logits within 1e-5 x max|plain|; the tuned
+   streams equal the untuned ones whole (``tiles``: integer sums).
 6. ``moe_kernel``  the ragged MoE kernel (``lut_affine_experts``) against
    its plain version at full-width qwen2_moe_a2_7b expert shapes (60
    experts, top-4, expert width 1408; decode 4 tokens = 16 expert rows and
@@ -313,7 +337,8 @@ Phases, one JSON object per line:
    (:func:`audit_phase`): the reference's three audit points at full
    width -- granite_8b at 2 of 36 layers under the serving recipe and
    under TL1 (exact activations), qwen2_moe_a2_7b at 2 of 24 with its
-   experts converted, chunks capped at 1 -- each through one eager prefill
+   experts converted, chunks capped at 1, tiles tuned at the point's batch
+   (``blocks_over_smem`` audits them) -- each through one eager prefill
    and one eager decode step recorded with every kernel as an opaque leaf:
    the multiplier-free, zero-copy, in-place, plan-consistency and overflow
    rules all empty, and each step's leaves per kernel equal to the
@@ -540,6 +565,15 @@ RING_SLOTS, RING_LEN, RING_NEW = 2, 4096, 40
 RING_PROMPTS = (4072, 4088)
 RING_GENERATE, RING_GENERATE_NEW = 4200, 8
 
+# the autotune phase: a main-path point's analytic winner may take at most
+# AUTOTUNE_SLACK x the shape rule's measured time; calls a round per tiling
+# (autotune._measure takes the median of three rounds)
+AUTOTUNE_SLACK = 1.10
+AUTOTUNE_REPS = 5
+# the tiles A/B's turns (ABBA BAAB: a drift within the call weighs on both
+# sides alike), for the graph replays and (serve) the eager step
+TILES_ORDER = ("untuned", "tuned", "tuned", "untuned", "tuned", "untuned", "untuned", "tuned")
+
 # the pack_kernel phase: per cell, the model, the kind of its packs and
 # its packed inputs: (input, width, rows at decode, rows at prefill, packs
 # per layer); the float16 kind is on no served path
@@ -727,6 +761,238 @@ def copies_of(t) -> list:
     once per step."""
     n = min(64, max(1, -(-2 * L2_BYTES // max(1, t.numel() * t.element_size()))))
     return [t] + [t.clone() for _ in range(n - 1)]
+
+
+# ---------------------------------------------------------------------------
+# autotune phase
+# ---------------------------------------------------------------------------
+
+
+def autotune_plans() -> list:
+    """The autotune phase's plans, on shapes alone (one layer of each
+    full-width model: a point does not depend on depth): the main path's
+    seven weight plans (the serve cell's recipe, granite_8b) and the TL1
+    cell's seven, then qwen2_moe_a2_7b's expert projections, minicpm3_4b's
+    ``wq_a`` and ``wkv_a`` and the heads of phi3_medium_14b and minitron_4b
+    under their cells' recipes.  Each as ``{"cell", "key", "plan", "G",
+    "main", "experts"}``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.planner import plan_model
+    from repro_torch.kernels.lut_affine.autotune import _group_sizes
+    from repro_torch.models.layers import mla_convertible
+
+    def cut(arch):
+        return meta_params(dataclasses.replace(get_config(arch), num_layers=1))
+
+    out = []
+
+    def add(cell, mplan, keep, main=False, experts=False):
+        sizes = _group_sizes(mplan)
+        out.extend({"cell": cell, "key": key, "plan": mplan.layers[key],
+                    "G": sizes.get(key, 1), "main": main, "experts": experts}
+                   for key in sorted(mplan.layers) if keep(key))
+
+    granite = cut("granite_8b")
+    _, serve = recipe_plans(granite)  # the serve cell's plan: chunks up to 2
+    add("serve", serve, lambda key: True, main=True)
+    add("tl1_serve", plan_model(granite, float("inf"), families=("tl1",)), lambda key: True,
+        main=True)
+    moe, _ = recipe_plans(cut("qwen2_moe_a2_7b"), convert_experts=True)
+    add("moe_serve", moe, lambda key: key.startswith("blocks/ffn/w_"), experts=True)
+    mla, _ = recipe_plans(cut("minicpm3_4b"), predicate=mla_convertible)
+    add("mla_serve", mla, lambda key: key.rsplit("/", 1)[-1] in ("wq_a", "wkv_a"))
+    for cell, arch in (("phi3_serve", "phi3_medium_14b"), ("minitron_serve", "minitron_4b")):
+        plan, _ = recipe_plans(cut(arch))
+        add(cell, plan, lambda key: key == "lm_head")
+    return out
+
+
+def autotune_case(pt, plan, experts: bool, seed: int):
+    """Operands of one point, made on the card from ``seed``: real codes of
+    seeded activations under ``plan`` (TL1: quantized activation codes; the
+    expert point: SLOTS tokens routed top-k by a seeded router, as the
+    moe_kernel phase routes them) and random i8 / packed tables.  Returns
+    (call(blocks, tables), plain(), tables, the shape rule's splits, bound
+    ms, bound_by, exact)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.lut import pack_codes, plane_scales
+    from repro_torch.core.lut_tl1 import quantize_acts
+    from repro_torch.kernels.lut_affine import ops
+    from repro_torch.kernels.lut_tl1 import ops as tl1_ops
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    G, k, p = pt.G, pt.k, pt.p
+    if pt.family == "tl1":
+        x = torch.randn(pt.B, plan.in_features, generator=gen, device=DEV)
+        acts, _ = quantize_acts(x, plan)
+        nib = torch.randint(0, 9, (2, G, k, p), generator=gen, device=DEV, dtype=torch.uint8)
+        tables = nib[0] | (nib[1] << 4)
+        del nib
+
+        def call(blocks, t):
+            if G == 1:
+                return tl1_ops.lut_tl1(acts, t[0], plan=plan, blocks=blocks)
+            return tl1_ops.lut_tl1_grouped(acts, t, plan=plan, blocks=blocks)
+
+        def plain():
+            return tl1_ops.lut_tl1_grouped(acts, tables, plan=plan, use_kernels=False)[
+                0 if G == 1 else slice(None)]
+
+        ms, by = tl1_bound(G, pt.B, k, p)
+        return call, plain, tables, tl1_ops.k_splits(G, pt.B, k, p, sms), ms, by, True
+    if plan.table_format != "i8":
+        raise AssertionError(f"autotune: {plan} stores no i8 tables")
+    # the i8 tables' power-of-two dequant scale folds into the plane scales
+    scales = plane_scales(plan).astype(np.float32) * np.float32(2.0**-6)
+    row_bytes = -(-p // ops.ROW_ALIGN) * ops.ROW_ALIGN
+    if experts:
+        cfg = get_config("qwen2_moe_a2_7b")
+        d, E = cfg.d_model, cfg.num_experts
+        router = torch.randn(d, E, generator=gen, device=DEV) / math.sqrt(d)
+        x = torch.randn(pt.B, d, generator=gen, device=DEV)
+        _, _, _, token_of, gs = moe.dispatch(x, router, cfg)
+        T = token_of.numel()
+        src = torch.randn(T, plan.in_features, generator=gen, device=DEV) * 0.1
+        codes = pack_codes(src, plan)
+        tables = torch.randint(-127, 128, (E, G, k, pt.entries, p), generator=gen, device=DEV,
+                               dtype=torch.int8)
+
+        def call(blocks, t):
+            return ops.lut_affine_experts(codes, t, scales, gs, shift_bits=plan.shift_bits,
+                                          blocks=blocks)
+
+        def plain():
+            return ops.lut_affine_experts(codes, tables, scales, gs,
+                                          shift_bits=plan.shift_bits, use_kernels=False)
+
+        splits = ops.experts_tiling(G, T, k, row_bytes, sms).splits
+        ms, by = bound(codes, G, pt.entries, p, 1, plan.shift_bits,
+                       expert_of=sorted_expert_of(gs, T))
+        return call, plain, tables, splits, ms, by, False
+    x = torch.randn(pt.B, plan.in_features, generator=gen, device=DEV)
+    codes = pack_codes(x, plan)
+    tables = torch.randint(-127, 128, (G, k, pt.entries, p), generator=gen, device=DEV,
+                           dtype=torch.int8)
+
+    def call(blocks, t):
+        if G == 1:
+            return ops.lut_affine(codes, t[0], scales, shift_bits=plan.shift_bits,
+                                  blocks=blocks)
+        return ops.lut_affine_grouped(codes, t, scales, shift_bits=plan.shift_bits,
+                                      blocks=blocks)
+
+    def plain():
+        return ops.lut_affine_grouped(codes, tables, scales, shift_bits=plan.shift_bits,
+                                      use_kernels=False)[0 if G == 1 else slice(None)]
+
+    splits = ops.tiling(G, pt.B, pt.n, k, pt.entries, row_bytes, sms).splits
+    ms, by = bound(codes, G, pt.entries, p, 1, plan.shift_bits)
+    return call, plain, tables, splits, ms, by, False
+
+
+def autotune_phase(iters: int) -> dict:
+    """The autotuner (``kernels/lut_affine/autotune.py``) on the card: for
+    each point of :func:`autotune_plans` at the decode batch (SLOTS rows),
+    the device time of the shape rule's tiling and of every candidate
+    tiling (``block_k`` over the powers of two up to k, and k), so the
+    measured winner; the analytic winner's time among them; the bound.
+    Every time is the package's measured mode (``autotune.measure_candidates``
+    on the point's operands: real codes, random tables in copies that cycle
+    past the L2).  The shape rule, both winners and the extreme tilings
+    (``block_k`` 1 and k) are held to the plain version on the same inputs:
+    within KERNEL_TOL x max|plain| (TL1 bit for bit).  The expert points run
+    the ragged kernel at the routed rows (their point is the reference's,
+    of the dense kernel), which keeps its shape rule under any tiles: the
+    rule's time, and every tiling's output the rule's bit for bit.  A
+    main-path point whose analytic winner is more than AUTOTUNE_SLACK x the
+    shape rule's time fails the phase."""
+    import torch
+
+    from repro_torch.kernels.lut_affine import autotune
+
+    plans = autotune_plans()
+    seen: dict = {}
+    for entry in plans:
+        pt = autotune.TunePoint.from_plan(entry["plan"], SLOTS, G=entry["G"])
+        seen.setdefault(pt, []).append(entry)
+    smi = smi_line()
+    reps = min(iters, AUTOTUNE_REPS)
+    rows = []
+    for seed, (pt, entries) in enumerate(seen.items()):
+        t0 = time.perf_counter()
+        first = entries[0]
+        experts = first["experts"]
+        call, plain, tables, rule_splits, bound_ms, bound_by, exact = autotune_case(
+            pt, first["plan"], experts, seed)
+        cands = autotune.candidate_blocks(pt)
+        operands = {"call": call, "tables": copies_of(tables)}
+        if experts:  # the ragged kernel keeps its shape rule: only the rule is timed
+            secs = {None: autotune._measure(operands, None, reps)}
+        else:
+            secs = autotune.measure_candidates(pt, reps, operands)
+        times = {blk: t * 1e3 for blk, t in secs.items()}
+        rule_ms = times.pop(None)
+        ana = autotune.search_blocks(pt)
+        ref = plain()
+        scale = ref.abs().max().item()
+        tilings = [("rule", None), ("analytic", ana), ("one_chunk", ana[:2] + (1,)),
+                   ("whole_k", ana[:2] + (pt.k,))]
+        if not experts:
+            meas = min(cands, key=lambda blk: (times[blk], blk))
+            tilings.insert(2, ("measured", meas))
+        errs, outs = {}, {}
+        for name, blocks in tilings:
+            got = call(blocks, tables).to(ref.dtype)
+            if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"autotune {pt} {name}: shape {tuple(got.shape)} or "
+                                     "non-finite values")
+            errs[name] = (got - ref).abs().max().item()
+            outs[name] = got
+        tol = 0.0 if exact else KERNEL_TOL * scale
+        rule_blocks = list(ana[:2]) + [-(-pt.k // rule_splits)]
+        row = {"phase": "autotune", "step": "point",
+               "plans": [f"{e['cell']}:{e['key']}" for e in entries], "main": first["main"],
+               "kernel": "lut_affine_experts" if experts else None,
+               "point": pt.to_json(), "candidates": len(cands), "reps": reps,
+               "rule": {"splits": rule_splits, "blocks_equivalent": rule_blocks, "ms": rule_ms},
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": errs, "tol": tol, "max_abs_ref": scale, "nvidia_smi": smi}
+        if experts:
+            row["analytic"] = {"blocks": list(ana), "obeyed": False}
+            row["kernel_reason"] = ("the ragged kernel at SLOTS tokens x top-k routed rows "
+                                    "keeps its shape rule; the point is the reference's "
+                                    "(from_plan knows no experts)")
+            row["outputs_equal_rule"] = all(torch.equal(o, outs["rule"]) for o in outs.values())
+        else:
+            row.update({
+                "analytic": {"blocks": list(ana), "splits": -(-pt.k // ana[2]),
+                             "ms": times[ana], "model_us": autotune.analytic_cost(pt, ana)},
+                "measured": {"blocks": list(meas), "splits": -(-pt.k // meas[2]),
+                             "ms": times[meas]},
+                "analytic_over_rule": times[ana] / rule_ms,
+                "measured_over_rule": times[meas] / rule_ms,
+                "candidate_ms": {str(blk[2]): t for blk, t in times.items()}})
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+        rows.append(row)
+        if max(errs.values()) > tol:
+            raise AssertionError(f"autotune {pt}: a tiling disagrees with plain: {errs} > {tol}")
+        if experts and not row["outputs_equal_rule"]:
+            raise AssertionError(f"autotune {pt}: tiles moved the ragged kernel's output")
+        del call, plain, tables, operands, ref, outs
+        torch.cuda.empty_cache()
+    worst = max(r["analytic_over_rule"] for r in rows if r["main"])
+    emit({"phase": "autotune", "step": "summary", "points": len(rows),
+          "worst_main_analytic_over_rule": worst, "slack": AUTOTUNE_SLACK})
+    if worst > AUTOTUNE_SLACK:
+        raise AssertionError(f"autotune: a main-path point's analytic winner takes {worst:.3f}x "
+                             f"the shape rule's time (> {AUTOTUNE_SLACK})")
+    return {"rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -997,6 +1263,7 @@ def weight_cell(phase: str, layers: int):
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import conversion_summary, convert_params
     from repro_torch.core.planner import plan_model
+    from repro_torch.kernels.lut_affine.autotune import attach_tuned_blocks
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import init_params
 
@@ -1015,6 +1282,8 @@ def weight_cell(phase: str, layers: int):
         radices=(1, 2, 4),
         table_formats=(None, "i8"),
     )
+    # the recipe's last step (serving_model_plan): tiles tuned at the slots
+    mplan = attach_tuned_blocks(mplan, batch=SLOTS)
     kinds = sorted({
         f"{p.mode}-r{p.fmt.mantissa_radix}-{p.table_format}-c{p.chunk_size}"
         for p in mplan.layers.values()
@@ -1022,7 +1291,7 @@ def weight_cell(phase: str, layers: int):
     per_layer = mplan.total_lut_bytes / layers / 2**20
     emit({"phase": phase, "step": "plan", "summary": mplan.summary(),
           "table_mib": mplan.total_lut_bytes / 2**20, "table_mib_per_layer": per_layer,
-          "plans": kinds,
+          "plans": kinds, "blocks": plan_blocks(mplan),
           "depth": {"layers": layers, "published": full.num_layers,
                     "reason": f"{per_layer:.0f} MiB of tables per layer: all "
                               f"{full.num_layers} layers would need "
@@ -1065,6 +1334,8 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
                              f"or {uncovered} packs off the kernel")
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
+
+    tiles_ab("serve", lut, cfg, prompts, max_new, per_forward, exact=False, eager=True)
 
     with count_plain_packs() as packs:
         plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
@@ -1309,6 +1580,127 @@ def serve_paths(phase, params, cfg, prompts, max_new, per_forward, eager_pack_pr
             main["uncovered"])
 
 
+def plan_blocks(mplan) -> dict:
+    """Each layer's tuned tiles, as the plan carries them."""
+    return {key: list(p.blocks) if p.blocks else None for key, p in sorted(mplan.layers.items())}
+
+
+def strip_tiles(tree):
+    """``tree`` with every converted node's plan stripped of its tiles (the
+    tables shared, not copied): the same model on the shape rule."""
+    from repro_torch.core.convert import LUTGroup, LUTLinear
+
+    if isinstance(tree, (LUTLinear, LUTGroup)):
+        return dataclasses.replace(tree, plan=dataclasses.replace(tree.plan, blocks=None))
+    if isinstance(tree, dict):
+        return {k: strip_tiles(v) for k, v in tree.items()}
+    return tree
+
+
+def tile_check_us(params, calls: int = 20000) -> dict:
+    """Host microseconds a dense wrapper spends on its tiles, per call: the
+    legality check and the grid (``ops.check_blocks`` and ``ops.tiling``,
+    the check's memoised hit after the first) for the first tuned grouped
+    leaf of ``params`` at the decode batch, with its tiles and with none."""
+    import timeit
+
+    from repro_torch.core.convert import LUTGroup
+    from repro_torch.kernels.lut_affine import autotune, ops
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, LUTGroup) and tree.plan.blocks is not None:
+            yield tree
+
+    node = next(leaves(params))
+    tables = node.tables.reshape(-1, *node.tables.shape[-4:])[0]
+    pt = autotune.TunePoint.from_plan(node.plan, SLOTS, G=tables.shape[0])
+    shape = (SLOTS, pt.n, pt.k)
+    row_bytes = pt.p * pt.table_bytes
+    out = {}
+    for side, blocks in (("untuned", None), ("tuned", node.plan.blocks)):
+        def one():
+            ops.check_blocks("lut_affine_grouped", shape, tables, blocks)
+            ops.tiling(pt.G, SLOTS, pt.n, pt.k, pt.entries, row_bytes, 132, blocks)
+
+        out[side] = timeit.timeit(one, number=calls) / calls * 1e6
+    return {"point": pt.to_json(), "blocks": list(node.plan.blocks), **out}
+
+
+def tiles_ab(phase, params, cfg, prompts, max_new, per_forward, exact: bool, engine=None,
+             eager=False):
+    """The cell's tuned tree against the same tables on the shape rule
+    (:func:`strip_tiles`), the decode step as graph replays, in the turns
+    of TILES_ORDER, each run's launch counts set to 0 just before it and
+    read just after and held to ``per_forward`` (tiles move no launch); one
+    ``tiles`` line with each side's median decode step.  With ``eager``, the
+    same turns with the step eager (every wrapper runs its Python, the
+    memoised tile check among it): each side's median eager decode step
+    and admission prefill step, each side's eager streams held to its graph
+    streams whole (the same tiles, the same sums), and the host
+    microseconds the tiles add to one wrapper call (:func:`tile_check_us`).
+    With ``exact`` (TL1's integer sums) the tuned and untuned streams must
+    be identical whole; else (fp32 sums cut at other k ranges, ~1e-7 a
+    call) their agreement is reported."""
+    untuned = strip_tiles(params)
+    line = {"phase": phase, "step": "tiles", "order": list(TILES_ORDER),
+            "nvidia_smi": smi_line()}
+    streams = {}
+    for graph in (True, False) if eager else (True,):
+        runs = {"tuned": [], "untuned": []}
+        for side in TILES_ORDER:
+            steps = []
+            reset_launches()
+            reqs, eng, wall, decode_ms = run_engine(
+                params if side == "tuned" else untuned, cfg, prompts, max_new, True,
+                cuda_graph=None if graph else False, engine=engine, steps=steps)
+            launches = read_launches()
+            expect = {**no_launches(), **{k: v * eng.readbacks for k, v in per_forward.items()}}
+            if launches != expect or (eng._graph is None) is graph:
+                raise AssertionError(f"{phase} tiles ({side}, graph {graph}): launch counts "
+                                     f"{launches} != expected {expect}, or the step ran "
+                                     f"{'eager' if graph else 'as a graph'}")
+            prefill_ms = [ms for prefilled, ms in steps if prefilled]
+            runs[side].append((wall, decode_ms, prefill_ms, sum(len(r.generated) for r in reqs)))
+            got = [r.generated for r in reqs]
+            if streams.setdefault(side, got) != got:
+                raise AssertionError(f"{phase} tiles: two {side} runs (graph {graph}) served "
+                                     "different streams")
+        key = "" if graph else "eager_"
+        for side, rs in runs.items():
+            steps = [ms for _, d, _, _ in rs for ms in d]
+            line[key + side] = {
+                "median_decode_step_ms": statistics.median(steps),
+                "median_decode_step_ms_by_run": [statistics.median(d) for _, d, _, _ in rs],
+                "tok_per_s": sum(n for *_, n in rs) / sum(w for w, *_ in rs)}
+            if not graph:
+                line[key + side]["median_prefill_step_ms"] = statistics.median(
+                    ms for _, _, p, _ in rs for ms in p)
+                line[key + side]["median_prefill_step_ms_by_run"] = [
+                    statistics.median(p) for _, _, p, _ in rs]
+        line[f"median_{key}step_ratio_tuned_over_untuned"] = (
+            line[key + "tuned"]["median_decode_step_ms"]
+            / line[key + "untuned"]["median_decode_step_ms"])
+        if not graph:
+            line["median_eager_prefill_ratio_tuned_over_untuned"] = (
+                line["eager_tuned"]["median_prefill_step_ms"]
+                / line["eager_untuned"]["median_prefill_step_ms"])
+    same = sum(x == y for a, b in zip(streams["tuned"], streams["untuned"])
+               for x, y in zip(a, b))
+    total = sum(len(a) for a in streams["tuned"])
+    line["streams_identical"] = streams["tuned"] == streams["untuned"]
+    line["identical_token_share"] = same / total
+    if eager:
+        line["eager_streams_equal_graph"] = True  # held above, per side
+        line["tile_check_us"] = tile_check_us(params)
+    emit(line)
+    if exact and not line["streams_identical"]:
+        raise AssertionError(f"{phase}: tuned and untuned integer streams differ")
+    return line
+
+
 # ---------------------------------------------------------------------------
 # paged_serve phase
 # ---------------------------------------------------------------------------
@@ -1468,6 +1860,8 @@ def paged_serve_phase(model, layers: int, max_new: int) -> dict:
 
     run_engine(lut, cfg, prompts, max_new, True, cuda_graph=False,
                engine={"page_size": PAGE_SIZE})  # untimed: first-use costs
+    tiles_ab("paged_serve", lut, cfg, prompts, max_new, per_forward, exact=False,
+             engine={"page_size": PAGE_SIZE, "num_pages": RECT_POOL})
     a, a_streams, a_first = served("a_dense_graph", record=True)
     b, b_streams, b_first = served("b_paged_graph", RECT_POOL, record=True)
     c, c_streams, _ = served("c_paged_eager", RECT_POOL, cuda_graph=False)
@@ -3947,7 +4341,7 @@ def serve_requests(cfg, requests: int):
 
 
 def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph=None,
-               engine=None, watch=None, **ex):
+               engine=None, watch=None, steps=None, **ex):
     """Serve ``prompts`` through ``BatchingEngine`` (SLOTS slots of MAX_LEN,
     bucket BUCKET, grouped launches; ``engine`` further engine arguments
     such as ``page_size``, or others in their place,
@@ -3957,7 +4351,8 @@ def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph
     card in the step, which a capture refuses); returns the requests, the
     engine, the wall seconds and each pure decode step's ms.  ``watch(eng)``,
     if given, is called once before the first step and returns a callable
-    run after every step."""
+    run after every step.  ``steps``, if given, a list that gets ``(prefilled,
+    ms)`` of every step."""
     import torch
 
     from repro_torch.models.layers import Ctx, ExecCfg
@@ -3977,8 +4372,11 @@ def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph
         before, t = eng.prefill_tokens, time.perf_counter()
         if not eng.step():
             break
+        ms = (time.perf_counter() - t) * 1e3
         if eng.prefill_tokens == before:  # a pure decode step
-            decode_ms.append((time.perf_counter() - t) * 1e3)
+            decode_ms.append(ms)
+        if steps is not None:
+            steps.append((eng.prefill_tokens != before, ms))
         if after_step is not None:
             after_step()
     return reqs, eng, time.perf_counter() - start, decode_ms
@@ -4186,6 +4584,7 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import conversion_summary, convert_params
     from repro_torch.core.planner import plan_model
+    from repro_torch.kernels.lut_affine.autotune import attach_tuned_blocks
     from repro_torch.models.layers import Ctx, ExecCfg
     from repro_torch.models.model import model_forward, model_specs
     from repro_torch.models.params import init_params
@@ -4201,9 +4600,11 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     # the reference's serving_tl1_plan: every projection into TL1, int8
-    # activations (its TPU block sizes are the port's own business)
-    mplan = plan_model(params, float("inf"), families=("tl1",))
+    # activations, then tiles tuned at the slots (Hopper tiles here)
+    mplan = attach_tuned_blocks(plan_model(params, float("inf"), families=("tl1",)),
+                                batch=SLOTS)
     emit({"phase": "tl1_serve", "step": "plan", "summary": mplan.summary(),
+          "blocks": plan_blocks(mplan),
           "families": list(mplan.families), "table_mib": mplan.total_lut_bytes / 2**20,
           "table_mib_per_layer": mplan.total_lut_bytes / layers / 2**20,
           "act_bits": sorted({p.act_bits for p in mplan.layers.values()}),
@@ -4241,6 +4642,7 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     if not all(len(r.generated) == max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new")
+    tiles_ab("tl1_serve", tl1, cfg, prompts, max_new, per_forward, exact=True)
 
     # the plain versions serve PLAIN_NEW tokens a request (at 16 this run
     # took ~25 s of the call), held to the kernel run's streams on the
@@ -5999,13 +6401,15 @@ def audit_model(pt):
     of AUDIT_LAYERS, and the plan the card's kernels serve -- the serving
     recipe with chunks capped at 1 (:func:`recipe_plans`) for the weight
     points (the point's own fp16 bitplane tables are a type no weight
-    kernel takes), the point's own TL1 plan for ``granite_tl1``; converted.
-    Returns (published config, config, plan, converted tree)."""
+    kernel takes), the point's own TL1 plan for ``granite_tl1``; tiles tuned
+    at the point's batch; converted.  Returns (published config, config,
+    plan, converted tree)."""
     import torch
 
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import convert_params
     from repro_torch.core.planner import plan_model
+    from repro_torch.kernels.lut_affine.autotune import attach_tuned_blocks
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import init_params
 
@@ -6018,6 +6422,8 @@ def audit_model(pt):
                            tl1_act_bits=pt.tl1_act_bits)
     else:
         mplan, _ = recipe_plans(params, convert_experts=pt.convert_experts)
+    # tiles tuned at the point's batch, as audit/points.py::build_point attaches them
+    mplan = attach_tuned_blocks(mplan, pt.batch)
     lut, report = convert_params(params, plan=mplan, convert_experts=pt.convert_experts)
     del params
     if report.table_bytes != mplan.total_lut_bytes:
@@ -6115,7 +6521,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
         "--phases",
-        default="device,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
+        default="device,autotune,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
                 "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,"
                 "tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper,train,"
                 "audit",
@@ -6162,6 +6568,8 @@ def main(argv=None) -> int:
         emit({"phase": name, "step": "seconds", "seconds": time.perf_counter() - t0})
         return out
 
+    run("autotune", autotune_phase, args.iters)
+    torch.cuda.empty_cache()
     pkern = run("pack_kernel", pack_kernel_phase, args.iters)
     kern = run("kernel", kernel_phase, args.iters, 4 * 32)
     srv = run("serve", serve_phase, LAYERS, REQUESTS, MAX_NEW)

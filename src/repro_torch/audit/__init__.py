@@ -24,8 +24,9 @@ and checks the same rules on the recording:
   ``python -m repro_torch.audit --check`` and ``--write``
 
 The reference's HLO pass (donation aliases, collective traffic) has no
-counterpart on one card's eager steps; ``blocks_over_vmem`` waits for the
-port's autotune (ROADMAP Queue 1).  See "Audited invariants (port)" in the
+counterpart on one card's eager steps; its ``blocks_over_vmem`` is
+``blocks_over_smem`` here (the Hopper tiles of ``kernels.lut_affine.autotune``).
+See "Audited invariants (port)" in the
 README for the rule table.
 """
 from repro_torch.audit.inplace import inplace_violations, state_shapes, storage_map

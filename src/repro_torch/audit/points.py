@@ -74,11 +74,14 @@ def point_ctx(cfg):
 
 def build_point(pt: AuditPoint, seed: int = 0) -> dict:
     """One reduced point's artifacts on the CPU: weights from ``seed``, the
-    point's plan (chunks capped at 1), fp16 tables, a fresh cache, both
-    steps and their seeded tokens."""
+    point's plan (chunks capped at 1) with its tiles tuned at the point's
+    batch (``attach_tuned_blocks``, as the reference's points attach
+    theirs), fp16 tables, a fresh cache, both steps and their seeded
+    tokens."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.convert import convert_params
     from repro_torch.core.planner import plan_model
+    from repro_torch.kernels.lut_affine.autotune import attach_tuned_blocks
     from repro_torch.models.model import model_specs
     from repro_torch.models.params import init_params
 
@@ -92,6 +95,8 @@ def build_point(pt: AuditPoint, seed: int = 0) -> dict:
         convert_experts=pt.convert_experts,
         tl1_act_bits=pt.tl1_act_bits,
     )
+    # tuned tiles ride the plan, so the blocks_over_smem rule audits them too
+    mplan = attach_tuned_blocks(mplan, pt.batch)
     template, _ = convert_params(
         params, plan=mplan, table_dtype=torch.float16, convert_experts=pt.convert_experts
     )
@@ -203,7 +208,7 @@ def audit_artifacts(art: dict) -> dict:
         "inplace": [v.to_json() for name, _ in steps for v in art["inplace"][name]],
         "plan_consistency": [
             v.to_json()
-            for v in plan_consistency_violations(mplan, template)
+            for v in plan_consistency_violations(mplan, template, batch=art["point"].batch)
         ],
         # numerical safety: closed-form per-plan certificates + the interval
         # pass over both recorded steps

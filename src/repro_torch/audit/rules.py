@@ -24,11 +24,12 @@ Rule classes
 * :func:`plan_consistency_violations` -- the ``ModelPlan`` and the
   converted tree tell the same story: every plan entry is consumed by
   exactly the leaves it planned, per-layer plans match, and the table
-  bytes materialised equal ``total_lut_bytes``.  The reference's fourth
-  check, ``blocks_over_vmem`` (tuned TPU blocks within the kernels' VMEM
-  budget), has no counterpart until the port's autotune lands (ROADMAP
-  Queue 1 item 7): the port's kernels tile on their own and never read a
-  plan's ``blocks``.
+  bytes materialised equal ``total_lut_bytes``, and every tuned tiling a
+  plan carries is legal on the Hopper kernels (``blocks_over_smem``, the
+  reference's ``blocks_over_vmem``: compiled row and column tiles, shared
+  memory within ``kMaxSmem``, ``1 <= block_k <= k``;
+  ``kernels.lut_affine.autotune.blocks_fit_smem``), which the wrappers
+  would otherwise refuse at the first dispatch.
 
 Shape-suffix matching makes the rules robust to stacking: a layer-stacked
 ``(L, q, p)`` dense fallback, an expert-stacked ``(L, E, q, p)`` one, and
@@ -181,7 +182,7 @@ def zero_copy_violations(ops, *, table_shapes: Iterable[Sequence[int]] = ()) -> 
     return out
 
 
-def plan_consistency_violations(mplan, tree) -> list[Violation]:
+def plan_consistency_violations(mplan, tree, *, batch: int = 1) -> list[Violation]:
     """The plan and the converted tree agree.
 
     Checks, per the ``ModelPlan`` contract:
@@ -189,10 +190,17 @@ def plan_consistency_violations(mplan, tree) -> list[Violation]:
       layer appears in the plan (no silent dense leftovers);
     * each leaf carries the exact per-layer plan (family included);
     * the bytes materialised across table leaves equal
-      ``mplan.total_lut_bytes``.
+      ``mplan.total_lut_bytes``;
+    * any tuned ``blocks`` riding a plan are a legal Hopper tiling of its
+      point at ``batch`` rows (``autotune.blocks_fit_smem``).
     """
     from repro_torch.core.convert import LUTGroup, LUTLinear
     from repro_torch.core.planner import path_key
+    from repro_torch.kernels.lut_affine.autotune import (
+        TunePoint,
+        _group_sizes,
+        blocks_fit_smem,
+    )
 
     out = []
     consumed: dict[str, object] = {}
@@ -221,6 +229,7 @@ def plan_consistency_violations(mplan, tree) -> list[Violation]:
         out.append(
             Violation("plan_consistency", "unplanned_leaf", f"converted leaf {key!r}")
         )
+    group_sizes = _group_sizes(mplan)
     for key, node in sorted(consumed.items()):
         plan = mplan.layers.get(key)
         if plan is None:
@@ -233,6 +242,17 @@ def plan_consistency_violations(mplan, tree) -> list[Violation]:
                     f"{key!r}: leaf plan {node.plan} != planned {plan}",
                 )
             )
+        if plan.blocks is not None:
+            pt = TunePoint.from_plan(plan, batch, G=group_sizes.get(key, 1))
+            if not blocks_fit_smem(pt, plan.blocks):
+                out.append(
+                    Violation(
+                        "plan_consistency",
+                        "blocks_over_smem",
+                        f"{key!r}: blocks {plan.blocks} are no legal Hopper "
+                        f"tiling at point {pt}",
+                    )
+                )
     if table_bytes != mplan.total_lut_bytes:
         out.append(
             Violation(

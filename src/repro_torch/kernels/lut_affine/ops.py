@@ -23,7 +23,10 @@ runs the kernel that reads only those rows, each as whole lines; anything
 larger the kernel that brings whole chunk tiles into shared memory; k is
 split into enough ranges for one wave of blocks.  The ragged entry runs one
 kernel at every shape, on blocks of 4 expert-sorted rows whatever their
-experts (:func:`experts_tiling`).  The kernels read tables whose base is
+experts (:func:`experts_tiling`).  A plan's tuned ``blocks``
+(``autotune.py``) set the dense k splits instead on a dispatch that fits
+one row tile of the kernel they name; every wrapper refuses an illegal
+tiling (:func:`check_blocks`).  The kernels read tables whose base is
 16-byte aligned and whose rows are a multiple of 16 bytes; any other table
 is first copied into such a buffer (:func:`table_operand`), counted in
 :data:`TABLE_COPIES` (a 10-column fp32 head, 40-byte rows, takes it on
@@ -162,30 +165,78 @@ class Tiling:
 BLOCKS_PER_SM = {"decode": 2, "prefill": 1}
 
 
-def tiling(G: int, B: int, n: int, k: int, E: int, row_bytes: int, sms: int) -> Tiling:
-    """The dense kernels' grid, from the shapes alone.  Decode when a
-    chunk's ``B * n`` codes are fewer than its ``E`` rows (or its tile would
-    not fit a stage), prefill otherwise.  ``splits`` cuts k into as many
-    ranges as one wave of blocks holds beside the output tiles (never more
-    blocks than ``BLOCKS_PER_SM`` per SM, never more ranges than chunks)."""
-    regime = "prefill" if B * n >= E and E <= PREFILL_MAX_E else "decode"
-    rows = PREFILL_ROWS if regime == "prefill" else min(DECODE_ROWS, DECODE_REFS // n)
+def regime_of(B: int, n: int, E: int) -> str:
+    """The dense kernel the shape rule picks: prefill when a chunk's ``B *
+    n`` codes are at least its ``E`` rows and its tile fits a stage (``E <=
+    64``), decode otherwise."""
+    return "prefill" if B * n >= E and E <= PREFILL_MAX_E else "decode"
+
+
+def regime_rows(regime: str, n: int) -> int:
+    """Batch rows of a ``regime`` block (its compiled tile): 64 at prefill,
+    at decode 4 or fewer (``4 * n <= 32`` references a chunk)."""
+    return PREFILL_ROWS if regime == "prefill" else min(DECODE_ROWS, DECODE_REFS // n)
+
+
+def tiling(G: int, B: int, n: int, k: int, E: int, row_bytes: int, sms: int,
+           blocks=None) -> Tiling:
+    """The dense kernels' grid.  The kernel from the shapes alone
+    (:func:`regime_of`).  ``splits`` from a plan's tuned ``blocks`` when
+    the dispatch fits one row tile of the kernel they name (the shape's
+    kernel has ``block_b`` rows and ``B <= block_b``): ``ceil(k /
+    block_k)``; else, and with no ``blocks``, the shape rule: as many ranges
+    as one wave of blocks holds beside the output tiles (never more blocks
+    than ``BLOCKS_PER_SM`` per SM, never more ranges than chunks).  Tiles
+    tuned at a decode batch thus never govern a prefill, whatever kernel
+    runs it: its partials at the decode's splits would take gigabytes."""
+    regime = regime_of(B, n, E)
+    rows = regime_rows(regime, n)
     slabs = -(-row_bytes // SLAB_BYTES)
     tiles = G * -(-B // rows) * slabs
+    if blocks is not None and blocks[0] == rows and B <= rows:
+        return Tiling(regime, rows, slabs, tiles, -(-k // blocks[2]))
     slots = BLOCKS_PER_SM[regime] * sms
     return Tiling(regime, rows, slabs, tiles, max(1, min(k, slots // tiles)))
 
 
 def experts_tiling(G: int, T: int, k: int, row_bytes: int, sms: int) -> Tiling:
-    """The ragged kernel's grid, from the shapes alone: blocks of
-    ``EXPERT_ROWS`` consecutive expert-sorted rows, whatever their experts,
-    x a 512-byte slab x one table set, with k cut as at decode into as many
-    ranges as one wave of ``BLOCKS_PER_SM["decode"]`` blocks per SM holds
-    beside the output tiles (never more ranges than chunks)."""
+    """The ragged kernel's grid: blocks of ``EXPERT_ROWS`` consecutive
+    expert-sorted rows, whatever their experts, x a 512-byte slab x one
+    table set; k cut as at decode into as many ranges as one wave of
+    ``BLOCKS_PER_SM["decode"]`` blocks per SM holds beside the output tiles
+    (never more ranges than chunks).  A plan's tiles do not govern it: its
+    point is the dense kernel's (``TunePoint.from_plan`` knows no experts),
+    whose tiles measured slower here than this rule."""
     slabs = -(-row_bytes // SLAB_BYTES)
     tiles = G * -(-T // EXPERT_ROWS) * slabs
     slots = BLOCKS_PER_SM["decode"] * sms
     return Tiling("experts", EXPERT_ROWS, slabs, tiles, max(1, min(k, slots // tiles)))
+
+
+# legality verdicts of the tiles a wrapper was given, by shape and tiling:
+# (B, n, k, E, p, G, table_bytes, blocks) -> bool
+LEGAL_BLOCKS: dict = {}
+
+
+def check_blocks(op: str, codes_shape, tables: torch.Tensor, blocks) -> None:
+    """Refuse an illegal tiling, from the shapes alone (the same on the
+    kernel path and the plain path): ``ValueError`` naming the tiling and
+    the point (``autotune.check_blocks``).  Each verdict is kept in
+    :data:`LEGAL_BLOCKS`, so a served step pays a lookup."""
+    if blocks is None:
+        return
+    B, n, k = codes_shape
+    shape = tables.shape
+    E, p = shape[-2], shape[-1]
+    G = shape[-4] if len(shape) >= 4 else 1
+    key = (B, n, k, E, p, G, tables.element_size(), tuple(blocks))
+    if LEGAL_BLOCKS.get(key):
+        return
+    from repro_torch.kernels.lut_affine import autotune
+
+    pt = autotune.TunePoint(B=B, k=k, entries=E, p=p, n=n, G=G, table_bytes=key[6])
+    autotune.check_blocks(op, pt, blocks)
+    LEGAL_BLOCKS[key] = True
 
 
 def table_operand(tables: torch.Tensor) -> torch.Tensor:
@@ -202,7 +253,7 @@ def table_operand(tables: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(tables, (0, pad)) if pad else tables.clone()
 
 
-def _operands(codes, tables, scales, shift_bits):
+def _operands(codes, tables, scales, shift_bits, blocks):
     """Shared launch arguments: (out, the buffers the launch reads that the
     caller must hold until it has launched, ctypes args before the dims,
     dims).  The caching allocator orders any later reuse on the stream."""
@@ -214,7 +265,7 @@ def _operands(codes, tables, scales, shift_bits):
         raise ValueError(f"{len(exps)} scales for {n} planes")
     tables = table_operand(tables)
     ldt = tables.shape[-1]
-    t = tiling(G, B, n, k, E, ldt * tables.element_size(), _sm_count(codes.device))
+    t = tiling(G, B, n, k, E, ldt * tables.element_size(), _sm_count(codes.device), blocks)
     out = torch.empty((G, B, p), dtype=torch.float32, device=codes.device)
     part = None
     if t.splits > 1:
@@ -250,10 +301,15 @@ def lut_affine(
     *,
     shift_bits: int = 0,
     plan=None,
+    blocks=None,
     use_kernels: bool = True,
 ) -> torch.Tensor:
     """``out[..., :] = sum_j scales[j] * sum_c tables[c, idx, :] (+ bias)``
-    in fp32, ``idx`` per the ``shift_bits`` code contract."""
+    in fp32, ``idx`` per the ``shift_bits`` code contract.  ``blocks``: a
+    plan's tuned tiling (``autotune``); it sets the k splits of a dispatch
+    that fits one row tile of the kernel it names (:func:`tiling`), the
+    shape rule sets every other's, and an illegal one raises
+    ``ValueError`` on either path."""
     if plan is not None:
         check_acc_contract("lut_affine", plan, "float32")
     *lead, n, k = codes.shape
@@ -261,9 +317,10 @@ def lut_affine(
     if k != k2:
         raise ValueError(f"codes have {k} chunks, tables {k2}")
     codes2 = codes.reshape(-1, n, k)
+    check_blocks("lut_affine", codes2.shape, tables, blocks)
     if use_kernels and codes2.is_cuda:
         codes2 = codes2.contiguous()
-        out, held, head, dims = _operands(codes2, tables[None], scales, shift_bits)
+        out, held, head, dims = _operands(codes2, tables[None], scales, shift_bits, blocks)
         err = _lib().lut_affine_launch(*head, *dims, _stream(codes2))
         _raise_on(err, "lut_affine")
         LAUNCHES["lut_affine"] += 1
@@ -286,10 +343,12 @@ def lut_affine_grouped(
     *,
     shift_bits: int = 0,
     plan=None,
+    blocks=None,
     use_kernels: bool = True,
 ) -> torch.Tensor:
     """``out[g] = lut_affine(codes, tables[g], scales) (+ biases[g])`` for
-    all ``G`` projections in one launch -> ``(G, ..., p)``."""
+    all ``G`` projections in one launch -> ``(G, ..., p)``.  ``blocks`` as
+    :func:`lut_affine`'s."""
     if plan is not None:
         check_acc_contract("lut_affine_grouped", plan, "float32")
     *lead, n, k = codes.shape
@@ -297,9 +356,10 @@ def lut_affine_grouped(
     if k != k2:
         raise ValueError(f"codes have {k} chunks, tables {k2}")
     codes2 = codes.reshape(-1, n, k)
+    check_blocks("lut_affine_grouped", codes2.shape, tables, blocks)
     if use_kernels and codes2.is_cuda:
         codes2 = codes2.contiguous()
-        out, held, head, dims = _operands(codes2, tables, scales, shift_bits)
+        out, held, head, dims = _operands(codes2, tables, scales, shift_bits, blocks)
         err = _lib().lut_affine_grouped_launch(*head, G, *dims, _stream(codes2))
         _raise_on(err, "lut_affine_grouped")
         LAUNCHES["lut_affine_grouped"] += 1
@@ -321,12 +381,16 @@ def lut_affine_experts(
     *,
     shift_bits: int = 0,
     plan=None,
+    blocks=None,
     use_kernels: bool = True,
 ) -> torch.Tensor:
     """Ragged MoE form -> ``(G, T, p)`` fp32: row ``t`` against its expert's
     ``tables[e(t)]`` for all ``G`` projections in one launch; rows past
     ``sum(group_sizes)`` give 0.  The expert offsets are a cumulative sum
-    on the device, so nothing is read back."""
+    on the device, so nothing is read back.  ``blocks``: the expert plan's
+    tuned tiling, held to the dense kernel's legality (an illegal one raises
+    ``ValueError`` on either path); the ragged kernel keeps its shape rule
+    (:func:`experts_tiling`)."""
     if plan is not None:
         check_acc_contract("lut_affine_experts", plan, "float32")
     T, n, k = codes.shape
@@ -335,6 +399,7 @@ def lut_affine_experts(
         raise ValueError(f"codes have {k} chunks, tables {k2}")
     if tuple(group_sizes.shape) != (E,):
         raise ValueError(f"group_sizes {tuple(group_sizes.shape)} for {E} experts")
+    check_blocks("lut_affine_experts", codes.shape, tables, blocks)
     if not (use_kernels and codes.is_cuda):
         s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
         return lut_affine_experts_ref(codes, tables, s, group_sizes, shift_bits)

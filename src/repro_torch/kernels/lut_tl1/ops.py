@@ -36,9 +36,9 @@ MAX_SPLITS = 96
 _MIN_SPLIT_ROWS = 16
 # the kernel's output tile: tile_rows(B) batch rows x 1024 columns per block
 # (8 warps of 128 columns each)
-_TILE_COLS = 1024
+TILE_COLS = 1024
 # blocks the kernel keeps on an SM (64 KB of staged LUTs each)
-_BLOCKS_PER_SM = 3
+BLOCKS_PER_SM = 3
 # folded entries (one per packed byte: two pair-LUT values) stored as
 # uint16 biased by +512, two tokens to a 32-bit add: every |entry| <= 511
 _BIASED_MAX = 511
@@ -74,14 +74,42 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def k_splits(G: int, B: int, kb: int, p: int, sms: int) -> int:
-    """How many packed-row ranges the launch cuts the work into: one wave
-    of blocks that fills the card's block slots as far as whole multiples
-    of the output tiles allow (a decode batch), at most ``MAX_SPLITS`` and
-    with at least ``_MIN_SPLIT_ROWS`` packed rows each; one when the output
-    tiles alone fill the slots."""
-    tiles = G * -(-B // tile_rows(B)) * -(-p // _TILE_COLS)
-    return max(1, min(MAX_SPLITS, kb // _MIN_SPLIT_ROWS, _BLOCKS_PER_SM * sms // tiles))
+def k_splits(G: int, B: int, kb: int, p: int, sms: int, blocks=None) -> int:
+    """How many packed-row ranges the launch cuts the work into.  From a
+    plan's tuned ``blocks`` when the dispatch fits one row tile of the
+    kernel they name (``block_b == tile_rows(B)`` and ``B <= block_b``):
+    ``ceil(kb / block_k)``.  Else, and with no ``blocks``, the shape rule:
+    one wave of blocks that fills the card's block slots as far as whole
+    multiples of the output tiles allow (a decode batch), at most
+    ``MAX_SPLITS`` and with at least ``_MIN_SPLIT_ROWS`` packed rows each;
+    one when the output tiles alone fill the slots.  Tiles tuned at a
+    decode batch (4 or 8 rows) thus never govern a prefill."""
+    if blocks is not None and blocks[0] == tile_rows(B) and B <= blocks[0]:
+        return -(-kb // blocks[2])
+    tiles = G * -(-B // tile_rows(B)) * -(-p // TILE_COLS)
+    return max(1, min(MAX_SPLITS, kb // _MIN_SPLIT_ROWS, BLOCKS_PER_SM * sms // tiles))
+
+
+# legality verdicts of the tiles a wrapper was given: (B, G, kb, p, blocks) -> bool
+LEGAL_BLOCKS: dict = {}
+
+
+def check_blocks(op: str, B: int, G: int, kb: int, p: int, blocks) -> None:
+    """Refuse an illegal tiling, from the shapes alone (the same on the
+    kernel path and the plain path): ``ValueError`` naming the tiling and
+    the point (``lut_affine.autotune.check_blocks``).  Each verdict is kept
+    in :data:`LEGAL_BLOCKS`, so a served step pays a lookup."""
+    if blocks is None:
+        return
+    key = (B, G, kb, p, tuple(blocks))
+    if LEGAL_BLOCKS.get(key):
+        return
+    from repro_torch.kernels.lut_affine import autotune
+
+    pt = autotune.TunePoint(B=B, k=kb, entries=9, p=p, n=1, G=G, table_bytes=1,
+                            family="tl1")
+    autotune.check_blocks(op, pt, blocks)
+    LEGAL_BLOCKS[key] = True
 
 
 def entry_format(plan, is_float: bool) -> str:
@@ -108,10 +136,12 @@ def _acc_dtype(acts: torch.Tensor) -> torch.dtype:
     raise TypeError(f"acts must be int32 codes or float32, got {acts.dtype}")
 
 
-def _launch(entry: str, acts: torch.Tensor, tables: torch.Tensor, plan=None) -> torch.Tensor:
+def _launch(entry: str, acts: torch.Tensor, tables: torch.Tensor, plan=None,
+            blocks=None) -> torch.Tensor:
     """One launch of ``entry`` on ``acts (B, 4*kb)`` and ``tables (G, kb,
-    p)``, its entry width from ``plan`` (:func:`entry_format`); returns the
-    raw accumulate ``(G, B, p)``."""
+    p)``, its entry width from ``plan`` (:func:`entry_format`), its k splits
+    from ``blocks`` or the shape rule (:func:`k_splits`); returns the raw
+    accumulate ``(G, B, p)``."""
     if tables.dtype != torch.uint8:
         raise TypeError(f"tables must be uint8 packed indices, got {tables.dtype}")
     if acts.device != tables.device:
@@ -122,7 +152,7 @@ def _launch(entry: str, acts: torch.Tensor, tables: torch.Tensor, plan=None) -> 
     acc = _acc_dtype(acts)
     B = acts.shape[0]
     G, kb, p = tables.shape
-    splits = k_splits(G, B, kb, p, _sm_count(acts.device))
+    splits = k_splits(G, B, kb, p, _sm_count(acts.device), blocks)
     out = torch.empty((G, B, p), dtype=acc, device=acts.device)
     # the partials live until this function returns, after the launch; the
     # caching allocator orders any reuse on the stream
@@ -181,18 +211,23 @@ def lut_tl1(
     bias: torch.Tensor | None = None,  # (p,)
     *,
     plan=None,
+    blocks=None,
     use_kernels: bool = True,
 ) -> torch.Tensor:
     """``out[..., :] = act_scale * scale * sum_c lut[c, widx[c, :]] + bias``
-    in float32."""
+    in float32.  ``blocks``: a plan's tuned tiling (``lut_affine.autotune``);
+    it sets the k splits of a dispatch that fits one row tile of the kernel
+    it names (:func:`k_splits`), the shape rule sets every other's, and an
+    illegal one raises ``ValueError`` on either path."""
     if plan is not None:
         check_acc_contract(
             "lut_tl1", plan, "float32" if acts.is_floating_point() else "int32"
         )
     kb, p = tables.shape
     acts2, lead = _flat(acts, kb)
+    check_blocks("lut_tl1", acts2.shape[0], 1, kb, p, blocks)
     if use_kernels and acts2.is_cuda:
-        out = _launch("lut_tl1", acts2, tables[None], plan)[0]
+        out = _launch("lut_tl1", acts2, tables[None], plan, blocks)[0]
     else:
         out = lut_tl1_ref(acts2, tables)
     out = out.reshape(*lead, p)
@@ -209,18 +244,21 @@ def lut_tl1_grouped(
     biases: torch.Tensor | None = None,  # (G, p)
     *,
     plan=None,
+    blocks=None,
     use_kernels: bool = True,
 ) -> torch.Tensor:
     """``out[g] = lut_tl1(acts, tables[g], act_scale, scale[g]) (+
-    biases[g])`` for all ``G`` projections in one launch -> ``(G, ..., p)``."""
+    biases[g])`` for all ``G`` projections in one launch -> ``(G, ..., p)``.
+    ``blocks`` as :func:`lut_tl1`'s."""
     if plan is not None:
         check_acc_contract(
             "lut_tl1_grouped", plan, "float32" if acts.is_floating_point() else "int32"
         )
     G, kb, p = tables.shape
     acts2, lead = _flat(acts, kb)
+    check_blocks("lut_tl1_grouped", acts2.shape[0], G, kb, p, blocks)
     if use_kernels and acts2.is_cuda:
-        out = _launch("lut_tl1_grouped", acts2, tables, plan)
+        out = _launch("lut_tl1_grouped", acts2, tables, plan, blocks)
     else:
         out = lut_tl1_grouped_ref(acts2, tables)
     out = out.reshape(G, *lead, p)

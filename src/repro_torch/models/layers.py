@@ -223,6 +223,7 @@ def _lut_apply(
         bias=b,
         shift_bits=plan.shift_bits,
         plan=plan,
+        blocks=plan.blocks,
         use_kernels=ctx.ex.use_kernels,
     )
     return y.to(x.dtype)
@@ -244,7 +245,7 @@ def _tl1_apply(
         acts = quantize_acts(x, plan)
     codes, act_scale = acts
     y = lut_tl1(
-        codes, tables, act_scale, scale, bias=b, plan=plan,
+        codes, tables, act_scale, scale, bias=b, plan=plan, blocks=plan.blocks,
         use_kernels=ctx.ex.use_kernels,
     )
     return y.to(x.dtype)
@@ -301,7 +302,7 @@ def _tl1_group_apply(
         stacked_b = node.b if isinstance(node.b, torch.Tensor) else None
         y = lut_tl1_grouped(
             codes, node.tables, act_scale, node.scale, biases=stacked_b, plan=plan,
-            use_kernels=ctx.ex.use_kernels,
+            blocks=plan.blocks, use_kernels=ctx.ex.use_kernels,
         )
         for g, name in enumerate(node.members):
             yi = y[g]
@@ -345,6 +346,7 @@ def _group_apply(
             biases=stacked_b,
             shift_bits=plan.shift_bits,
             plan=plan,
+            blocks=plan.blocks,
             use_kernels=ctx.ex.use_kernels,
         )
         for g, name in enumerate(node.members):

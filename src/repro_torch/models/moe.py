@@ -121,7 +121,7 @@ def _ragged_lut(
         scales = scales * np.float32(float(scale))
     return lut_affine_experts(
         codes, tables, scales, group_sizes, shift_bits=plan.shift_bits, plan=plan,
-        use_kernels=ex.use_kernels,
+        blocks=plan.blocks, use_kernels=ex.use_kernels,
     )
 
 

@@ -59,6 +59,7 @@ and raises :class:`CacheOverflowError` when none is, or mid-decode.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -580,7 +581,10 @@ class BatchingEngine:
         time (which also warms up every kernel's build, attributes and
         tensor maps, and the allocator), captured into the engine's own
         graph and memory pool the second time, then replayed.  A capture
-        that fails raises: the step never falls back to eager."""
+        that fails raises: the step never falls back to eager.  The cyclic
+        garbage collector runs before the capture and is held off during
+        it: a dead engine's graph freed by the collector mid-capture (torch
+        no longer collects when a capture begins) invalidates the capture."""
         if not self.cuda_graph or not self._warmed_up:
             self._warmed_up = True
             return self._decode(self.params, self.cache)
@@ -593,12 +597,18 @@ class BatchingEngine:
                 with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
                     return self._decode(self.params, self.cache)
 
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 packed, added = captured_counts(record)
             except Exception as e:
                 raise RuntimeError(
                     f"capturing the decode step as a CUDA graph failed: {e}"
                 ) from e
+            finally:
+                if collecting:
+                    gc.enable()
             self._graph = graph, packed, added
         graph, packed, added = self._graph
         replay_counted(graph, added)

@@ -5,7 +5,8 @@ versions, on the card, the engine's decode step as a CUDA graph on each
 served path (mixtral_8x7b's ring cache among them), and the
 ``generate()`` of rwkv6_3b on its recurrent state, of zamba2_1_2b on
 its SSD states and shared block's K/V and of whisper_base's
-encoder-decoder on its self and cross K/V.  The
+encoder-decoder on its self and cross K/V; the five LUT wrappers under
+tuned tiles (``kernels/lut_affine/autotune.py``).  The
 kernels have no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports neither JAX nor the JAX package, so it
 runs on a machine that has only the port's dependencies:
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.kernels.binary_matmul import ops as bmm_ops
 from repro_torch.kernels.bitplane_pack import ops as pack_ops
-from repro_torch.kernels.lut_affine import ops
+from repro_torch.kernels.lut_affine import autotune, ops
 from repro_torch.kernels.lut_affine.ref import experts_kernel_ref
 from repro_torch.kernels.lut_tl1 import ops as tl1_ops
 
@@ -1034,6 +1035,29 @@ def test_graph_engine_matches_the_eager_engine_on_card(cuda_device, path, sample
 
 
 @pytest.mark.cuda
+def test_a_dead_engines_graph_leaves_a_capture_alone_on_card(cuda_device):
+    """An engine whose captured graph only the cyclic collector can free:
+    it is freed before the next engine's capture, never during it (a graph
+    destroyed mid-capture invalidates the capture)."""
+    import gc
+
+    from repro_torch.models.layers import SampleCfg
+
+    world = _graph_world("weight", cuda_device)
+    streams, _, eng = _graph_serve(world, None, SampleCfg(), cuda_device)
+    assert eng._graph is not None
+    eng.cycle = eng
+    del eng
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)  # a collection at nearly every allocation
+    try:
+        again, _, eng = _graph_serve(world, None, SampleCfg(), cuda_device)
+    finally:
+        gc.set_threshold(*threshold)
+    assert eng._graph is not None and again == streams
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("path", GRAPH_PATHS)
 def test_graph_capture_refuses_a_read_back_on_card(cuda_device, path, monkeypatch):
     """A read-back inside the step makes the capture raise; the step does
@@ -1955,3 +1979,160 @@ def test_each_audited_kernel_is_one_opaque_leaf_on_card(cuda_device, kernel):
     assert kernel_leaves(recorded) == {kernel: 1}
     assert [m.shape for m in leaves[0].inputs] == in_shapes
     assert [m.shape for m in leaves[0].outputs] == [out_shape]
+
+
+# ---------------------------------------------------------------------------
+# tuned tiles (kernels/lut_affine/autotune.py)
+# ---------------------------------------------------------------------------
+
+TUNED = ["lut_affine", "lut_affine_grouped", "lut_affine_experts", "lut_tl1", "lut_tl1_grouped"]
+TUNE_K, TUNE_P, TUNE_TOP = 300, 1000, 4  # chunks (TL1: packed rows), columns, experts a token
+
+
+class _Splits:
+    """Records the ``splits`` argument (the last before the stream) of each
+    launch of one C entry, and launches it."""
+
+    def __init__(self, module, entry):
+        self.lib, self.entry, self.seen = module._lib(), entry, []
+        self.real = getattr(self.lib, entry)
+
+    def __enter__(self):
+        def spy(*args):
+            self.seen.append(args[-2])
+            return self.real(*args)
+
+        setattr(self.lib, self.entry, spy)
+        return self.seen
+
+    def __exit__(self, *exc):
+        setattr(self.lib, self.entry, self.real)
+
+
+def _tuned_case(name, rows, dev):
+    """(the point a plan would tune for ``name`` at ``rows`` tokens, the
+    module and C entry it launches, call(blocks, use_kernels), exact)."""
+    G = 1 if name in ("lut_affine", "lut_tl1") else 2
+    if name.startswith("lut_tl1"):
+        acts, _, tables, _, _ = _tl1_case(31, (rows,), TUNE_K, TUNE_P + 500, G, 8)
+        acts, tables = acts.to(dev), tables.to(dev)
+        pt = autotune.TunePoint(B=rows, k=TUNE_K, entries=9, p=TUNE_P + 500, n=1, G=G,
+                                table_bytes=1, family="tl1")
+
+        def call(blocks, use_kernels=True):
+            if G == 1:
+                return tl1_ops.lut_tl1(acts, tables[0], blocks=blocks, use_kernels=use_kernels)
+            return tl1_ops.lut_tl1_grouped(acts, tables, blocks=blocks, use_kernels=use_kernels)
+
+        return pt, tl1_ops, f"{name}_launch", call, True
+    pt = autotune.TunePoint(B=rows, k=TUNE_K, entries=32, p=TUNE_P, n=3, G=G, table_bytes=1)
+    if name == "lut_affine_experts":  # rows x top-k expert-sorted rows on 6 experts
+        T = rows * TUNE_TOP
+        codes, tables, scales = _case(29, T, 3, TUNE_K, 32, TUNE_P, 6 * G, "i8", 5)
+        c, t = torch.from_numpy(codes).to(dev), tables.reshape(6, G, TUNE_K, 32, TUNE_P).to(dev)
+        sizes = [T // 6] * 5 + [T - 5 * (T // 6)]
+        gs = torch.tensor(sizes, dtype=torch.int64, device=dev)
+
+        def call(blocks, use_kernels=True):
+            return ops.lut_affine_experts(c, t, scales, gs, shift_bits=5, blocks=blocks,
+                                          use_kernels=use_kernels)
+
+        return pt, ops, "lut_affine_experts_launch", call, False
+    codes, tables, scales = _case(23, rows, 3, TUNE_K, 32, TUNE_P, G, "i8", 5)
+    c, t = torch.from_numpy(codes).to(dev), tables.to(dev)
+
+    def call(blocks, use_kernels=True):
+        if G == 1:
+            return ops.lut_affine(c, t[0], scales, shift_bits=5, blocks=blocks,
+                                  use_kernels=use_kernels)
+        return ops.lut_affine_grouped(c, t, scales, shift_bits=5, blocks=blocks,
+                                      use_kernels=use_kernels)
+
+    return pt, ops, f"{name}_launch", call, False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiling", ["analytic", "one_chunk", "whole_k"])
+@pytest.mark.parametrize("name", TUNED)
+def test_tuned_tilings_match_plain_on_card(cuda_device, name, tiling):
+    """The analytic winner at the decode batch and the extreme legal
+    tilings (``block_k = 1``: k ranges of one chunk; ``block_k = k``: no
+    split) against the plain version; the dense launches cut k as they say,
+    the ragged one keeps its shape rule."""
+    pt, module, entry, call, exact = _tuned_case(name, 4, cuda_device)
+    win = autotune.search_blocks(pt)
+    blocks = {"analytic": win, "one_chunk": win[:2] + (1,), "whole_k": win[:2] + (pt.k,)}[tiling]
+    assert autotune.blocks_fit_smem(pt, blocks)
+    with _Splits(module, entry) as seen:
+        got = call(blocks)
+        rule = call(None)
+    torch.cuda.synchronize()
+    if name == "lut_affine_experts":
+        assert seen[0] == seen[1] and torch.equal(got, rule)
+    else:
+        assert seen[0] == -(-pt.k // blocks[2])
+    want = call(None, use_kernels=False)
+    if exact:  # TL1's integer accumulate
+        assert torch.equal(got, want)
+    else:
+        _close(got, want)
+    # another cut of k moves the fp32 sums by their rounding only; TL1's not at all
+    untuned = call(None)
+    if exact:
+        assert torch.equal(got, untuned)
+    else:
+        _close(got, untuned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 128, 2432])
+@pytest.mark.parametrize("name", TUNED)
+def test_decode_tiles_keep_the_shape_rule_at_prefill_on_card(cuda_device, name, rows):
+    """A plan tuned at the decode batch, dispatched at more rows than one
+    tile (8: the dense decode kernel's second tile, TL1's 8-row kernel; a
+    prefill of 128 and a VLM prefill of 2,432): the launch keeps the shape
+    rule's splits (so its partials), and its output is the untuned
+    launch's bit for bit."""
+    pt, *_ = _tuned_case(name, 4, cuda_device)
+    blocks = autotune.search_blocks(pt)
+    _, module, entry, call, _ = _tuned_case(name, rows, cuda_device)
+    with _Splits(module, entry) as seen:
+        got, rule = call(blocks), call(None)
+    torch.cuda.synchronize()
+    assert len(seen) == 2 and seen[0] == seen[1]
+    assert torch.equal(got, rule)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TUNED)
+def test_kernel_path_refuses_tpu_tiles_on_card(cuda_device, name):
+    *_, call, _ = _tuned_case(name, 4, cuda_device)
+    counts = ops.LAUNCHES if name.startswith("lut_affine") else tl1_ops.LAUNCHES
+    before = dict(counts)
+    with pytest.raises(ValueError, match=r"blocks \(8, 128, 64\) are not a legal Hopper"):
+        call((8, 128, 64))
+    assert counts == before
+
+
+@pytest.mark.cuda
+def test_smem_mirrors_match_the_source_on_card(cuda_device):
+    lib = ops._lib()
+    for n in (1, 2, 3, 8, 11, 32):
+        for E in (2, 16, 32, 64):
+            assert autotune.decode_smem(n) == lib.lut_affine_smem_bytes(0, n, E)
+            assert autotune.prefill_smem(n, E) == lib.lut_affine_smem_bytes(1, n, E)
+    assert autotune.TL1_SMEM_BYTES == tl1_ops._lib().lut_tl1_smem_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["weight", "tl1"])
+def test_measured_search_times_every_candidate_on_card(cuda_device, family):
+    if family == "tl1":
+        pt = autotune.TunePoint(B=4, k=TUNE_K, entries=9, p=TUNE_P + 500, n=1, G=2,
+                                table_bytes=1, family="tl1")
+    else:
+        pt = autotune.TunePoint(B=4, k=TUNE_K, entries=32, p=TUNE_P, n=3, G=2, table_bytes=1)
+    times = autotune.measure_candidates(pt, reps=3)
+    assert set(times) == {None, *autotune.candidate_blocks(pt)}
+    assert all(0 < t < 1 for t in times.values())
+    assert autotune.search_blocks(pt, "measured", reps=3) in times
