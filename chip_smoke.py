@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--phases device,autotune,pack_kernel,kernel,serve,paged_serve,
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
                                     vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,
-                                    tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,
-                                    bmm_serve,paper,train,audit]
+                                    serve_lut,tl1_kernel,tl1_serve,moe_kernel,moe_serve,
+                                    bmm_kernel,bmm_serve,paper,onehot,train,audit]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -252,6 +252,13 @@ Phases, one JSON object per line:
    layer at 4 rows beside its bound, the cross ``wk``/``wv`` at 6,000 rows
    alone on the leaf (no table copy), the encoder's G = 3 group held to
    plain at 6,000 rows.
+3j. ``serve_lut``  the serving example's twin
+   (``repro_torch.examples.serve_lut``, :func:`serve_lut_phase`) at its
+   defaults on the kernels (reduced granite_8b, its own plan at half the
+   uniform chunk-2 bytes, grouped launches, 6 requests on 2 slots), greedy
+   and top-k 20 at temperature 0.8, each batched and ``--admit per-slot``:
+   the streams identical across admissions in both modes, the LUT kernels
+   launched; tok/s, readbacks and the packs off the kernel reported.
 4. ``tl1_kernel``  each TL1 kernel (``lut_tl1``) against its plain
    version at the same full-width shapes and on a grid of int8/int4/exact
    fp32, ragged ``q`` and ``p``, leading dims and bias: int cases bit for
@@ -318,7 +325,19 @@ Phases, one JSON object per line:
    chunks 1 / 2 / 7 / 14, whose accuracy on 3-bit inputs must equal the
    dense model's on the same inputs within one image; then the TL1 rows of
    ``repro_torch.benchmarks.accuracy_vs_bits`` on ``lut_tl1``, against the
-   plain version.
+   plain version.  Each fp16 conversion also runs under
+   ``linear_mode="onehot_mxu"`` (the plain path: a one-hot of each code
+   against the tables rounded to bf16, summed in fp32; a ``step: onehot``
+   line): its held-out accuracy within ONEHOT_ACC_POINTS of the kernel
+   path's, every converted layer within the tables' bf16 rounding
+   (:func:`onehot_bound`) of the kernel on the same input, its device ms.
+10a. ``onehot``  ``linear_mode="onehot_mxu"`` on one full-width granite_8b
+   decoder layer under fixed-point 8/6 chunk-2 plans, fp32 and i8 tables
+   (:func:`onehot_phase`): each LUT call (``wk+wv`` and ``w_gate+w_up``
+   G = 2 groups, which the mode does not fuse) at 4 and 128 rows against
+   the ``lut_affine`` / ``lut_affine_grouped`` kernel on the same codes,
+   within the bf16 rounding bound (i8: within KERNEL_TOL), with both
+   applies' device ms.
 11. ``train``  the training path (:func:`train_phase`): the ``100m`` preset
    of ``examples/train_100m.py`` at full width and all 12 layers, 40 steps
    of 8 x 256 ``lm_stream`` tokens with remat ``"dots"``, bf16 compute and
@@ -328,7 +347,12 @@ Phases, one JSON object per line:
    ms, tokens/s, model FLOPs and their share of the bf16 peak, peak memory,
    checkpoint bytes and save / restore seconds; 4 steps each under remat
    ``none`` / ``full`` / ``dots`` and with the deterministic algorithms
-   off.  ``granite_8b`` at full width, 2 of 36 layers, 4 steps.  Then the
+   off.  ``granite_8b`` at full width, 2 of 36 layers, 4 steps.  Then a
+   ``family_train`` line for rwkv6_3b (16 of 32 layers), zamba2_1_2b (all 38)
+   and whisper_base (6 + 6, 1,500 frames a row) at full width, remat
+   ``"dots"``, bf16 (:func:`family_train`): a ``Trainer``'s 4 steps, its step 1
+   bit for bit remat ``none``'s, finite, at least 90 % of the gradient leaves
+   non-zero, and one profiled step.  Then the
    trained tree planned, converted, its plan through a checkpoint's
    ``aux`` and ``generate`` on the kernels: launches as planned, no pack off
    the kernel, synchronized first tokens, 1-layer prefill logits; the
@@ -368,11 +392,13 @@ behind a spin kernel until the host has enqueued them all.
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after; each phase ends with a ``seconds`` line.  Then one
 ``kernels`` summary line (the row of ``bitplane_pack`` sums its launches
-over the fifteen paths that pack, ``launches_by_path``, and times one
+over the fifteen paths that pack and ``serve_lut``, whose plans pack off
+the kernel, ``launches_by_path``, and times one
 binary-cell decode layer's 7 packs; ``lut_affine`` and ``lut_tl1`` add the
 paper networks' launches to their serve phase's, the weight cell's kernels
 the paged engine's and the MLA, phi3, minitron, mixtral, VLM, RWKV,
-hybrid and enc-dec cells' (the VLM cell's engine as ``vlm_serve``, its ``generate()``
+hybrid and enc-dec cells' and the ``serve_lut`` example's (the VLM cell's engine as
+``vlm_serve``, its ``generate()``
 with the image prefix as ``vlm_generate``; the RWKV cell's ``generate()``
 as ``rwkv_serve``, the hybrid cell's as ``hybrid_generate``, the enc-dec
 cell's as ``encdec_generate``, the trained 100m model's as
@@ -499,6 +525,11 @@ VLM_SYNC_DEPTH = 1
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ, TRAIN_HELD_OUT = 40, 20, 8, 256, 4
 TRAIN_REMAT_STEPS, TRAIN_GRANITE_LAYERS, TRAIN_GRANITE_STEPS = 4, 2, 4
 TRAIN_ROWS, TRAIN_PROMPT, TRAIN_NEW, TRAIN_SYNC_NEW = 4, 32, 16, 2
+# the other families under autograd at full width: layers (None: all), rows,
+# tokens a row (whisper: decoder tokens beside ENCDEC_FRAMES frames)
+FAMILY_TRAIN = {"rwkv6_3b": (16, 8, 256), "zamba2_1_2b": (None, 8, 256),
+                "whisper_base": (None, 8, 128)}
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_NONZERO = 4, 0.9
 # the rwkv_serve phase: full-width rwkv6_3b at the cut family_depth computes
 # (16 of 32 expected).  The main path: RWKV_ROWS rows of RWKV_PROMPT seeded
 # prompt tokens and RWKV_NEW new tokens through generate() (long-context
@@ -592,6 +623,14 @@ PAPER_BATCHES, PAPER_ROWS = 3, 500
 PAPER_AGREE = 499
 TL1_BATCHES = 4  # accuracy_vs_bits' 2000 held-out images, batches of 500
 FIG5_BITS, FIG5_CHUNKS = 3, (1, 2, 7, 14)
+# linear_mode="onehot_mxu": the paper networks' held-out accuracy on it
+# within ONEHOT_ACC_POINTS of the kernel path's; granite_8b's layer at
+# full width under fixed-point 8/6 chunk-2 plans with fp32 and i8 tables, at
+# ONEHOT_ROWS rows
+ONEHOT_ACC_POINTS = 0.5
+ONEHOT_ROWS = (4, 128)
+ONEHOT_TABLES = (None, "i8")  # table_format: fp32 entries (rounded to bf16) and i8 (exact)
+ONEHOT_X_STD = 0.5  # the inputs' std (8/6 fixed point holds [-2, 2))
 TL1_ACT_BITS = (None, 8, 4, 2)
 PACK_SERVED = {
     "weight": ("granite_8b", dict(kind="shift", m=1, signed=True, radix=4),
@@ -5729,6 +5768,35 @@ def paper_layer_ms(node, x, ctx, iters: int) -> dict:
             "lut_affine_bound_ms": b_ms, "bound_by": b_by}
 
 
+def onehot_bound(codes, tables, scales):
+    """The most ``linear_mode="onehot_mxu"``'s bf16 rounding of ``tables``
+    can move each output: ``sum_j |s_j| sum_c |T - bf16(T)|[c, idx]``, the
+    plain gather over the rounding errors (0 for entries bf16 holds, such
+    as i8's)."""
+    import torch
+
+    from repro_torch.kernels.lut_affine import ops
+
+    err = (tables.float() - tables.to(torch.bfloat16).float()).abs()
+    return ops.lut_affine(codes, err, [abs(float(v)) for v in ops.host_scales(scales)],
+                          use_kernels=False)
+
+
+def onehot_compare(kern, onehot, bound) -> dict:
+    """The one-hot mode's output against the kernel's on the same input:
+    the largest difference against max|kernel|, and whether every element
+    lies within ``bound`` (the tables' bf16 rounding) plus KERNEL_TOL x
+    max|kernel| (fp32 sums in another order)."""
+    import torch
+
+    d = (onehot.float() - kern.float()).abs()
+    top = kern.abs().max().item()
+    ok = bool((d <= bound * (1 + 1e-6) + KERNEL_TOL * top).all())
+    return {"max_abs_err": d.max().item(), "max_abs_kernel": top,
+            "rel_err": d.max().item() / top, "max_bound": bound.max().item(),
+            "within_bound": ok and bool(torch.isfinite(onehot).all())}
+
+
 def paper_batches(bits=None):
     """The held-out images of ``examples/tablenet_mnist.py::accuracy`` (3
     batches of 500 from step 50,000) on the card, on the ``bits`` grid
@@ -5744,7 +5812,7 @@ def paper_batches(bits=None):
 
 
 def run_converted(tag: dict, lut, report, params, forward, batches, iters: int,
-                  dense_inputs) -> dict:
+                  dense_inputs, onehot: bool = False) -> dict:
     """A converted paper network over ``batches``: one counted pass on the
     kernels (per forward one ``bitplane_pack`` and one ``lut_affine`` launch
     per converted layer, no pack off the kernel), the plain versions on the
@@ -5752,15 +5820,21 @@ def run_converted(tag: dict, lut, report, params, forward, batches, iters: int,
     same input, device times of the kernel path, the plain path and the
     dense forward at B = 500, and the 10-column head's table copy.
     ``dense_inputs`` maps an image batch to the dense model's input for the
-    accuracy beside the LUT path's."""
+    accuracy beside the LUT path's.  With ``onehot``, also the
+    ``linear_mode="onehot_mxu"`` plain path over the same images (its own
+    line): its accuracy within ONEHOT_ACC_POINTS of the kernel path's and
+    every converted layer within :func:`onehot_bound` of the kernel on the
+    same input."""
     import torch
 
     from repro_torch.core.convert import LUTLinear
+    from repro_torch.kernels.bitplane_pack.ops import pack
     from repro_torch.kernels.lut_affine import ops as lut_ops
-    from repro_torch.models.layers import linear
+    from repro_torch.models.layers import _host_scales, linear
     from repro_torch.models.paper_models import paper_ctx
 
     kctx, pctx = paper_ctx(), paper_ctx(use_kernels=False)
+    octx = paper_ctx(use_kernels=False, linear_mode="onehot_mxu")
     names = [k for k, v in lut.items() if isinstance(v, LUTLinear)]
     by_node = {id(lut[k]): k for k in names}
     reset_launches()
@@ -5787,7 +5861,8 @@ def run_converted(tag: dict, lut, report, params, forward, batches, iters: int,
         return sum(int((lg.argmax(-1) == y).sum()) for lg, y in zip(logits, labels))
 
     # every converted layer against its plain version on the same input
-    layer_err, layer_in = {}, {}
+    # (and against the one-hot mode's)
+    layer_err, layer_in, onehot_err = {}, {}, {}
 
     def check(p, x, y):
         if not isinstance(p, LUTLinear):
@@ -5798,6 +5873,10 @@ def run_converted(tag: dict, lut, report, params, forward, batches, iters: int,
         layer_err[name] = {"rows": x.numel() // x.shape[-1], "max_abs_err": err,
                            "max_abs_ref": ref, "ok": err <= KERNEL_TOL * ref}
         layer_in[name] = x.reshape(-1, x.shape[-1])
+        if onehot:
+            bound = onehot_bound(pack(x, p.plan), p.tables, _host_scales(p.plan, p.scale))
+            onehot_err[name] = onehot_compare(y, linear(p, x, octx), bound)
+            del bound
 
     with torch.no_grad(), paper_layer_spy(check):
         forward(lut, batches[0][0], kctx)
@@ -5836,7 +5915,50 @@ def run_converted(tag: dict, lut, report, params, forward, batches, iters: int,
         raise AssertionError(f"{tag}: layers {bad} off their plain version (or unchecked)")
     if min(agree) < PAPER_AGREE or not finite:
         raise AssertionError(f"{tag}: argmax agreement {agree} below {PAPER_AGREE} a batch")
+    if onehot:
+        onehot_line(tag, lut, forward, batches, octx, onehot_err, names, res, iters)
     return res
+
+
+def onehot_line(tag, lut, forward, batches, octx, layer_err, names, res, iters) -> None:
+    """A converted paper network under ``linear_mode="onehot_mxu"`` (the
+    plain path: no LUT kernel launches) over ``batches``: its held-out
+    accuracy beside the kernel path's and the plain gather's (gated within
+    ONEHOT_ACC_POINTS of the kernel path's), its device ms at B = 500, and
+    each converted layer against the kernel on the same input
+    (``layer_err``, gated within :func:`onehot_bound`)."""
+    import torch
+
+    reset_launches()
+    with torch.no_grad():
+        logits = [forward(lut, x, octx) for x, _ in batches]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    correct = sum(int((lg.argmax(-1) == y).sum()) for lg, (_, y) in zip(logits, batches))
+    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    del logits
+    with torch.no_grad():
+        onehot_ms = device_ms([functools.partial(forward, lut, batches[0][0], octx)],
+                              min(2, iters), warmup=1, hold=False)
+    points = 100.0 * (correct - res["lut_correct"]) / res["images"]
+    line = {"phase": "paper", **tag, "step": "onehot", "linear_mode": "onehot_mxu",
+            "images": res["images"], "onehot_correct": correct,
+            "onehot_accuracy": correct / res["images"], "lut_accuracy": res["lut_accuracy"],
+            "plain_accuracy": res["plain_correct"] / res["images"],
+            "accuracy_points_from_kernel": points, "accuracy_points_tol": ONEHOT_ACC_POINTS,
+            "layers": layer_err, "finite": finite,
+            "device_ms": {"onehot": onehot_ms, **res["device_ms"]},
+            "lut_launches": {k: v for k, v in launches.items() if v},
+            "nvidia_smi": smi_line()}
+    emit(line)
+    bad = [k for k, v in layer_err.items() if not v["within_bound"]]
+    if bad or set(layer_err) != set(names) or not finite:
+        raise AssertionError(f"{tag}: one-hot layers {bad} off the kernel beyond the bf16 "
+                             "rounding (or unchecked, or not finite)")
+    if abs(points) > ONEHOT_ACC_POINTS:
+        raise AssertionError(f"{tag}: one-hot accuracy {points} points from the kernel path's")
+    if launches["lut_affine"] or launches["lut_affine_grouped"]:
+        raise AssertionError(f"{tag}: the one-hot path launched LUT kernels: {launches}")
 
 
 def paper_phase(iters: int) -> dict:
@@ -5892,7 +6014,7 @@ def paper_phase(iters: int) -> dict:
                    "convert_s": time.perf_counter() - t0,
                    "summary": conversion_summary(report)}
             res = run_converted(tag, lut, report, params, forward, batches, iters,
-                                lambda x: x.half().float())
+                                lambda x: x.half().float(), onehot=True)
             add(res["launches"])
             del lut
             torch.cuda.empty_cache()
@@ -5956,6 +6078,184 @@ def paper_phase(iters: int) -> dict:
             raise AssertionError(f"tl1 a{act_bits}: the kernel is off its plain version "
                                  f"(or a batch went unchecked): {batch_err}")
         add(launches)
+    return {"launches": total}
+
+
+# ---------------------------------------------------------------------------
+# onehot phase: linear_mode="onehot_mxu" on a full-width granite_8b layer
+# ---------------------------------------------------------------------------
+
+
+def onehot_phase(iters: int) -> dict:
+    """``linear_mode="onehot_mxu"`` (the plain path, asked for: a one-hot
+    of each code against the tables rounded to bf16, summed in fp32)
+    against the ``lut_affine`` and ``lut_affine_grouped`` kernels on the
+    same codes, on one granite_8b decoder layer at full width (d_model
+    4,096, d_ff 14,336) with seeded weights, converted under fixed-point
+    8/6 ``bitplane`` plans at chunk 2 (not shift plans: their codes cannot
+    feed a one-hot), with fp32 tables (2,048 x 4 x 4,096 entries for
+    ``wq``; bf16 rounds them) and with i8 tables (exact in bf16), ``wk+wv``
+    and ``w_gate+w_up`` G = 2 groups.  At ONEHOT_ROWS rows each call: the
+    kernel path (grouped launch for a group) and the one-hot path (no
+    fusion: each member alone, as in the reference) on inputs of std
+    ONEHOT_X_STD; every element within :func:`onehot_bound` plus
+    KERNEL_TOL x max|kernel|; the LUT apply's device ms of each (the codes
+    given), the kernel call's bound (:func:`bound`) and the one-hot path's
+    LUT launches (0)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.convert import LUTGroup, convert_params
+    from repro_torch.core.lut import LUTPlan
+    from repro_torch.core.planner import ModelPlan
+    from repro_torch.core.quantize import FixedPointFormat
+    from repro_torch.kernels.bitplane_pack.ops import pack
+    from repro_torch.kernels.lut_affine import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import block_specs, layer_params, stack_specs
+
+    cfg = dataclasses.replace(get_config("granite_8b"), num_layers=1)
+    params = init_params({"blocks": stack_specs(block_specs(cfg), 1)},
+                         torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    fmt = FixedPointFormat(8, 6, signed=True)
+    kctx = L.Ctx(cfg, ex=L.ExecCfg(remat="none", lut_grouped=True))
+    octx = L.Ctx(cfg, ex=L.ExecCfg(remat="none", lut_grouped=True, linear_mode="onehot_mxu",
+                                   use_kernels=False))
+    calls = (("attn", ("wq",)), ("attn", ("wk", "wv")), ("attn", ("wo",)),
+             ("ffn", ("w_gate", "w_up")), ("ffn", ("w_down",)))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    worst = 0.0
+    for table_format in ONEHOT_TABLES:
+        layers, groups = {}, []
+        for part, names in calls:
+            for name in names:
+                q, p = params["blocks"][part][name]["w"].shape[-2:]
+                layers[f"blocks/{part}/{name}"] = LUTPlan(q, p, 2, fmt, mode="bitplane",
+                                                          table_format=table_format)
+            if len(names) > 1:
+                groups.append(tuple(f"blocks/{part}/{n}" for n in names))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lut, report = convert_params(params, plan=ModelPlan(layers, groups=tuple(groups)))
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        layer = layer_params(lut["blocks"], 0)
+        tag = f"fixed8/6-bitplane-c2-{table_format or 'f32'}"
+        for rows in ONEHOT_ROWS:
+            for part, names in calls:
+                parent = layer[part]
+                node = parent.get("+".join(names)) if len(names) > 1 else parent[names[0]]
+                plan = node.plan
+                x = ONEHOT_X_STD * torch.randn((rows, plan.in_features), generator=gen,
+                                               device=DEV)
+                reset_launches()
+                kern = L.fused_linears(parent, names, x, kctx)
+                torch.cuda.synchronize()
+                klaunch = read_launches()
+                reset_launches()
+                onehot = L.fused_linears(parent, names, x, octx)
+                torch.cuda.synchronize()
+                olaunch = read_launches()
+                codes = pack(x, plan)
+                scales = L._host_scales(plan, node.scale)
+                members = {}
+                for g, name in enumerate(names):
+                    tables = node.tables[g] if isinstance(node, LUTGroup) else node.tables
+                    members[name] = onehot_compare(kern[g], onehot[g],
+                                                   onehot_bound(codes, tables, scales))
+                if isinstance(node, LUTGroup):
+                    kernel_fn = functools.partial(ops.lut_affine_grouped, codes, node.tables,
+                                                  scales)
+                    onehot_fns = [functools.partial(L._onehot_apply, t, None, codes, scales)
+                                  for t in node.tables]
+                else:
+                    kernel_fn = functools.partial(ops.lut_affine, codes, node.tables, scales)
+                    onehot_fns = [functools.partial(L._onehot_apply, node.tables, None, codes,
+                                                    scales)]
+                kernel_ms = device_ms([kernel_fn], iters)
+                b_ms, b_by = bound(codes.reshape(-1, *codes.shape[-2:]), len(names),
+                                   plan.num_entries, plan.out_features,
+                                   node.tables.element_size(), 0)
+                # without the hold: the one-hot path copies its host scales
+                # to the card (a synchronous copy), as the plain versions do
+                onehot_ms = device_ms([lambda: [f() for f in onehot_fns]], max(1, iters // 4),
+                                      warmup=1, hold=False)
+                expect = {"lut_affine_grouped" if len(names) > 1 else "lut_affine": 1,
+                          "bitplane_pack": 1}
+                line = {"phase": "onehot", "plan": tag, "call": "+".join(names), "rows": rows,
+                        "q": plan.in_features, "p": plan.out_features, "G": len(names),
+                        "n": plan.num_planes, "k": plan.num_chunks, "E": plan.num_entries,
+                        "table_dtype": str(node.tables.dtype), "members": members,
+                        "kernel_ms": kernel_ms, "kernel_bound_ms": b_ms, "bound_by": b_by,
+                        "onehot_ms": onehot_ms, "onehot_over_kernel": onehot_ms / kernel_ms,
+                        "kernel_launches": {k: v for k, v in klaunch.items() if v},
+                        "onehot_launches": {k: v for k, v in olaunch.items() if v},
+                        "convert_s": convert_s, "table_bytes": report.table_bytes,
+                        "nvidia_smi": smi_line()}
+                emit(line)
+                if not all(m["within_bound"] for m in members.values()):
+                    raise AssertionError(f"onehot {tag} {names} at {rows} rows: off the kernel "
+                                         f"beyond the bf16 rounding: {members}")
+                if table_format == "i8" and any(m["max_abs_err"] > KERNEL_TOL
+                                                * m["max_abs_kernel"] for m in members.values()):
+                    raise AssertionError(f"onehot {tag} {names}: i8 tables off the kernel")
+                if any(klaunch[k] != v for k, v in expect.items()) or any(
+                        olaunch[k] for k in ("lut_affine", "lut_affine_grouped")):
+                    raise AssertionError(f"onehot {names}: launches {klaunch} / {olaunch}")
+                worst = max(worst, *(m["rel_err"] for m in members.values()))
+        del lut, layer
+        torch.cuda.empty_cache()
+    return {"worst_rel_err": worst}
+
+
+# ---------------------------------------------------------------------------
+# serve_lut phase: the serving example's twin on the card
+# ---------------------------------------------------------------------------
+
+
+def serve_lut_phase() -> dict:
+    """``repro_torch.examples.serve_lut`` at its defaults (reduced
+    granite_8b, 6 requests on 2 slots, 8 new tokens each, the plan at half
+    the uniform chunk-2 bytes, grouped launches) on the card, greedy and
+    ``--temperature 0.8 --top-k 20``, each batched and ``--admit per-slot``:
+    the streams identical across the admissions in both modes, the LUT
+    kernels' launches counted (after one untimed run at the defaults).
+    Reported: tok/s (the run's wall clock, its graph capture included),
+    host readbacks, decode
+    steps and the packs off the kernel (its signed fp16 ``bitplane`` plans
+    pack through ``pack_codes``, ``PLAIN_CALLS``)."""
+    import torch
+
+    from repro_torch.examples import serve_lut
+
+    serve_lut.main([])  # untimed: the card's first launches and allocations
+    runs, total = {}, no_launches()
+    for mode, flags in (("greedy", []), ("top_k", ["--temperature", "0.8", "--top-k", "20"])):
+        for admit in ("batched", "per-slot"):
+            reset_launches()
+            out = serve_lut.main(flags + ["--admit", admit])
+            torch.cuda.synchronize()
+            launches, off_kernel = read_launches(), plain_pack_codes_calls()
+            for k, v in launches.items():
+                total[k] += v
+            runs[f"{mode}/{admit}"] = {
+                "streams": [r.generated for r in out["requests"]], "steps": out["steps"],
+                "tokens": out["tokens"], "seconds": out["seconds"],
+                "tok_per_s": out["tok_per_s"], "readbacks": out["engine"].readbacks,
+                "cuda_graph": out["engine"].cuda_graph,
+                "launches": {k: v for k, v in launches.items() if v},
+                "plain_pack_codes_calls": off_kernel}
+            del out
+    checks = {f"{mode}_streams_identical": runs[f"{mode}/batched"]["streams"]
+              == runs[f"{mode}/per-slot"]["streams"] for mode in ("greedy", "top_k")}
+    checks["lut_kernels_launched"] = all(
+        r["launches"].get("lut_affine", 0) + r["launches"].get("lut_affine_grouped", 0) > 0
+        for r in runs.values())
+    emit({"phase": "serve_lut", "runs": runs, "checks": checks, "nvidia_smi": smi_line()})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve_lut: failed checks {failed}")
     return {"launches": total}
 
 
@@ -6132,6 +6432,190 @@ def stream_bits_check(phase: str) -> None:
           "card_equals_cpu": equal})
     if not all(all(v.values()) for v in equal.values()):
         raise AssertionError(f"{phase}: the card's stream bits differ from the CPU's: {equal}")
+
+
+def family_flops(cfg, rows: int, seq: int, enc_len: int = 0) -> dict:
+    """Model FLOPs of one training step of a non-decoder family, an
+    estimate of this script's own (no recompute counted): 6 per weight and
+    token for the matmul weights (2-D and up, head included, the embedding's
+    gather not; the zamba2 shared block's once per invocation; whisper's
+    encoder over its frames, its decoder and tied head over its tokens),
+    plus attention's 12 H hd S per token and layer (self-attention over S,
+    whisper's cross-attention over the frames).  The RWKV and SSD scans'
+    element-wise work is not counted."""
+    from repro_torch.models.hybrid import segments
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import tree_flatten
+
+    specs = model_specs(cfg)
+
+    def weights(tree) -> int:
+        return sum(math.prod(t.shape) for t in tree_flatten(tree)[0] if len(t.shape) >= 2)
+
+    hd = cfg.head_dim
+    tokens = rows * seq
+    if cfg.family == "encdec":
+        enc_tokens = rows * enc_len
+        head = math.prod(specs["embed"].shape)  # tied: the head is embed^T
+        attn_enc = 12 * cfg.encoder_layers * cfg.num_heads * hd * enc_len
+        attn_dec = 12 * cfg.num_layers * cfg.num_heads * hd * (seq + enc_len)
+        flops = (enc_tokens * (6 * weights(specs["encoder"]) + attn_enc)
+                 + tokens * (6 * (weights(specs["decoder"]) + head) + attn_dec))
+        n = weights(specs["encoder"]) + weights(specs["decoder"]) + head
+    elif cfg.family == "hybrid":
+        calls = len(segments(cfg)) - 1
+        head = (weights(specs["lm_head"]) if "lm_head" in specs
+                else math.prod(specs["embed"].shape))
+        n = weights(specs["mamba"]) + calls * weights(specs["shared"]) + head
+        flops = tokens * (6 * n + 12 * calls * cfg.num_heads * hd * seq)
+    else:
+        n = weights(specs) - math.prod(specs["embed"].shape)
+        flops = tokens * 6 * n
+    return {"matmul_weights_per_token": n, "tokens": tokens, "frames": rows * enc_len,
+            "flops_per_step": flops,
+            "formula": "6 x matmul weights x tokens (the shared block per invocation, the "
+                       "encoder over its frames) + 12 H hd S per token and attention layer; "
+                       "scans not counted; no recompute"}
+
+
+def no_save_trainer(*args):
+    """A ``Trainer(*args)`` whose checkpoint writes are skipped (a family's
+    weights and AdamW moments are tens of GB; the ``train_100m`` line
+    measures the checkpoints)."""
+    from repro_torch.train.trainer import Trainer
+
+    class NoSaveTrainer(Trainer):
+        def _save(self, step: int):
+            pass
+
+    return NoSaveTrainer(*args)
+
+
+def kernels_of_step(step_fn, params, opt, batch) -> dict:
+    """torch.profiler (device activity only: the host's events of a
+    25,000-kernel step take longer to gather than the step) over one train
+    step: its device kernels, busy ms, wall ms and idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        _, _, m = step_fn(params, opt, batch)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"device_kernels": sum(e.count for e in kernels), "busy_ms": busy,
+            "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
+            "top_kernels_ms": {e.key[:60]: [e.count, e.self_device_time_total / 1e3] for e in
+                               sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]}}
+
+
+def family_train(phase: str, arch: str) -> None:
+    """One ``family_train`` line: ``arch`` at full width (FAMILY_TRAIN: its
+    depth, rows and tokens; whisper with ENCDEC_FRAMES seeded frame
+    embeddings a row at std ENCDEC_FRAME_STD), seeded weights (RWKV's and
+    the SSD's zeroed leaves redrawn as their serve cells draw them), bf16
+    compute on fp32 weights, ``lm_stream`` batches, under the deterministic
+    algorithms.  Step 1's gradients under remat ``none``: every leaf finite,
+    at least FAMILY_TRAIN_NONZERO of them non-zero.  Then
+    FAMILY_TRAIN_STEPS steps of a ``Trainer`` with remat ``"dots"`` (no
+    checkpoint writes): its step-1 loss and gradient norm bit for bit those
+    under ``none``, every loss and gradient norm finite; the median step ms
+    (the first step untimed), tokens/s, peak memory, model FLOPs and their
+    share of the bf16 peak; then one more step profiled
+    (:func:`kernels_of_step`)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import lm_stream
+    from repro_torch.models.layers import Ctx, ExecCfg
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params, tree_flatten
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.trainer import TrainConfig, make_grad_fn
+
+    t0 = time.perf_counter()
+    seconds = {}
+    layers, rows, seq = FAMILY_TRAIN[arch]
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    enc_len = ENCDEC_FRAMES if cfg.family == "encdec" else 0
+    flops = family_flops(cfg, rows, seq, enc_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(model_specs(cfg), torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+    seeded = {"ssm": rwkv_seed_leaves, "hybrid": hybrid_seed_leaves}.get(cfg.family)
+    seeded = seeded(params) if seeded else None
+    stream = lm_stream(cfg.vocab_size, seq, rows, seed=0, device=DEV)
+    batches = [next(stream) for _ in range(FAMILY_TRAIN_STEPS + 1)]
+    if enc_len:
+        gen = torch.Generator(device=DEV).manual_seed(ENCDEC_SEED)
+        for b in batches:
+            b["enc_embeds"] = ENCDEC_FRAME_STD * torch.randn(
+                (rows, enc_len, cfg.d_model), generator=gen, device=DEV)
+    tc = TrainConfig(peak_lr=3e-4, warmup_steps=2, total_steps=FAMILY_TRAIN_STEPS + 1,
+                     out_dir=os.path.join(ROOT, "build", f"family_train_{arch}"))
+    ctx = Ctx(cfg, ex=ExecCfg(remat="dots"))
+    torch.cuda.synchronize()
+    seconds["setup"] = time.perf_counter() - t0
+    with deterministic(True):
+        t1 = time.perf_counter()
+        grads, loss, _ = make_grad_fn(Ctx(cfg, ex=ExecCfg(remat="none")), tc)(
+            params, batches[0])
+        leaves = tree_flatten(grads)[0]
+        none = {"loss": float(loss), "grad_norm": float(global_norm(grads)),
+                "leaves": len(leaves),
+                "nonzero_leaves": sum(bool((g != 0).any()) for g in leaves),
+                "finite": all(bool(torch.isfinite(g).all()) for g in leaves)
+                and math.isfinite(float(loss))}
+        del grads, leaves
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated()
+        seconds["step1_none"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        trainer = no_save_trainer(ctx, tc, params, iter(batches[:-1]))
+        log = trainer.run(FAMILY_TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        seconds["trainer"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        profile = kernels_of_step(trainer.step_fn, trainer.params, trainer.opt_state,
+                                  batches[-1])
+        seconds["profiled_step"] = time.perf_counter() - t1
+    losses = [r["loss"] for r in log]
+    norms = [r["grad_norm"] for r in log]
+    dots = {"loss": losses[0], "grad_norm": norms[0]}
+    checks = {
+        "step1_finite": none["finite"],
+        "step1_nonzero_leaves": none["nonzero_leaves"] >= FAMILY_TRAIN_NONZERO * none["leaves"],
+        "step1_remat_dots_equals_none": (none["loss"], none["grad_norm"])
+        == (dots["loss"], dots["grad_norm"]),
+        "every_step_once": [r["step"] for r in log] == list(range(1, FAMILY_TRAIN_STEPS + 1)),
+        "losses_finite": all(math.isfinite(x) for x in losses + norms)}
+    seconds["total"] = time.perf_counter() - t0
+    emit({"phase": phase, "step": "family_train", "arch": arch, "family": cfg.family,
+          "layers": cfg.num_layers, "published_layers": full.num_layers,
+          **({"encoder_layers": cfg.encoder_layers, "frames": enc_len} if enc_len else {}),
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "params": sum(t.numel() for t in tree_flatten(params)[0]), "rows": rows, "seq": seq,
+          "remat": "dots", "compute_dtype": str(tc.compute_dtype),
+          "deterministic_algorithms": True, **({"seeded_leaves": seeded} if seeded else {}),
+          "step1": {"none": none, "dots": dots}, "losses": losses, "grad_norms": norms,
+          **step_stats([r["time_s"] for r in log[1:]], flops), **flops,
+          "max_memory_allocated_gib": peak / 2**30,
+          "step1_none_max_memory_allocated_gib": grad_peak / 2**30,
+          "kernels_per_step": profile["device_kernels"], "step_profile": profile,
+          "timing_reason": "the first Trainer step untimed (allocator warm-up)",
+          "seconds": seconds, "checks": checks, "nvidia_smi": smi_line()})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase} {arch}: failed checks {failed}")
 
 
 def train_phase() -> dict:
@@ -6318,6 +6802,9 @@ def train_phase() -> dict:
         raise AssertionError(f"{phase}: granite_8b losses {glosses}")
     del gparams, gbatches
     torch.cuda.empty_cache()
+    for arch in FAMILY_TRAIN:
+        family_train(phase, arch)
+        torch.cuda.empty_cache()
 
     # (c) the quickstart's serve half on (a)'s trained tree
     t0 = time.perf_counter()
@@ -6523,8 +7010,8 @@ def main(argv=None) -> int:
         "--phases",
         default="device,autotune,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
                 "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,"
-                "tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper,train,"
-                "audit",
+                "serve_lut,tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper,"
+                "onehot,train,audit",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -6589,6 +7076,7 @@ def main(argv=None) -> int:
     rwkv = run("rwkv_serve", rwkv_serve_phase, args.iters)
     hyb = run("hybrid_serve", hybrid_serve_phase, args.iters)
     enc = run("encdec_serve", encdec_serve_phase, args.iters)
+    slut = run("serve_lut", serve_lut_phase)
     tkern = run("tl1_kernel", tl1_kernel_phase, args.iters, 4 * 32)
     tsrv = run("tl1_serve", tl1_serve_phase, TL1_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
@@ -6599,6 +7087,8 @@ def main(argv=None) -> int:
     bsrv = run("bmm_serve", bmm_serve_phase, BMM_LAYERS, REQUESTS, MAX_NEW)
     torch.cuda.empty_cache()
     paper = run("paper", paper_phase, args.iters)
+    torch.cuda.empty_cache()
+    run("onehot", onehot_phase, args.iters)
     torch.cuda.empty_cache()
     train = run("train", train_phase)
     torch.cuda.empty_cache()
@@ -6615,15 +7105,15 @@ def main(argv=None) -> int:
             # lut_affine and lut_tl1 also run the paper networks, the weight
             # cell's kernels the paged engine, the MLA, phi3, minitron, mixtral,
             # VLM (the VLM cell's engine and its generate() with the image
-            # prefix), RWKV, hybrid and enc-dec cells, the experts kernel the
-            # mixtral cell
+            # prefix), RWKV, hybrid and enc-dec cells and the serve_lut
+            # example, the experts kernel the mixtral cell
             by_path = {path: s["launches"][name]}
             for other, o in (("paged_serve", psrv), ("mla_serve", mla), ("phi3_serve", phi3),
                              ("minitron_serve", mini), ("mixtral_serve", mix),
                              ("vlm_serve", vlm), ("vlm_generate", vlm_gen),
                              ("rwkv_serve", rwkv), ("hybrid_generate", hyb),
-                             ("encdec_generate", enc), ("paper", paper),
-                             ("train_serve", train)):
+                             ("encdec_generate", enc), ("serve_lut", slut),
+                             ("paper", paper), ("train_serve", train)):
                 if o is not None and o["launches"][name]:
                     by_path[other] = o["launches"][name]
             rows.append({
@@ -6647,7 +7137,7 @@ def main(argv=None) -> int:
                                      ("mixtral_serve", mix), ("vlm_serve", vlm),
                                      ("vlm_generate", vlm_gen), ("rwkv_serve", rwkv),
                                      ("hybrid_generate", hyb), ("encdec_generate", enc),
-                                     ("moe_serve", msrv),
+                                     ("serve_lut", slut), ("moe_serve", msrv),
                                      ("bmm_serve", bsrv), ("paper", paper),
                                      ("train_serve", train))
              if s is not None}

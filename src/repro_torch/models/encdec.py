@@ -13,9 +13,12 @@ in the reference's order: the encoder, then the cross K/V of each layer,
 then the decoder blocks.  They are static afterwards: decode steps read
 them and write only the self K/V.  Without a cache each layer computes its
 cross K/V from the encoder's output between its self- and
-cross-attention, as the reference's training path does.  Layer parameters
-are stacked along a leading ``layers`` axis; the loops take layer ``l``'s
-views of every leaf.
+cross-attention, as the reference's training path does, so that the
+gradient reaches the encoder through every layer's cross K/V.  Layer
+parameters are stacked along a leading ``layers`` axis; the loops take
+layer ``l``'s views of every leaf.  While autograd records (training),
+each encoder and decoder layer runs under the ``ExecCfg.remat`` policy
+(``transformer.remat``), as the reference checkpoints both scan bodies.
 """
 from __future__ import annotations
 
@@ -27,7 +30,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Ctx
 from repro_torch.models.params import PSpec
-from repro_torch.models.transformer import embed_tokens, lm_logits, stack_specs, unbind_layers
+from repro_torch.models.transformer import (
+    embed_tokens,
+    lm_logits,
+    remat,
+    stack_specs,
+    unbind_layers,
+)
 
 
 def encdec_specs(cfg: ModelConfig) -> dict:
@@ -64,15 +73,21 @@ def encode(params: dict, enc_embeds: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     pos = L.sinusoidal_embedding(S, d, device=enc_embeds.device)
     x = enc_embeds + pos[None].to(enc_embeds.dtype)
     mask = torch.ones((B, 1, S, S), dtype=torch.bool, device=x.device)
+    layer = remat(_encoder_layer, ctx)
     for lp in unbind_layers(params["encoder"], cfg.encoder_layers):
-        h = L.apply_norm(lp["ln1"], x, cfg)
-        yq, yk, yv = L.fused_linears(lp["attn"], ("wq", "wk", "wv"), h, ctx)
-        q = L._split_heads(yq, cfg.num_heads)
-        k = L._split_heads(yk, cfg.num_kv_heads)
-        v = L._split_heads(yv, cfg.num_kv_heads)
-        x = x + L.linear(lp["attn"]["wo"], L._sdpa(q, k, v, mask), ctx)
-        x = x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), ctx)
+        x = layer(lp, x, ctx, mask)
     return L.apply_norm(params["enc_ln_f"], x, cfg)
+
+
+def _encoder_layer(lp: dict, x, ctx: Ctx, mask):
+    cfg = ctx.cfg
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    yq, yk, yv = L.fused_linears(lp["attn"], ("wq", "wk", "wv"), h, ctx)
+    q = L._split_heads(yq, cfg.num_heads)
+    k = L._split_heads(yk, cfg.num_kv_heads)
+    v = L._split_heads(yv, cfg.num_kv_heads)
+    x = x + L.linear(lp["attn"]["wo"], L._sdpa(q, k, v, mask), ctx)
+    return x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), ctx)
 
 
 def _cross_kv_from(p: dict, enc_out: torch.Tensor, ctx: Ctx):
@@ -88,22 +103,28 @@ def decode_blocks(params: dict, x, ctx: Ctx, positions, cache=None, meta=None, e
     """The decoder blocks: self-attention (its K/V written to
     ``cache["layers"]`` in place), cross-attention over the cache's static
     cross K/V or, without a cache, over ``enc_out``'s, then the MLP."""
-    cfg = ctx.cfg
-    for i, lp in enumerate(unbind_layers(params["decoder"], cfg.num_layers)):
-        lc = None
+    layer = remat(_decoder_layer, ctx, cache)
+    for i, lp in enumerate(unbind_layers(params["decoder"], ctx.cfg.num_layers)):
+        lc = ckv = None
         if cache is not None:
             lc = {name: buf[i] for name, buf in cache["layers"].items()}
             lc["_meta"] = meta
-        x = x + L.attention(lp["self_attn"], L.apply_norm(lp["ln1"], x, cfg), ctx, positions,
-                            cache=lc)
-        h = L.apply_norm(lp["ln_x"], x, cfg)
-        if cache is not None:  # serving: the static cross K/V
             ckv = (cache["cross"]["k"][i], cache["cross"]["v"][i])
-        else:  # recomputed from the encoder's output
-            ckv = _cross_kv_from(lp["cross_attn"], enc_out, ctx)
-        x = x + L.attention(lp["cross_attn"], h, ctx, positions, cross_kv=ckv)
-        x = x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), ctx)
+        x = layer(lp, x, ctx, positions, lc, ckv, enc_out)
     return x
+
+
+def _decoder_layer(lp: dict, x, ctx: Ctx, positions, cache, cross_kv, enc_out):
+    """One decoder layer over the static ``cross_kv`` (serving) or, when it
+    is None, the cross K/V recomputed from ``enc_out``."""
+    cfg = ctx.cfg
+    x = x + L.attention(lp["self_attn"], L.apply_norm(lp["ln1"], x, cfg), ctx, positions,
+                        cache=cache)
+    h = L.apply_norm(lp["ln_x"], x, cfg)
+    if cross_kv is None:
+        cross_kv = _cross_kv_from(lp["cross_attn"], enc_out, ctx)
+    x = x + L.attention(lp["cross_attn"], h, ctx, positions, cross_kv=cross_kv)
+    return x + L.mlp(lp["mlp"], L.apply_norm(lp["ln2"], x, cfg), ctx)
 
 
 def forward(

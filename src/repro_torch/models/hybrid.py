@@ -11,7 +11,10 @@ invocations has its own K/V cache slot, ``shared_attn[i]``, under the one
 :class:`~repro_torch.serve._cache.CacheWrite` of the step.  The mamba
 layers are stacked along a leading ``layers`` axis, as in the reference,
 and the segment loop takes layer ``l``'s views of every leaf; every cache
-leaf is written in place.
+leaf is written in place.  While autograd records (training), each mamba
+layer runs under the ``ExecCfg.remat`` policy (``transformer.remat``); the
+shared block does not, as in the reference, which checkpoints only its
+mamba scan body.
 """
 from __future__ import annotations
 
@@ -54,6 +57,12 @@ def hybrid_specs(cfg: ModelConfig) -> dict:
     return s
 
 
+def _mamba_apply(lp, x, ctx: Ctx, cache):
+    """One mamba layer after its norm, residual added -> (x, new cache)."""
+    h, new_c = mamba_block(lp["mix"], L.apply_norm(lp["ln"], x, ctx.cfg), ctx, cache=cache)
+    return x + h, new_c
+
+
 def forward(
     params: dict,
     tokens: torch.Tensor,
@@ -64,7 +73,7 @@ def forward(
     """Returns ``(logits, cache, aux)``; ``cache`` (``layers``: each mamba
     layer's ``conv`` and ``state``; ``shared_attn``: each invocation's
     ``k``/``v``; ``pos``/``valid``/``index``) is updated in place."""
-    from repro_torch.models.transformer import embed_tokens, lm_logits, unbind_layers
+    from repro_torch.models.transformer import embed_tokens, lm_logits, remat, unbind_layers
     from repro_torch.serve._cache import advance_meta
 
     cfg = ctx.cfg
@@ -80,14 +89,14 @@ def forward(
 
     segs = segments(cfg)
     mamba = unbind_layers(params["mamba"], sum(segs))
+    mamba_layer = remat(_mamba_apply, ctx, cache)
     start = 0
     for i, g in enumerate(segs):
         for layer in range(start, start + g):
             lp = mamba[layer]
             lc = ({name: buf[layer] for name, buf in cache["layers"].items()}
                   if cache is not None else None)
-            h, new_c = mamba_block(lp["mix"], L.apply_norm(lp["ln"], x, cfg), ctx, cache=lc)
-            x = x + h
+            x, new_c = mamba_layer(lp, x, ctx, lc)
             if lc is not None:  # in place, cast to the buffers' dtypes
                 for name, new in new_c.items():
                     lc[name].copy_(new)

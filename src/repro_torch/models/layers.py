@@ -48,13 +48,17 @@ class ExecCfg:
     (and ``"lut_gather"``, the same, as in the reference) is ``x @ W``;
     ``"binary_matmul"`` packs the input into ``fixed_bits``/``fixed_frac``
     signed fixed-point bitplanes and sums ``scale_j * planes_j @ bf16(W)``
-    in fp32.  Converted projections take their LUT path in every mode.
-    ``use_kernels`` runs the projections on the Hopper kernels when their
-    inputs lie on the card (False asks for the plain PyTorch versions);
+    in fp32.  Converted projections take their LUT path in every mode;
+    under ``"onehot_mxu"`` that path's plain version is a matrix product
+    (:func:`_onehot_apply`: a one-hot of each code against the tables
+    rounded to bf16, summed in fp32) on every plan but ``bitplane_shift``,
+    and a group fuses only on a ``bitplane_shift`` plan.  ``use_kernels``
+    runs the projections on the Hopper kernels when their inputs lie on the
+    card (False asks for the plain PyTorch versions);
     ``lut_grouped`` fuses a pre-stacked group's projections into one
     grouped launch; ``logits="last"`` keeps only the final position's
-    head.  ``remat`` is the decoder blocks' activation checkpointing while
-    gradients are recorded (training): ``"full"`` keeps only each block's
+    head.  ``remat`` is every family's layer-body activation checkpointing
+    while gradients are recorded (training): ``"full"`` keeps only each body's
     input and recomputes the rest in the backward pass, ``"dots"`` also
     keeps every matmul's output, ``"dots_no_batch"`` those of the products
     without a batch dimension (the projections, not attention's), and
@@ -64,7 +68,7 @@ class ExecCfg:
     intra-chunk tensors in bf16 on a prefill without a cache (the decay
     cumsums and the carry stay fp32), as the reference's knobs."""
 
-    linear_mode: str = "standard"  # standard | lut_gather | binary_matmul
+    linear_mode: str = "standard"  # standard | lut_gather | onehot_mxu | binary_matmul
     fixed_bits: int = 8  # binary_matmul input format
     fixed_frac: int = 6
     lut_grouped: bool = False
@@ -77,11 +81,7 @@ class ExecCfg:
     def __post_init__(self):
         if self.remat not in ("full", "dots", "dots_no_batch", "none"):
             raise ValueError(f"unknown remat policy {self.remat!r}")
-        if self.linear_mode == "onehot_mxu":
-            raise NotImplementedError(
-                "linear_mode='onehot_mxu' is not ported yet (ROADMAP.md, Queue 1)"
-            )
-        if self.linear_mode not in ("standard", "lut_gather", "binary_matmul"):
+        if self.linear_mode not in ("standard", "lut_gather", "onehot_mxu", "binary_matmul"):
             raise ValueError(f"unknown linear_mode {self.linear_mode!r}")
 
 
@@ -200,6 +200,54 @@ def _host_scales(plan: LUTPlan, scale) -> np.ndarray:
     return s
 
 
+# the largest fp32 one-hot block :func:`_onehot_apply` builds at once
+_ONEHOT_BYTES = 1 << 30
+
+
+def _onehot_apply(
+    tables: torch.Tensor,  # (k, E, p)
+    b: torch.Tensor | None,
+    codes: torch.Tensor,  # (..., n, k) indices below E
+    scales: np.ndarray,  # (n,) host fp32
+) -> torch.Tensor:
+    """``linear_mode="onehot_mxu"``'s LUT apply, the reference's
+    ``einsum("...nke,kep->...np", one_hot(codes, E), bf16(tables))`` with
+    fp32 accumulation, then the plane scales and the bias, in fp32.
+
+    A one-hot entry times a bf16 value is exact in fp32 (and in TF32, whose
+    10-bit mantissa holds bf16's 8 bits), so the product runs in fp32 on
+    the tables rounded to bf16: the sums are the reference's up to fp32
+    summation order.  The (rows x n, k x E) one-hot is built in row blocks
+    of at most ``_ONEHOT_BYTES``; the last block is padded to the others'
+    rows, so every block of a call is one product of one shape (a BLAS may
+    pick its reduction order by the shape: cuBLAS does, so on the card a
+    call that needs blocks agrees with one product to fp32 summation order,
+    where the CPU's agrees bit for bit).  A code outside ``[0, E)`` selects
+    nothing, as ``jax.nn.one_hot``'s zero row."""
+    *lead, n, k = codes.shape
+    k2, E, p = tables.shape
+    if k != k2:
+        raise ValueError(f"codes have {k} chunks, tables {k2}")
+    flat = codes.reshape(-1, n * k)
+    R = flat.shape[0]
+    t = tables.to(torch.bfloat16).to(torch.float32).reshape(k * E, p)
+    entries = torch.arange(E, dtype=flat.dtype, device=flat.device)
+    rows = max(1, min(R, _ONEHOT_BYTES // (n * k * E * 4)))
+    per_plane = torch.empty((R, n, p), dtype=torch.float32, device=tables.device)
+    for r0 in range(0, R, rows):
+        blk = flat[r0:r0 + rows]
+        if blk.shape[0] < rows:  # one shape for every block's product
+            blk = torch.cat([blk, blk.new_full((rows - blk.shape[0], n * k), E)])
+        onehot = (blk[..., None] == entries).reshape(rows * n, k * E)
+        out = (onehot.to(torch.float32) @ t).reshape(rows, n, p)
+        per_plane[r0:r0 + rows] = out[: min(rows, R - r0)]
+    s = torch.as_tensor(scales, dtype=torch.float32).to(tables.device)
+    y = torch.einsum("rnp,n->rp", per_plane, s)
+    if b is not None:
+        y = y + b.to(torch.float32)
+    return y.reshape(*lead, p)
+
+
 def _lut_apply(
     tables: torch.Tensor,  # (k, entries, p)
     b: torch.Tensor | None,
@@ -216,6 +264,10 @@ def _lut_apply(
         codes = pack(x, plan, use_kernels=ctx.ex.use_kernels)
     if scales is None:
         scales = _host_scales(plan, scale)
+    if ctx.ex.linear_mode == "onehot_mxu" and not ctx.ex.use_kernels and not plan.shift_bits:
+        # bitplane_shift codes carry an exponent above the index bits, so
+        # they cannot feed a one-hot of width num_entries: those gather
+        return _onehot_apply(tables, b, codes, scales).to(x.dtype)
     y = lut_affine(
         codes,
         tables,
@@ -276,7 +328,11 @@ def linear(p: dict | LUTLinear, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     b = p.get("b")
     if ctx.ex.linear_mode == "binary_matmul":
         return _binary_apply(p["w"], b, x, ctx)
-    y = x @ p["w"]
+    w = p["w"]
+    if x.dtype != w.dtype:  # mixed operands promote, as jnp's matmul does
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -331,13 +387,20 @@ def _group_apply(
     The input is packed ONCE for the whole group.  When every member is
     wanted and ``ctx.ex.lut_grouped`` is set, the stored ``(G, k, E, p)``
     tensor feeds one grouped launch as it is; otherwise each wanted member
-    runs the per-projection path on its ``tables[g]`` view."""
+    runs the per-projection path on its ``tables[g]`` view.  Under
+    ``onehot_mxu`` a group fuses only on a ``bitplane_shift`` plan, whose
+    members gather in every mode, as in the reference."""
     plan = node.plan
     if codes is None:
         codes = pack(x, plan, use_kernels=ctx.ex.use_kernels)
     scales = _host_scales(plan, node.scale)
     outs: dict[str, torch.Tensor] = {}
-    if len(wanted) == len(node.members) and ctx.ex.lut_grouped:
+    fuse = (
+        len(wanted) == len(node.members)
+        and ctx.ex.lut_grouped
+        and (ctx.ex.linear_mode != "onehot_mxu" or plan.shift_bits != 0)
+    )
+    if fuse:
         stacked_b = node.b if isinstance(node.b, torch.Tensor) else None
         y = lut_affine_grouped(
             codes,

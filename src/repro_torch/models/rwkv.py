@@ -18,7 +18,10 @@ them in place.  The reference declares the shift states in the cache's
 dtype, but its forward returns them in the activations' dtype, so its
 carry is in that dtype after the first write; the port's buffers are
 fp32, which hold that carry exactly, and ``_token_shift`` casts it to the
-activations' dtype on read, as the reference's does.
+activations' dtype on read, as the reference's does.  While autograd
+records (training), each layer (time and channel mix) runs under the
+``ExecCfg.remat`` policy (``transformer.remat``), as the reference
+checkpoints its scan body.
 """
 from __future__ import annotations
 
@@ -229,27 +232,33 @@ def rwkv_lm_specs(cfg: ModelConfig) -> dict:
     }
 
 
+def _layer_apply(lp, x, ctx: Ctx, shift_a, shift_c, wkv):
+    """One RWKV-6 layer: time mix then channel mix, each after its norm ->
+    (x, (new shift_a, new shift_c, new wkv state))."""
+    cfg = ctx.cfg
+    h, new_a, new_w = rwkv_time_mix(lp["time"], L.apply_norm(lp["ln1"], x, cfg), ctx,
+                                    shift_a, wkv)
+    x = x + h
+    h, new_c = rwkv_channel_mix(lp["channel"], L.apply_norm(lp["ln2"], x, cfg), ctx, shift_c)
+    return x + h, (new_a, new_c, new_w)
+
+
 def forward(params, tokens, ctx: Ctx, positions=None, cache=None, embeds=None):
     """Returns ``(logits, cache, aux)``; ``cache`` ({"layers": {shift_a,
     shift_c, wkv}, "index"}: O(1) state, no pos/valid ring) is updated in
     place and ``index`` advances by S.  ``embeds`` is accepted and ignored,
     as in the reference, and ``positions`` is read for its width only."""
-    from repro_torch.models.transformer import embed_tokens, lm_logits, unbind_layers
+    from repro_torch.models.transformer import embed_tokens, lm_logits, remat, unbind_layers
     from repro_torch.serve._cache import advance_meta
 
     cfg = ctx.cfg
     x = embed_tokens(params, tokens)
     x = L.apply_norm(params["ln0"], x, cfg)
+    layer = remat(_layer_apply, ctx, cache)
     for i, lp in enumerate(unbind_layers(params["blocks"], cfg.num_layers)):
         lc = {name: buf[i] for name, buf in cache["layers"].items()} if cache else {}
-        h, new_a, new_w = rwkv_time_mix(
-            lp["time"], L.apply_norm(lp["ln1"], x, cfg), ctx, lc.get("shift_a"), lc.get("wkv")
-        )
-        x = x + h
-        h, new_c = rwkv_channel_mix(
-            lp["channel"], L.apply_norm(lp["ln2"], x, cfg), ctx, lc.get("shift_c")
-        )
-        x = x + h
+        x, (new_a, new_c, new_w) = layer(lp, x, ctx, lc.get("shift_a"), lc.get("shift_c"),
+                                         lc.get("wkv"))
         if lc:  # in place, into the fp32 buffers
             for name, new in (("shift_a", new_a), ("shift_c", new_c), ("wkv", new_w)):
                 lc[name].copy_(new)

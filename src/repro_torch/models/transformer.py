@@ -5,8 +5,9 @@ Layer parameters are stacked along a leading ``layers`` axis, as in the
 reference; the block loop takes layer ``l``'s views of every leaf
 (``tables[l]``, ``w[l]``, a cache leaf's ``[l]``) -- nothing is re-stacked.
 While autograd records (training), each block runs under
-``torch.utils.checkpoint`` by the ``ExecCfg.remat`` policy, as the
-reference wraps its scan body in ``jax.checkpoint``.
+``torch.utils.checkpoint`` by the ``ExecCfg.remat`` policy (:func:`remat`,
+which the other families' layer loops share), as the reference wraps its
+scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -108,6 +109,22 @@ def _remat_context(name: str):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
+def remat(fn, ctx: Ctx, cache=None):
+    """``fn``, or ``fn`` under ``torch.utils.checkpoint`` by the
+    ``ExecCfg.remat`` policy while autograd records and no cache is given
+    (a cache's in-place writes stay outside autograd).  Every family's
+    layer loop calls its layer body through this, as the reference wraps
+    its scan bodies in ``jax.checkpoint``."""
+    if ctx.ex.remat == "none" or not torch.is_grad_enabled() or cache is not None:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False, context_fn=_remat_context(ctx.ex.remat),
+        preserve_rng_state=False,
+    )
+
+
 def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.to(torch.int64)]
 
@@ -169,24 +186,14 @@ def forward(
             cache, positions, ctx.cfg.sliding_window, token_mask
         )
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = ctx.ex.remat != "none" and torch.is_grad_enabled()
-    if remat:
-        from torch.utils.checkpoint import checkpoint
-
-        context_fn = _remat_context(ctx.ex.remat)
+    block = remat(_block_apply, ctx, cache)
     blocks = unbind_layers(params["blocks"], ctx.cfg.num_layers)
     for i, lp in enumerate(blocks):
         lc = None
         if cache is not None:
             lc = {name: buf[i] for name, buf in cache["layers"].items()}
             lc["_meta"] = meta
-        if remat:
-            x, layer_aux = checkpoint(
-                _block_apply, lp, x, ctx, positions, lc, use_reentrant=False,
-                context_fn=context_fn, preserve_rng_state=False,
-            )
-        else:
-            x, layer_aux = _block_apply(lp, x, ctx, positions, lc)
+        x, layer_aux = block(lp, x, ctx, positions, lc)
         if layer_aux is not None:
             aux = aux + layer_aux
     x = L.apply_norm(params["ln_f"], x, ctx.cfg)

@@ -352,14 +352,18 @@ def test_mlp_on_a_mixed_tree_matches_reference(mixed, grouped):
     assert pack_ops.LAUNCHES["bitplane_pack"] == before
 
 
-def test_modes_standard_lut_gather_same_and_onehot_raises():
+def test_modes_standard_lut_gather_onehot_same():
+    """An unconverted projection ignores ``lut_gather`` and ``onehot_mxu``
+    (the one-hot mode reads only converted tables), as in the reference."""
     W = np.random.default_rng(40).standard_normal((16, 8)).astype(np.float32)
     x = np.random.default_rng(41).standard_normal((3, 16)).astype(np.float32)
     cfg = get_config("granite_8b", reduced=True)
     a = linear({"w": _t(W)}, _t(x), Ctx(cfg, ex=ExecCfg(linear_mode="standard")))
     b = linear({"w": _t(W)}, _t(x), Ctx(cfg, ex=ExecCfg(linear_mode="lut_gather")))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ExecCfg(linear_mode="onehot_mxu")
+    ex = ExecCfg(linear_mode="onehot_mxu", use_kernels=False)
+    assert ex.linear_mode == "onehot_mxu"
+    c = linear({"w": _t(W)}, _t(x), Ctx(cfg, ex=ex))
+    torch.testing.assert_close(a, c, rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown linear_mode"):
         ExecCfg(linear_mode="binary")

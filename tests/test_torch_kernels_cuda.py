@@ -2136,3 +2136,87 @@ def test_measured_search_times_every_candidate_on_card(cuda_device, family):
     assert set(times) == {None, *autotune.candidate_blocks(pt)}
     assert all(0 < t < 1 for t in times.values())
     assert autotune.search_blocks(pt, "measured", reps=3) in times
+
+
+def _onehot_layer(device, table_format, seed=7):
+    """A ``wq+wk+wv`` G = 3 group and a lone ``wo`` of 512 -> 384 converted
+    on the card under a fixed-point 8/6 chunk-2 ``bitplane`` plan (fp32 or
+    i8 tables)."""
+    from repro_torch.core.convert import convert_params
+    from repro_torch.core.lut import LUTPlan
+    from repro_torch.core.planner import ModelPlan
+    from repro_torch.core.quantize import FixedPointFormat
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, p = 512, 384
+    names = ("wq", "wk", "wv", "wo")
+    tree = {"attn": {n: {"w": torch.randn((q, p), generator=gen, device=device) / q**0.5,
+                         "b": 0.1 * torch.randn(p, generator=gen, device=device)}
+                     for n in names}}
+    plan = LUTPlan(q, p, 2, FixedPointFormat(8, 6, signed=True), mode="bitplane",
+                   table_format=table_format)
+    mplan = ModelPlan({f"attn/{n}": plan for n in names},
+                      groups=(("attn/wq", "attn/wk", "attn/wv"),))
+    return convert_params(tree, plan=mplan)[0]["attn"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_format", [None, "i8"], ids=["f32", "i8"])
+@pytest.mark.parametrize("B", [4, 128])
+def test_onehot_mxu_matches_the_kernels_on_card(cuda_device, table_format, B):
+    """``linear_mode="onehot_mxu"`` on CUDA tensors (the plain path, asked
+    for) against ``lut_affine`` (lone ``wo``) and ``lut_affine_grouped``
+    (the G = 3 group, which the mode does not fuse) on the same input:
+    each element within the tables' bf16 rounding (the plain gather over
+    ``|T - bf16(T)|``, 0 for i8 entries) plus 1e-5 x max (fp32 sums in
+    another order); the one-hot path launches no LUT kernel."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+
+    attn = _onehot_layer(cuda_device, table_format)
+    cfg = get_config("granite_8b", reduced=True)
+    kctx = L.Ctx(cfg, ex=L.ExecCfg(remat="none", lut_grouped=True))
+    octx = L.Ctx(cfg, ex=L.ExecCfg(remat="none", lut_grouped=True, linear_mode="onehot_mxu",
+                                   use_kernels=False))
+    x = 0.5 * torch.randn((B, 512), generator=torch.Generator(device=cuda_device).manual_seed(8),
+                          device=cuda_device)
+    names = ("wq", "wk", "wv", "wo")
+    before = dict(ops.LAUNCHES)
+    kern = L.fused_linears(attn, names, x, kctx)
+    assert ops.LAUNCHES["lut_affine_grouped"] == before["lut_affine_grouped"] + 1
+    assert ops.LAUNCHES["lut_affine"] == before["lut_affine"] + 1
+    before = dict(ops.LAUNCHES)
+    onehot = L.fused_linears(attn, names, x, octx)
+    assert ops.LAUNCHES == before
+    group, wo = attn["wq+wk+wv"], attn["wo"]
+    for i, (k, o) in enumerate(zip(kern, onehot)):
+        node, tables = (group, group.tables[i]) if i < 3 else (wo, wo.tables)
+        codes = pack_ops.pack(x, node.plan)
+        err = (tables.float() - tables.to(torch.bfloat16).float()).abs()
+        scales = [abs(float(s)) for s in L._host_scales(node.plan, node.scale)]
+        bound = ops.lut_affine(codes, err, scales, use_kernels=False)
+        top = k.abs().max()
+        assert bool(((o - k).abs() <= bound * (1 + 1e-6) + 1e-5 * top).all()), i
+        if table_format == "i8":
+            assert float(bound.max()) == 0.0
+        else:
+            assert not torch.equal(o, k)
+
+
+@pytest.mark.cuda
+def test_onehot_row_blocks_on_card(cuda_device, monkeypatch):
+    """A one-hot built in row blocks (the last padded to the others' rows)
+    gives the one-block product to fp32 summation order on the card (cuBLAS
+    picks its reduction by the product's shape; the CPU test holds the
+    blocks bit for bit)."""
+    from repro_torch.models import layers as L
+
+    wo = _onehot_layer(cuda_device, None)["wo"]
+    x = torch.randn((37, 512), generator=torch.Generator(device=cuda_device).manual_seed(9),
+                    device=cuda_device)
+    codes = pack_ops.pack(x, wo.plan)
+    scales = L._host_scales(wo.plan, wo.scale)
+    whole = L._onehot_apply(wo.tables, wo.b, codes, scales)
+    n, k, E = wo.plan.num_planes, wo.plan.num_chunks, wo.plan.num_entries
+    monkeypatch.setattr(L, "_ONEHOT_BYTES", 8 * n * k * E * 4)
+    _close(L._onehot_apply(wo.tables, wo.b, codes, scales), whole)

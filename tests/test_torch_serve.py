@@ -242,3 +242,26 @@ def test_sampled_streams_are_schedule_invariant(world):
             out[sample.mode, admit] = [r.generated for r in eng.run()]
         assert out[sample.mode, "batched"] == out[sample.mode, "per-slot"]
     assert out["temperature", "batched"] != world["ref"]["lut", "engine"]
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "top_k"])
+def test_serve_lut_twin_streams_do_not_depend_on_admission(sampled, capsys):
+    """``repro_torch.examples.serve_lut`` on the CPU: batched and per-slot
+    admission serve the same streams, greedy and sampled (top-k 20 at
+    temperature 0.8), every request its ``--max-new`` tokens; without
+    ``--device cpu`` and without a card it raises."""
+    from repro_torch.examples import serve_lut
+
+    flags = ["--requests", "4", "--max-new", "6", "--device", "cpu"]
+    if sampled:
+        flags += ["--temperature", "0.8", "--top-k", "20"]
+    streams = {admit: [r.generated for r in serve_lut.main(flags + ["--admit", admit])
+                       ["requests"]]
+               for admit in ("batched", "per-slot")}
+    assert streams["batched"] == streams["per-slot"]
+    assert [len(s) for s in streams["batched"]] == [6] * 4
+    out = capsys.readouterr().out
+    assert out.count("tok/s, CPU plain versions") == 2 and out.count("req 3:") == 2
+    if not torch.cuda.is_available():  # no silent CPU path
+        with pytest.raises(RuntimeError, match="cpu"):
+            serve_lut.main(["--requests", "1"])
