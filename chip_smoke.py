@@ -5,7 +5,7 @@
                                     mla_serve,phi3_serve,minitron_serve,mixtral_serve,
                                     vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,
                                     serve_lut,tl1_kernel,tl1_serve,moe_kernel,moe_serve,
-                                    bmm_kernel,bmm_serve,paper,onehot,train,audit]
+                                    bmm_kernel,bmm_serve,paper,onehot,train,audit,dist]
                           [--iters 20]
 
 Phases, one JSON object per line:
@@ -369,6 +369,24 @@ Phases, one JSON object per line:
    launches the wrappers counted in it.  A seeded dense ``wq`` spliced
    into the granite tree must trip the multiplier-free rule.  Each point's
    decode census (top ops), rule counts and seconds are printed.
+13. ``dist``  data-parallel and pod-compressed training (:func:`dist_phase`)
+   on an NCCL world of one rank (``launch/mesh.py::init_world``) with a
+   ``("pod", "data")`` mesh of ``(1, 1)``: the ``train`` phase's ``100m``
+   recipe at full width, DIST_STEPS steps of 8 x 256 tokens under the
+   deterministic algorithms, with ``compress_pod_grads`` off and on.  Off,
+   the mesh's steps equal the no-mesh ``Trainer``'s bit for bit (a mean
+   over one rank divides by 1); on, step 1's gradients equal
+   ``compressed_psum_ref`` of the uncompressed ones bit for bit and every
+   residual lies within half a quantization step; every loss finite, the
+   last 4 below the first 4; a checkpoint at step DIST_CKPT_AT (``err``
+   included) restored by a fresh ``Trainer`` finishes equal to the straight
+   run bit for bit; the collectives one compressed step records (the
+   audit's walker, each an opaque leaf) are the predicted ones.  Reported:
+   the median step ms off and on, one profiled step of each (device busy
+   ms, host wall ms), ``collective_stats`` of the step at n = 1 and, from
+   the same records, computed at n = 2 and 16.  One card holds one rank:
+   NCCL refuses two ranks on one device, so a larger world runs only in
+   the CPU tests (``tests/test_torch_dist_world.py``).
 
 The engine's serve phases (3, 3c, 3d, 3e, 3f, 5, 7, 9) serve their requests on the kernels
 with the engine's decode step captured as a CUDA graph and replayed (the
@@ -381,8 +399,14 @@ count what the capture recorded) and serve the same streams, whole; one
 device kernels, busy ms and idle share per step (the decode profile of
 each path: ``decode_profile`` with the graph, whose kernels the profiler
 records per replay, beside the captured graph's nodes;
-``decode_profile_eager`` without).  The plain versions run eager: they
-copy host scales to the card inside the step, which a capture refuses.
+``decode_profile_eager`` without).  Each phase's plain engine run (eager,
+its packs counted) is followed by its first SLOTS requests under the
+engine's default graph, whose streams must equal the eager run's whole
+(:func:`plain_graph_gate`; the weight, MoE and binary cells replay 13
+steps, the cells served PLAIN_NEW tokens one): the plain versions read
+their plane scales from device tensors made by the eager warm-up step
+(``kernels/common.py::device_scales``), so the captured step copies
+nothing from the host.
 
 Kernel and library times are device times (:func:`device_ms`): many
 calls back to back between one pair of CUDA events, each call on its own
@@ -524,6 +548,10 @@ VLM_SYNC_DEPTH = 1
 # new (TRAIN_SYNC_NEW in the synchronized plain run: it holds first tokens)
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ, TRAIN_HELD_OUT = 40, 20, 8, 256, 4
 TRAIN_REMAT_STEPS, TRAIN_GRANITE_LAYERS, TRAIN_GRANITE_STEPS = 4, 2, 4
+# the dist phase: the train phase's 100m recipe and batches, DIST_STEPS steps
+# with compress_pod_grads off and on, a checkpoint at DIST_CKPT_AT; the
+# collectives' link bytes also computed at the group sizes DIST_COMPUTED_N
+DIST_STEPS, DIST_CKPT_AT, DIST_COMPUTED_N = 8, 4, (2, 16)
 TRAIN_ROWS, TRAIN_PROMPT, TRAIN_NEW, TRAIN_SYNC_NEW = 4, 32, 16, 2
 # the other families under autograd at full width: layers (None: all), rows,
 # tokens a row (whisper: decoder tokens beside ENCDEC_FRAMES frames)
@@ -1379,6 +1407,7 @@ def serve_phase(layers: int, requests: int, max_new: int) -> dict:
     with count_plain_packs() as packs:
         plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
                                                              False, cuda_graph=False)
+    plain_graph_gate("serve", lut, cfg, prompts, max_new, plain_reqs, plain_decode)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
@@ -2400,6 +2429,8 @@ def serve_recipe_cell(phase: str, lut, cfg, per_forward: dict, prompts, max_new:
         plain_reqs, plain_eng, plain_wall, plain_decode = run_engine(
             lut, cfg, prompts[:SLOTS] if synced else prompts, min(max_new, PLAIN_NEW),
             False, cuda_graph=False)
+    plain_graph_gate(phase, lut, cfg, prompts, min(max_new, PLAIN_NEW), plain_reqs,
+                     plain_decode)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     pairs = [(x, y) for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)]
     plain_tokens = sum(len(r.generated) for r in plain_reqs)
@@ -4385,9 +4416,8 @@ def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph
     bucket BUCKET, grouped launches; ``engine`` further engine arguments
     such as ``page_size``, or others in their place,
     ``ex`` further ExecCfg fields) on the kernels or the plain versions, the
-    decode step as graph replays (the engine's default on the card) or
-    eager (``cuda_graph=False``; the plain versions copy host scales to the
-    card in the step, which a capture refuses); returns the requests, the
+    decode step as graph replays (the engine's default on the card, on
+    either path) or eager (``cuda_graph=False``); returns the requests, the
     engine, the wall seconds and each pure decode step's ms.  ``watch(eng)``,
     if given, is called once before the first step and returns a callable
     run after every step.  ``steps``, if given, a list that gets ``(prefilled,
@@ -4419,6 +4449,35 @@ def run_engine(params, cfg, prompts, max_new: int, use_kernels: bool, cuda_graph
         if after_step is not None:
             after_step()
     return reqs, eng, time.perf_counter() - start, decode_ms
+
+
+def plain_graph_gate(phase: str, params, cfg, prompts, max_new: int, eager_reqs,
+                     eager_decode, **ex) -> None:
+    """The plain versions' eager engine run (``eager_reqs`` / ``eager_decode``,
+    ``max_new`` tokens a request of ``prompts``) again on its first SLOTS
+    requests under the engine's default CUDA graph.  Those requests fill the
+    slots alone in both runs (no request ends early), so their streams must
+    equal the eager run's whole.  The graph run's first step admits them and
+    warms up, the second captures, the rest replay: the line reports the
+    replayed steps' ms apart from the capture's, and fails unless the step
+    was captured, replayed at least once and the streams are equal."""
+    steps = []
+    reqs, eng, wall, _ = run_engine(params, cfg, prompts[:SLOTS], max_new, False, steps=steps,
+                                    **ex)
+    identical = [r.generated for r in reqs] == [r.generated for r in eager_reqs[:SLOTS]]
+    captured = bool(eng.cuda_graph and eng._graph is not None)
+    replays = [ms for prefilled, ms in steps[2:] if not prefilled]
+    emit({"phase": phase, "step": "plain_graph_vs_eager", "requests": len(reqs),
+          "new_tokens": max_new, "graph_wall_s": wall,
+          "capture_step_ms": steps[1][1] if len(steps) > 1 else None,
+          "replays": len(replays),
+          "replay_median_decode_step_ms": statistics.median(replays) if replays else None,
+          "eager_median_decode_step_ms": statistics.median(eager_decode),
+          "captured": captured, "streams_identical": identical})
+    if not (captured and replays and identical):
+        raise AssertionError(f"{phase}: the plain graph engine (captured {captured}, "
+                             f"{len(replays)} replays) does not serve the eager plain "
+                             "engine's streams")
 
 
 def prefill_inputs(prompts):
@@ -4689,6 +4748,7 @@ def tl1_serve_phase(layers: int, requests: int, max_new: int) -> dict:
     plain_new = min(max_new, PLAIN_NEW)
     plain_reqs, _, plain_wall, plain_decode = run_engine(tl1, cfg, prompts, plain_new, False,
                                                          cuda_graph=False)
+    plain_graph_gate("tl1_serve", tl1, cfg, prompts, plain_new, plain_reqs, plain_decode)
     plain_tokens = sum(len(r.generated) for r in plain_reqs)
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
@@ -5076,6 +5136,7 @@ def moe_serve_phase(requests: int, max_new: int) -> dict:
     with count_plain_packs() as packs:
         plain_reqs, _, plain_wall, plain_decode = run_engine(lut, cfg, prompts, max_new,
                                                              False, cuda_graph=False)
+    plain_graph_gate("moe_serve", lut, cfg, prompts, max_new, plain_reqs, plain_decode)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
@@ -5502,6 +5563,8 @@ def bmm_serve_phase(layers: int, requests: int, max_new: int) -> dict:
 
     plain_reqs, _, plain_wall, plain_decode = run_engine(params, cfg, prompts, max_new, False,
                                                          cuda_graph=False, **mode)
+    plain_graph_gate("bmm_serve", params, cfg, prompts, max_new, plain_reqs, plain_decode,
+                     **mode)
     first_ok = all(a.generated[0] == b.generated[0] for a, b in zip(reqs, plain_reqs))
     same = sum(
         x == y for a, b in zip(reqs, plain_reqs) for x, y in zip(a.generated, b.generated)
@@ -7004,6 +7067,186 @@ def audit_phase() -> dict:
               "seconds": time.perf_counter() - t0})
 
 
+def dist_phase() -> dict:
+    """Data-parallel and pod-compressed training on an NCCL world of one
+    rank (``launch/mesh.py``: ``init_world`` and a ``("pod", "data")`` mesh
+    of ``(1, 1)``): the ``train`` phase's ``100m`` recipe (full width, all
+    12 layers, remat ``"dots"``, bf16 compute on fp32 weights), DIST_STEPS
+    ``lm_stream`` batches of TRAIN_BATCH x TRAIN_SEQ tokens, under the
+    deterministic algorithms.
+
+    Gates: (off) the mesh's ``Trainer`` equals the no-mesh ``Trainer`` bit
+    for bit, losses and final weights; (on) step 1's gradients equal
+    ``compressed_psum_ref`` of the no-mesh gradients bit for bit, the
+    residual rows too, each within half a quantization step (and fp32's
+    rounding of ``c / scale``: 2**-15 of a step); every loss finite and the
+    mean of the last 4 below the first 4's, off and on; the compressed run
+    checkpointed at DIST_CKPT_AT (``err`` included, ``(1,) + shape``) and
+    restored by a fresh ``Trainer`` finishes equal to the straight run bit
+    for bit; the collectives recorded in one compressed step (the audit's
+    walker, each an opaque leaf) are the predicted ones: the valid-label
+    count, loss and gradient sums over ``data``, then one MAX of the
+    leaves' absmax (4 bytes a leaf) and one int32 SUM of their codes (4
+    bytes an element) over ``pod``, then the pod mean of loss and aux.
+    Reported: median step ms of the no-mesh, off and on runs without
+    checkpoint writes, each run twice in turns (no mesh, off, on, on, off,
+    no mesh; the first step of each run untimed), and every step's ms, one device-only profiled step of each, ``collective_stats`` at n = 1 and,
+    from the same records, computed at DIST_COMPUTED_N."""
+    import datetime
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.audit.walker import record
+    from repro_torch.dist.compression import collective_stats, compressed_psum_ref
+    from repro_torch.dist.sharding import ShardCtx
+    from repro_torch.examples.train_100m import PRESETS, setup
+    from repro_torch.launch.mesh import init_world, make_mesh
+    from repro_torch.models.model import model_specs
+    from repro_torch.models.params import init_params, tree_flatten, tree_leaves, tree_map
+    from repro_torch.train.trainer import Trainer, init_train_state, make_grad_fn, \
+        make_train_step
+
+    phase = "dist"
+    t_phase = time.perf_counter()
+    out = os.path.join(ROOT, "build", "dist_smoke")  # /build/ is git-ignored
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = PRESETS["100m"]
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    ctx, tc, _, data_from = setup(cfg, DIST_STEPS, TRAIN_BATCH, TRAIN_SEQ, DIST_CKPT_AT,
+                                  os.path.join(out, "off"), DEV)
+    tc_on = dataclasses.replace(tc, compress_pod_grads=True, out_dir=os.path.join(out, "on"))
+    stream = data_from(0)
+    batches = [next(stream) for _ in range(DIST_STEPS)]
+    init = init_params(model_specs(cfg), torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init_world(device=DEV, timeout=datetime.timedelta(seconds=300))
+    world_s, backend = time.perf_counter() - t0, dist.get_backend()
+    try:
+        mesh = make_mesh((1, 1), ("pod", "data"), device=DEV)
+        mctx = dataclasses.replace(ctx, shard=ShardCtx(mesh))
+        with deterministic(True):
+            # off: the mesh's Trainer against the no-mesh Trainer
+            alone = no_save_trainer(ctx, tc, clone_tree(init), iter(batches))
+            log_alone = alone.run(DIST_STEPS)
+            meshed = no_save_trainer(mctx, tc, clone_tree(init), iter(batches))
+            log_off = meshed.run(DIST_STEPS)
+            off_equal = ([r["loss"] for r in log_off] == [r["loss"] for r in log_alone] and
+                         all(torch.equal(a, b) for a, b in zip(tree_leaves(meshed.params),
+                                                               tree_leaves(alone.params))))
+            del alone, meshed
+            # on, timed as off is (no checkpoint writes between its steps); then
+            # the three again in the other order: turns no mesh, off, on, on,
+            # off, no mesh
+            log_on_timed = no_save_trainer(mctx, tc_on, clone_tree(init),
+                                           iter(batches)).run(DIST_STEPS)
+            again = {name: no_save_trainer(c, t, clone_tree(init), iter(batches)).run(DIST_STEPS)
+                     for name, c, t in (("on", mctx, tc_on), ("off", mctx, tc),
+                                        ("no_mesh", ctx, tc))}
+            # on, step 1: the no-mesh gradients through compressed_psum_ref
+            params = clone_tree(init)
+            g_alone, _, _ = make_grad_fn(ctx, tc)(params, batches[0])
+            opt = init_train_state(mctx, tc_on, params)
+            (g_on, _, _), ops = record(make_grad_fn(mctx, tc_on), params, batches[0],
+                                       opt["err"])
+            want, want_err = compressed_psum_ref(tree_map(lambda g: g[None], g_alone),
+                                                 tree_map(torch.zeros_like, opt["err"]))
+            grads_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(g_on),
+                                                                tree_leaves(want)))
+            err_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(opt["err"]),
+                                                              tree_leaves(want_err)))
+            worst = 0.0  # the largest |residual| over its leaf's step
+            for g, e in zip(tree_leaves(g_alone), tree_leaves(opt["err"])):
+                scale = max(float(g.float().abs().max()), torch.finfo(torch.float32).tiny) / 127
+                worst = max(worst, float(e.abs().max()) / scale)
+            del g_alone, g_on, want, want_err, params, opt
+            # on: straight through with a checkpoint, then restarted from it
+            straight = Trainer(mctx, tc_on, clone_tree(init), iter(batches))
+            log_on = straight.run(DIST_STEPS)
+            tc_b = dataclasses.replace(tc_on, out_dir=os.path.join(out, "on_restart"))
+            src = os.path.join(tc_on.out_dir, "checkpoints", f"step_{DIST_CKPT_AT:08d}")
+            dst = os.path.join(tc_b.out_dir, "checkpoints", f"step_{DIST_CKPT_AT:08d}")
+            os.makedirs(dst)
+            for name in os.listdir(src):
+                os.link(os.path.join(src, name), os.path.join(dst, name))
+            with open(os.path.join(src, "meta.json")) as f:
+                err_shapes = [rec["shape"] for rec in json.load(f)["leaves"]
+                              [:len(tree_leaves(init))]]
+            second = Trainer(mctx, tc_b, clone_tree(init), iter(batches[DIST_CKPT_AT:]))
+            log_b = log_on[:DIST_CKPT_AT] + second.run(DIST_STEPS)
+            restart_equal = ([r["loss"] for r in log_b] == [r["loss"] for r in log_on] and
+                             all(torch.equal(a, b) for a, b in zip(
+                                 tree_leaves((straight.params, straight.opt_state)),
+                                 tree_leaves((second.params, second.opt_state)))))
+            profiles = {}
+            for name, c, t in (("off", mctx, tc), ("on", mctx, tc_on)):
+                params = clone_tree(init)
+                profiles[name] = kernels_of_step(make_train_step(c, t), params,
+                                                 init_train_state(c, t, params), batches[0])
+                del params
+            del second, straight
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(out, ignore_errors=True)
+
+    leaves = tree_flatten(init)[0]
+    n_elems, n_leaves = sum(t.numel() for t in leaves), len(leaves)
+    got = [(op.kwargs["collective"], op.kwargs["reduce"], op.kwargs["dtype"],
+            list(op.kwargs["shape"]), op.kwargs["group_size"])
+           for op in ops if "collective" in op.kwargs]
+    predicted = [("all-reduce", "sum", "torch.int64", [1], 1),
+                 ("all-reduce", "sum", "torch.float32", [2], 1),
+                 ("all-reduce", "sum", "torch.float32", [n_elems], 1),
+                 ("all-reduce", "max", "torch.float32", [n_leaves], 1),
+                 ("all-reduce", "sum", "torch.int32", [n_elems], 1),
+                 ("all-reduce", "sum", "torch.float32", [2], 1)]
+    stats = {"n_1": collective_stats(ops).to_dict(),
+             **{f"n_{n}_computed": collective_stats(ops, group_size=n).to_dict()
+                for n in DIST_COMPUTED_N}}
+    losses = {"off": [r["loss"] for r in log_off], "on": [r["loss"] for r in log_on]}
+    timed = {"no_mesh": (log_alone, again["no_mesh"]), "off": (log_off, again["off"]),
+             "on": (log_on_timed, again["on"])}
+    ms = {k: statistics.median(r["time_s"] * 1e3 for log in logs for r in log[1:])
+          for k, logs in timed.items()}
+    checks = {
+        "off_equals_no_mesh": off_equal, "on_step1_grads_equal_ref": grads_equal,
+        "on_step1_err_equal_ref": err_equal,
+        "on_err_within_half_step": worst <= 0.5 + 2**-15,
+        "losses_finite": all(math.isfinite(x) for v in losses.values() for x in v),
+        "loss_falls": all(statistics.mean(v[-4:]) < statistics.mean(v[:4])
+                          for v in losses.values()),
+        "on_timed_runs_equal_on": all([r["loss"] for r in log] == losses["on"]
+                                      for log in timed["on"]),
+        "restart_bit_equal": restart_equal,
+        "err_leaves_pod_shaped": err_shapes == [[1] + list(t.shape) for t in leaves],
+        "collectives_as_predicted": got == predicted}
+    emit({"phase": phase, "step": "dist", "world": {"backend": backend, "ranks": 1,
+                                                     "mesh": [[1, 1], ["pod", "data"]],
+                                                     "init_s": world_s},
+          "config": cfg.name, "params": n_elems, "leaves": n_leaves, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": DIST_STEPS, "remat": ctx.ex.remat,
+          "compute_dtype": str(tc.compute_dtype), "deterministic_algorithms": True,
+          "step_ms_median": ms, "on_minus_off_ms": ms["on"] - ms["off"],
+          "off_minus_no_mesh_ms": ms["off"] - ms["no_mesh"],
+          "off": step_stats([r["time_s"] for log in timed["off"] for r in log[1:]], flops),
+          "on": step_stats([r["time_s"] for log in timed["on"] for r in log[1:]], flops),
+          "step_ms": {k: [[r["time_s"] * 1e3 for r in log] for log in logs]
+                      for k, logs in timed.items()},
+          "profiled_step": profiles, "losses": losses,
+          "max_err_over_step": worst, "collectives": got, "collective_stats": stats,
+          "computed_reason": "n_2 / n_16: the same records' ring-model bytes over groups of "
+                             "that size (one card holds one rank)",
+          "timing_reason": "the first step of each run untimed (allocator warm-up)",
+          "checks": checks, "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi_line()})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase}: failed checks {failed}")
+    return {"step_ms": ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument(
@@ -7011,7 +7254,7 @@ def main(argv=None) -> int:
         default="device,autotune,pack_kernel,kernel,serve,paged_serve,mla_serve,phi3_serve,"
                 "minitron_serve,mixtral_serve,vlm_serve,rwkv_serve,hybrid_serve,encdec_serve,"
                 "serve_lut,tl1_kernel,tl1_serve,moe_kernel,moe_serve,bmm_kernel,bmm_serve,paper,"
-                "onehot,train,audit",
+                "onehot,train,audit,dist",
     )
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
@@ -7093,6 +7336,8 @@ def main(argv=None) -> int:
     train = run("train", train_phase)
     torch.cuda.empty_cache()
     run("audit", audit_phase)
+    torch.cuda.empty_cache()
+    run("dist", dist_phase)
     rows = []
     for k, s, path, names in ((kern, srv, "serve", ("lut_affine", "lut_affine_grouped")),
                               (tkern, tsrv, "tl1_serve", ("lut_tl1", "lut_tl1_grouped")),

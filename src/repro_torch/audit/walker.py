@@ -135,15 +135,19 @@ class _Recorder(TorchDispatchMode):
         for t in outputs:
             self._producer[t] = idx
 
-    def kernel(self, name: str, inputs: tuple, outputs: tuple) -> None:
-        """``kernels.common.RECORDER``: one launch as an opaque leaf."""
+    def kernel(self, name: str, inputs: tuple, outputs: tuple, **facts) -> None:
+        """``kernels.common.RECORDER``: one launch, or one collective, as an
+        opaque leaf; a collective's ``facts`` (op, group size, ...) go into
+        the leaf's ``kwargs``."""
         ins = [t for t in inputs if isinstance(t, torch.Tensor)]
         outs = [t for t in outputs if isinstance(t, torch.Tensor)]
-        self._add(name, ins, outs, opaque=True, mutates=True)
+        self._add(name, ins, outs, kwargs=facts, opaque=True, mutates=True)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if func.namespace == "c10d":
+            return out  # a collective: its wrapper reports it as one leaf
         flat_in, _ = tree_flatten((args, kwargs))
         inputs = [t for t in flat_in if isinstance(t, torch.Tensor)]
         pos = {id(t): i for i, t in reversed(list(enumerate(inputs)))}
@@ -184,11 +188,15 @@ def record(fn: Callable, *args, **kwargs) -> tuple[Any, list[Op]]:
         raise RuntimeError("a recording is already active")
     rec = _Recorder()
     common.RECORDER = rec.kernel
+    # the plain versions' device scales start empty, so a recording shows
+    # each one's making whatever ran before it (the engine's tensors stay)
+    scales, common.SCALES = common.SCALES, {}
     try:
         with rec:
             out = fn(*args, **kwargs)
     finally:
         common.RECORDER = None
+        common.SCALES = scales
     return out, rec.ops
 
 

@@ -19,7 +19,9 @@ from repro_torch.data.synthetic import LMStreamConfig, lm_batch
 def host_slice(global_batch: int) -> tuple[int, int]:
     """(this process's batch, its offset in the global batch): the rank and
     world size of ``torch.distributed`` when it is initialised, else one
-    process."""
+    process.  Under every mesh the Trainer takes (a ``model`` axis of 1,
+    the ``DeviceMesh`` row-major over ``("pod", "data")``) that is the
+    rank's coordinate along the ``batch`` rule's axes."""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         n, i = dist.get_world_size(), dist.get_rank()
@@ -37,7 +39,8 @@ def lm_stream(
 ) -> Iterator[dict]:
     """This process's slice of the LM stream from ``start_step`` on: step
     ``s`` yields :func:`lm_batch` of the slice's own seed
-    (``seed * 1000 + offset``) at ``s``."""
+    (``seed * 1000 + offset``) at ``s`` (the reference's contract: a
+    multi-process stream is not a slice of the one-process stream)."""
     hb, off = host_slice(global_batch)
     cfg = LMStreamConfig(vocab_size, seq_len, hb, seed=seed * 1000 + off)
     step = start_step

@@ -214,7 +214,7 @@ def binary_matmul(
     if use_kernels and planes2.is_cuda:
         out = _launch(planes2, W, vals)
     else:
-        out = binary_matmul_ref(planes2, W, torch.from_numpy(vals).to(W.device))
+        out = binary_matmul_ref(planes2, W, common.device_scales(vals, W.device))
     if bias is not None:
         out = out + bias.to(torch.float32)
     return out.reshape(*lead, p)

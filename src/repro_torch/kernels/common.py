@@ -1,12 +1,15 @@
 """Shared helpers for the port's Hopper kernels (counterpart of
 ``repro/kernels/common.py``), the launch counts of a captured CUDA
-graph (:func:`captured_counts` and :func:`replay_counted`) and the hook
-through which the audit records each launch (:data:`RECORDER`)."""
+graph (:func:`captured_counts` and :func:`replay_counted`), the hook
+through which the audit records each launch and each collective
+(:data:`RECORDER`), and the plain versions' plane scales held on the
+device (:func:`device_scales`)."""
 from __future__ import annotations
 
 from typing import Callable, TypeVar
 
 import numpy as np
+import torch
 
 T = TypeVar("T")
 
@@ -66,9 +69,30 @@ def ceil_to(x: int, mult: int) -> int:
 # no PyTorch dispatcher sees a launch: each wrapper, right where it counts a
 # launch, reports it as ``RECORDER(name, inputs, outputs)`` (the kernel's
 # name, the tensors it reads and the tensors it writes) when this is set.
+# Each collective of ``dist/`` reports itself the same way, with keyword
+# facts of its own (``dist/collectives.py``).
 # ``audit/walker.py::record`` sets it for the length of one recording; with
 # none active a report costs one ``None`` check.
-RECORDER: Callable[[str, tuple, tuple], None] | None = None
+RECORDER: Callable[..., None] | None = None
+
+# The plain versions' plane scales on the device, one tensor per distinct
+# fp32 vector and device.  A plain LUT call made while a CUDA graph is
+# captured cannot copy host values to the card, so the copy is made once,
+# by the first call (the engine's eager warm-up step), and every later call
+# reads the same tensor; a captured graph keeps reading it, so entries are
+# never dropped.
+SCALES: dict[tuple[bytes, torch.device], torch.Tensor] = {}
+
+
+def device_scales(values, device: torch.device) -> torch.Tensor:
+    """``values`` (host plane scales) as an fp32 tensor on ``device``, made
+    on the first call for these values and that device, then reused."""
+    vals = np.ascontiguousarray(values, np.float32).reshape(-1)
+    key = (vals.tobytes(), torch.device(device))
+    t = SCALES.get(key)
+    if t is None:
+        t = SCALES[key] = torch.tensor(vals, dtype=torch.float32, device=device)
+    return t
 
 
 def launch_counters() -> tuple[dict, ...]:

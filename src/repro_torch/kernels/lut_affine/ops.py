@@ -328,7 +328,7 @@ def lut_affine(
             common.RECORDER("lut_affine", (codes2, held[0]), (out,))
         out = out[0]
     else:
-        s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
+        s = common.device_scales(host_scales(scales), tables.device)
         out = lut_affine_ref(codes2, tables, s, shift_bits)
     if bias is not None:
         out = out + bias.to(torch.float32)
@@ -366,7 +366,7 @@ def lut_affine_grouped(
         if common.RECORDER is not None:
             common.RECORDER("lut_affine_grouped", (codes2, held[0]), (out,))
     else:
-        s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
+        s = common.device_scales(host_scales(scales), tables.device)
         out = lut_affine_grouped_ref(codes2, tables, s, shift_bits)
     if biases is not None:
         out = out + biases[:, None, :].to(torch.float32)
@@ -401,7 +401,7 @@ def lut_affine_experts(
         raise ValueError(f"group_sizes {tuple(group_sizes.shape)} for {E} experts")
     check_blocks("lut_affine_experts", codes.shape, tables, blocks)
     if not (use_kernels and codes.is_cuda):
-        s = torch.tensor(host_scales(scales), dtype=torch.float32, device=tables.device)
+        s = common.device_scales(host_scales(scales), tables.device)
         return lut_affine_experts_ref(codes, tables, s, group_sizes, shift_bits)
     codes = codes.contiguous()
     _check_operands(codes, tables, shift_bits)

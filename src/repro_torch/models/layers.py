@@ -33,8 +33,10 @@ from repro_torch.core.convert import LUTGroup, LUTLinear
 from repro_torch.core.lut import LUTPlan, plane_scales
 from repro_torch.core.lut_tl1 import TL1Plan, quantize_acts
 from repro_torch.core.quantize import FixedPointFormat
+from repro_torch.dist.sharding import ShardCtx
 from repro_torch.kernels.binary_matmul.ops import binary_matmul
 from repro_torch.kernels.bitplane_pack.ops import bitplane_pack, pack
+from repro_torch.kernels.common import device_scales
 from repro_torch.kernels.lut_affine.ops import lut_affine, lut_affine_grouped
 from repro_torch.kernels.lut_tl1.ops import lut_tl1, lut_tl1_grouped
 from repro_torch.models.params import PSpec
@@ -149,6 +151,8 @@ def sample_tokens(
 class Ctx:
     cfg: ModelConfig
     ex: ExecCfg = ExecCfg()
+    # the mesh and its rules (``dist/sharding.py``); inert without a mesh
+    shard: ShardCtx = ShardCtx()
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +245,7 @@ def _onehot_apply(
         onehot = (blk[..., None] == entries).reshape(rows * n, k * E)
         out = (onehot.to(torch.float32) @ t).reshape(rows, n, p)
         per_plane[r0:r0 + rows] = out[: min(rows, R - r0)]
-    s = torch.as_tensor(scales, dtype=torch.float32).to(tables.device)
-    y = torch.einsum("rnp,n->rp", per_plane, s)
+    y = torch.einsum("rnp,n->rp", per_plane, device_scales(scales, tables.device))
     if b is not None:
         y = y + b.to(torch.float32)
     return y.reshape(*lead, p)

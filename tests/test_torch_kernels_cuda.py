@@ -1035,6 +1035,36 @@ def test_graph_engine_matches_the_eager_engine_on_card(cuda_device, path, sample
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["weight", "tl1", "moe", "binary", "onehot"])
+def test_plain_graph_engine_matches_the_plain_eager_engine_on_card(cuda_device, path):
+    """The plain versions' engine (``use_kernels=False``; ``onehot``: the
+    weight tree under ``linear_mode="onehot_mxu"``, whose non-shift plans
+    take the one-hot product) under the default CUDA graph serves the eager
+    engine's streams whole, launching no kernel: the plain versions read
+    their plane scales from device tensors that the eager warm-up step
+    made (``kernels/common.py::device_scales``), so the captured step
+    copies nothing from the host."""
+    from repro_torch.kernels.binary_matmul import ops as bmm_ops
+    from repro_torch.kernels.bitplane_pack import ops as pack_ops
+    from repro_torch.kernels.lut_affine import ops as lut_ops
+    from repro_torch.kernels.lut_tl1 import ops as tl1_ops
+    from repro_torch.models.layers import SampleCfg
+
+    cfg, params, ex = _graph_world("weight" if path == "onehot" else path, cuda_device)
+    ex = {**ex, "use_kernels": False,
+          **({"linear_mode": "onehot_mxu"} if path == "onehot" else {})}
+    world = (cfg, params, ex)
+    eager, eager_counts, _ = _graph_serve(world, False, SampleCfg(), cuda_device)
+    graph, graph_counts, eng = _graph_serve(world, None, SampleCfg(), cuda_device)
+    assert eng.cuda_graph and eng._graph is not None
+    assert graph == eager
+    assert graph_counts == eager_counts
+    kernels = {k for c in (lut_ops.LAUNCHES, tl1_ops.LAUNCHES, pack_ops.LAUNCHES,
+                           bmm_ops.LAUNCHES) for k in c}
+    assert not any(graph_counts[k] for k in kernels)
+
+
+@pytest.mark.cuda
 def test_a_dead_engines_graph_leaves_a_capture_alone_on_card(cuda_device):
     """An engine whose captured graph only the cyclic collector can free:
     it is freed before the next engine's capture, never during it (a graph
@@ -1276,11 +1306,12 @@ def test_mla_paged_engine_is_the_dense_engine_on_bf16_latents_on_card(cuda_devic
 
 @pytest.mark.cuda
 def test_mla_kernel_path_first_tokens_match_plain_on_card(cuda_device):
-    """The reduced MLA engine on the kernels (graph) and on the plain
-    versions (eager): every request's first token equal."""
+    """The reduced MLA engine on the kernels and on the plain versions,
+    both under the default graph: every request's first token equal."""
     world = _graph_world("mla", cuda_device)
     got, _ = _mla_serve(world, cuda_device)
-    want, _ = _mla_serve(world, cuda_device, use_kernels=False, cuda_graph=False)
+    want, eng = _mla_serve(world, cuda_device, use_kernels=False)
+    assert eng._graph is not None
     assert [s[0] for s in got] == [s[0] for s in want]
 
 

@@ -65,6 +65,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.data import synthetic as S
 from repro_torch.data.pipeline import lm_stream, prefetch
 from repro_torch.dist import checkpoint as ckpt
+from repro_torch.dist.sharding import ShardCtx
 from repro_torch.examples import quickstart
 from repro_torch.models.layers import Ctx, ExecCfg
 from repro_torch.models.model import model_specs
@@ -458,9 +459,18 @@ def test_remat_gradients_equal_none(remat):
 
 
 def test_pod_compression_is_not_ported():
+    """Pod compression is ported (``tests/test_torch_dist_world.py``); what
+    is not is a mesh whose model axis has more than one rank, which raises
+    naming the ROADMAP's next slice.  Without a pod axis compression has
+    nothing to compress across, as in the reference."""
     cfg = get_config("granite_8b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pod"):
         make_grad_fn(Ctx(cfg), TrainConfig(compress_pod_grads=True))
+    mesh = type("Mesh", (), {"mesh_dim_names": ("pod", "data", "model"),
+                             "shape": (1, 1, 2)})()
+    for compress in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_grad_fn(Ctx(cfg, shard=ShardCtx(mesh)), TrainConfig(compress_pod_grads=compress))
 
 
 # ---------------------------------------------------------------------------
